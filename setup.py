@@ -29,8 +29,12 @@ setup(
         "TPU-native differentiable volume renderer using Gaussian ellipsoids "
         "(JAX/XLA/Pallas)"
     ),
-    packages=find_packages(include=["voge_tpu", "voge_tpu.*"]),
-    package_data={"voge_tpu.native": ["voge_native.cpp"]},
+    # voge_tpu_torch: the PyTorch + CUDA port (needs torch; its kernels are
+    # compiled by nvcc from the shipped csrc/ sources at first launch)
+    packages=find_packages(include=["voge_tpu", "voge_tpu.*",
+                                    "voge_tpu_torch", "voge_tpu_torch.*"]),
+    package_data={"voge_tpu.native": ["voge_native.cpp"],
+                  "voge_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["numpy", "jax", "optax"],
     cmdclass={"build_py": BuildWithNative},
