@@ -1,21 +1,35 @@
-"""Drive the voge_tpu_torch forward render on one NVIDIA GPU and check it.
+"""Drive the voge_tpu_torch render and its fitting step on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout.  Phases:
   1. the card (nvidia-smi name and power limit) and the kernel build from
-     ``voge_tpu_torch/csrc`` (build seconds, ptxas report);
+     ``voge_tpu_torch/csrc``, one ``nvcc`` per source, all at once (build
+     seconds, ptxas register / spill report);
   2. each kernel against its plain PyTorch version on the card, on a 1K
-     scene at 128x128 and on the 10K-Gaussian headline at 256x256 (K1 exact;
-     K2 at K = 5 and 20, with and without attributes; K3f);
-  3. the main path at the headline, through ``render_pipeline(attrs=)`` and
-     ``GaussianRenderer`` + ``to_white_background``, with every launch
-     counter read around it; the 1K result against the golden file written
-     by ``voge_tpu`` (tests/data); the 1K quickstart against its bounds;
-  4. CUDA-event timings of the headline forward on the kernel path and on
-     the plain path, and of each kernel against its plain version; a
-     torch.profiler trace of five kernel-path forwards gives the device's
-     busy share and the time by kernel.
+     scene at 128x128 and on the 10K-Gaussian headline at 256x256: K1
+     exact; K2 at K = 5 and 20, with and without attributes; K3f; the fold,
+     K3 (with and without attributes, with and without ray gradients) and
+     K4b with cotangents from a seeded ``torch.Generator``;
+  3. the main paths, each with every launch counter set to 0 just before it
+     and read just after:
+     - the forward at the headline, through ``render_pipeline(attrs=)`` and
+       ``GaussianRenderer`` + ``to_white_background`` (K1, K2, K3f);
+     - the headline fitting step, ``render_pipeline(attrs=, cam_ctx=
+       precompute_camera_ctx(...))`` -> ``bench.py``'s loss -> backward
+       (K1, K2, K3): overflow 0, finite gradients, two backward runs equal
+       to the bit, the loss and the gradients of verts, sigmas and colours
+       against ``voge_tpu``'s golden files (tests/data) at the headline and
+       at 1K 128x128;
+     - the 1K quickstart through ``GaussianRenderer`` ->
+       ``to_white_background`` -> mean-squared loss -> backward (K1, K2,
+       K3, K3f, K4b), gradients against the plain path on the card;
+     then the 1K forward against its golden file and the quickstart bounds;
+  4. CUDA-event timings of the headline forward and fitting step on the
+     kernel path and on the plain path, in turns, and of each kernel against
+     its plain version; a torch.profiler trace of five kernel-path fitting
+     steps gives the device's busy share and the time by kernel.
 
 Any failed check raises, so the exit code is nonzero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it a JSON line of the
@@ -36,21 +50,36 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-GOLDEN = ROOT / "tests" / "data" / "voge_tpu_golden_1k_128.npz"
+DATA = ROOT / "tests" / "data"
+GOLDEN = DATA / "voge_tpu_golden_1k_128.npz"
+GOLDEN_GRAD = {"1k": DATA / "voge_tpu_golden_grad_1k_128.npz",
+               "headline": DATA / "voge_tpu_golden_grad_10k_256.npz"}
 OUT_DIR = ROOT / "chiprun_out"
-KERNELS = {  # name -> (source, replaced TPU kernel)
-    "emit_keys": ("voge_tpu_torch/csrc/emit.cu",
+KERNELS = {  # name -> (library, source, replaced TPU kernel)
+    "emit_keys": ("emit", "voge_tpu_torch/csrc/emit.cu",
                   "voge_tpu/ops/pallas_coarse.py:38"),
-    "fine_select": ("voge_tpu_torch/csrc/fine_select.cu",
+    "fine_select": ("fine_select", "voge_tpu_torch/csrc/fine_select.cu",
                     "voge_tpu/ops/pallas_fine2.py:89"),
-    "attr_merge": ("voge_tpu_torch/csrc/attr_merge.cu",
+    "attr_merge": ("attr_merge", "voge_tpu_torch/csrc/attr_merge.cu",
                    "voge_tpu/ops/pallas_attr.py:64"),
+    "fold_weights": ("fold_weights", "voge_tpu_torch/csrc/fold_weights.cu",
+                     "voge_tpu/ops/pallas_fine2.py:627"),
+    "fine_bwd": ("fine_bwd", "voge_tpu_torch/csrc/fine_bwd.cu",
+                 "voge_tpu/ops/pallas_bwd.py:573"),
+    "attr_merge_bwd": ("attr_merge_bwd", "voge_tpu_torch/csrc/attr_merge_bwd.cu",
+                       "voge_tpu/ops/pallas_attr.py:90"),
 }
 # tolerances (tests/test_parity_full.py:22-49): selections equal but for
 # knife-edge pixels (< 0.1% flipped); len/act/dsd rtol 1e-5 atol 1e-5;
 # weights and images atol 1e-4 on agreeing pixels (kernel vs plain, and the
 # small-frame golden); 1.5e-3 is the f32 ceiling at the headline.
 FLIP_MAX, LAD_TOL, W_TOL = 1e-3, 1e-5, 1e-4
+# backward kernels against their plain versions: max |kernel - plain| <=
+# 1e-4 max |plain| per tensor (f32 sums in another order).  Gradients
+# against voge_tpu's golden files: normwise relative error <= 1e-3 per
+# gradient and the loss to a relative 1e-5 (XLA's sum order, its erf
+# against erff, knife-edge pixels).
+GRAD_TOL, GOLD_GRAD_TOL, GOLD_LOSS_TOL = 1e-4, 1e-3, 1e-5
 
 
 def need(cond, msg):
@@ -106,12 +135,15 @@ def cuda_ms(fn, n):
 
 @contextmanager
 def plain_path():
-    """Route the render through the three plain versions on CUDA tensors."""
-    from voge_tpu_torch.ops import coarse, cuda_attr, cuda_coarse, cuda_fine
+    """Route a render and its backward through the plain versions on CUDA
+    tensors."""
+    from voge_tpu_torch.ops import coarse, cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd, fine
 
     swaps = [(coarse, "emit_keys", cuda_coarse.emit_keys_plain),
-             (cuda_fine, "fine_select", cuda_fine.fine_select_plain),
-             (cuda_attr, "attr_merge", cuda_attr.attr_merge_plain)]
+             (fine, "fine_select", cuda_fine.fine_select_plain),
+             (fine, "fine_bwd", cuda_fine_bwd.fine_bwd_plain),
+             (cuda_attr, "attr_merge", cuda_attr.attr_merge_plain),
+             (cuda_attr, "attr_merge_bwd", cuda_attr.attr_merge_bwd_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     try:
         for m, n, fn in swaps:
@@ -139,6 +171,46 @@ def compare_select(got, want):
     return flips, err
 
 
+def grad_err(got, want, what):
+    """max |kernel - plain| / max |plain|, checked against GRAD_TOL."""
+    scale = want.abs().max().item()
+    need(scale > 0, f"{what}: plain result is all zero")
+    e = (got - want).abs().max().item() / scale
+    need(e <= GRAD_TOL, f"{what}: kernel vs plain {e:.3e}")
+    return e
+
+
+def rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def seeded(shape, dev, seed):
+    return torch.randn(shape, device=dev, generator=torch.Generator(dev).manual_seed(seed))
+
+
+def bench_loss(frag):
+    """bench.py's loss: mean((attr_img - 0.5)^2) + mean(silhouette^2)."""
+    import voge_tpu_torch as vt
+
+    return ((frag.attr_img - 0.5) ** 2).mean() + (vt.get_silhouette(frag) ** 2).mean()
+
+
+def fitting_step(g, cams, colors, hw, ctx=None):
+    """Loss and (verts, sigmas, colours) gradients of one fitting step."""
+    import voge_tpu_torch as vt
+
+    verts = g.verts.detach().requires_grad_(True)
+    sigmas = g.sigmas.detach().requires_grad_(True)
+    cols = colors.detach().requires_grad_(True)
+    if ctx is None:
+        ctx = vt.precompute_camera_ctx(*cams, hw, verts.shape[0], max_assign=20)
+    frag = vt.render_pipeline(verts, sigmas, *cams, image_size=hw, max_assign=20,
+                              cam_ctx=ctx, attrs=cols)
+    loss = bench_loss(frag)
+    return frag, loss, (verts, sigmas, cols)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device visible; the port's checks run only on a GPU")
@@ -146,9 +218,14 @@ def main():
     import voge_tpu_torch as vt
     from voge_tpu_torch import _build
     from voge_tpu_torch.ops import coarse, fine
-    from voge_tpu_torch.ops.cuda_attr import attr_merge, attr_merge_plain
+    from voge_tpu_torch.ops.cuda_attr import (
+        attr_merge, attr_merge_bwd, attr_merge_bwd_plain, attr_merge_plain,
+    )
     from voge_tpu_torch.ops.cuda_coarse import emit_keys, emit_keys_plain
     from voge_tpu_torch.ops.cuda_fine import fine_select, fine_select_plain
+    from voge_tpu_torch.ops.cuda_fine_bwd import (
+        fine_bwd, fine_bwd_plain, fold_weights, fold_weights_plain,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -156,7 +233,20 @@ def main():
     OUT_DIR.mkdir(exist_ok=True)
     details = {}
     launchers = {"emit_keys": emit_keys, "fine_select": fine_select,
-                 "attr_merge": attr_merge}
+                 "attr_merge": attr_merge, "fold_weights": fold_weights,
+                 "fine_bwd": fine_bwd, "attr_merge_bwd": attr_merge_bwd}
+
+    def zero_counts():
+        for fn in launchers.values():
+            fn.launches = 0
+
+    def read_counts(path, required):
+        torch.cuda.synchronize()
+        counts = {k: fn.launches for k, fn in launchers.items()}
+        print(f"main path {path}: launches {counts}")
+        for k in required:
+            need(counts[k] > 0, f"{k} was not launched on the main path {path}")
+        return counts
 
     # ---- 1. card and build --------------------------------------------
     smi = smi_line()
@@ -165,15 +255,14 @@ def main():
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     details["card"] = smi
     t0 = time.perf_counter()
-    for src in ("emit", "fine_select", "attr_merge"):
-        _build.load(src)
+    _build.load_all(lib for lib, _, _ in KERNELS.values())
     build_s = time.perf_counter() - t0
-    print(f"build: {build_s:.1f} s total " + ", ".join(
+    print(f"build: {build_s:.1f} s wall, in parallel: " + ", ".join(
         f"{k} {v[0]:.1f} s" for k, v in _build.build_info.items()))
     ptxas = "\n".join(f"== {k}\n{v[1]}" for k, v in _build.build_info.items())
     (OUT_DIR / "ptxas.txt").write_text(ptxas)
     for line in ptxas.splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
     details["build_s"] = build_s
 
@@ -195,32 +284,69 @@ def main():
         for K in (5, 20):
             c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
             need(int(c.overflow_c.sum()) == 0, f"{tag} overflow")
+            table = fine.candidate_table(points, isig, c.pos_c)
             for attrs in (None, colors):
-                args = (rays, c.table_c, c.bits_c, c.ids_c, c.counts_c,
+                args = (rays, table, c.bits_c, c.ids_c, c.counts_c,
                         c.thr_act, K, c.bin_size, 1.0, attrs)
                 got, want = fine_select(*args), fine_select_plain(*args)
                 flips, e = compare_select(got, want)
                 err["fine_select"] = max(err["fine_select"], e)
-                print(f"K2 {tag}: K={K} attrs={attrs is not None} M={c.table_c.shape[1]} "
+                print(f"K2 {tag}: K={K} attrs={attrs is not None} M={table.shape[1]} "
                       f"flips={flips:.2e} max_err(w,img)={e:.3e}")
                 if tag == "headline" and K == 20 and attrs is not None:
                     head["k2"] = args
                     head["k3"] = (got[0], got[4], colors)
+            sel = got  # K, attrs = this K, colours
+            g_cot = [seeded(sel[1].shape, dev, 10 + q) for q in range(4)]
+            g_img = seeded(rays.shape, dev, 20)
+            # the fold on its own
+            f_args = (*sel[1:5], g_cot[3], 1.0)
+            e = max(grad_err(a, b, f"fold {tag} K={K}")
+                    for a, b in zip(fold_weights(*f_args), fold_weights_plain(*f_args)))
+            err["fold_weights"] = max(err["fold_weights"], e)
+            # K3 with / without attributes and ray gradients
+            for with_attrs in (False, True):
+                for want_rays in (False, True):
+                    b_args = (rays, table, c.ids_c, c.counts_c, *sel[:5], *g_cot,
+                              c.bin_size, 1.0, colors if with_attrs else None,
+                              g_img if with_attrs else None, want_rays)
+                    kb, pb = fine_bwd(*b_args), fine_bwd_plain(*b_args)
+                    e = grad_err(kb[0], pb[0], f"K3 rows {tag} K={K}")
+                    if want_rays:
+                        e = max(e, grad_err(kb[1], pb[1], f"K3 rays {tag} K={K}"))
+                    err["fine_bwd"] = max(err["fine_bwd"], e)
+                    if tag == "headline" and K == 20 and with_attrs and not want_rays:
+                        head["k3b"] = b_args
+            print(f"fold/K3 {tag}: K={K} max_err/max|plain| fold {err['fold_weights']:.3e} "
+                  f"K3 {err['fine_bwd']:.3e}")
+            if tag == "headline" and K == 20:
+                head["fold"] = f_args
         idx, w, attrs = head["k3"] if tag == "headline" else (got[0], got[4], colors)
         e = (attr_merge(idx, w, attrs) - attr_merge_plain(idx, w, attrs)).abs().max().item()
         need(e <= 1e-5, f"K3f {tag} error {e}")
         err["attr_merge"] = max(err["attr_merge"], e)
-        print(f"K3f {tag}: max_err={e:.3e}")
+        g_att = seeded(idx.shape[:-1] + (3,), dev, 30)
+        e = max(grad_err(a, b, f"K4b {tag}") for a, b in zip(
+            attr_merge_bwd(idx, w, attrs, g_att), attr_merge_bwd_plain(idx, w, attrs, g_att)))
+        err["attr_merge_bwd"] = max(err["attr_merge_bwd"], e)
+        print(f"K3f {tag}: max_err={err['attr_merge']:.3e}; K4b max_err/max|plain|={e:.3e}")
         if tag == "headline":
-            head.update(k1=k1_args, scene=(g, cams, colors), P=P)
+            head.update(k1=k1_args, scene=(g, cams, colors), P=P,
+                        k4b=(idx, w, attrs, g_att))
     torch.cuda.synchronize()
 
-    # ---- 3. the main path ---------------------------------------------
+    # ---- 3. the main paths --------------------------------------------
     g, cams, colors = head["scene"]
     R, T, focal, principal = cams
     hw = (256, 256)
-    for fn in launchers.values():
-        fn.launches = 0
+    launches = {k: 0 for k in KERNELS}
+
+    def add(counts):
+        for k, v in counts.items():
+            launches[k] += v
+
+    # 3a. the headline forward (slice 1)
+    zero_counts()
     frag = vt.render_pipeline(g.verts, g.sigmas, *cams, image_size=hw,
                               max_assign=20, attrs=colors)
     cam_obj = vt.PerspectiveCameras(focal_length=300.0, principal_point=((128.0, 128.0),),
@@ -228,11 +354,7 @@ def main():
     renderer = vt.GaussianRenderer(cam_obj, vt.GaussianRenderSettings(image_size=hw))
     frag2 = renderer(g, R=R, T=T)
     white = vt.to_white_background(frag2, colors)
-    torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in launchers.items()}
-    print(f"main path launches: {launches}")
-    for k, nl in launches.items():
-        need(nl > 0, f"{k} was not launched on the main path")
+    add(read_counts("forward", ("emit_keys", "fine_select", "attr_merge")))
     for f in (frag, frag2):
         need(vt.get_overflow_points(f) == 0, "headline overflow_points != 0")
         need(torch.isfinite(f.vert_weight).all().item(), "non-finite weights")
@@ -244,6 +366,63 @@ def main():
     need(fused_vs_merge <= 1e-5, f"fused attr image vs merge {fused_vs_merge}")
     print(f"headline: P={head['P']} overflow=0 valid_px={(frag.valid_num > 0).float().mean().item():.4f} "
           f"weight_sum={frag.vert_weight.sum().item():.2f} fused_vs_merge={fused_vs_merge:.2e}")
+
+    # 3b. the headline fitting step (slice 2), and the 1K one
+    ctx = vt.precompute_camera_ctx(R, T, focal, principal, hw, g.verts.shape[0],
+                                   max_assign=20)
+    zero_counts()
+    frag_s, loss, params = fitting_step(g, cams, colors, hw, ctx)
+    grads = torch.autograd.grad(loss, params, retain_graph=True)
+    grads2 = torch.autograd.grad(loss, params)
+    add(read_counts("fitting step", ("emit_keys", "fine_select", "fine_bwd")))
+    need(vt.get_overflow_points(frag_s) == 0, "fitting step overflow_points != 0")
+    for name, a, b in zip(("verts", "sigmas", "colors"), grads, grads2):
+        need(bool(torch.isfinite(a).all()), f"non-finite {name} gradient")
+        need(torch.equal(a, b), f"{name} gradient differs between two backward runs")
+    gold_err = {}
+    for tag, (n, hw_g, focal_g) in (("1k", (1000, (128, 128), 150.0)),
+                                    ("headline", (10000, (256, 256), 300.0))):
+        gold = np.load(GOLDEN_GRAD[tag])
+        if tag == "headline":
+            lv, gr = loss.item(), grads
+        else:
+            g1, cams1, colors1 = scene(n, hw_g, focal_g, dev)
+            f1, l1, p1 = fitting_step(g1, cams1, colors1, hw_g)
+            need(vt.get_overflow_points(f1) == 0, "1K fitting step overflow")
+            lv, gr = l1.item(), torch.autograd.grad(l1, p1)
+        e = {"loss": abs(lv - float(gold["loss"])) / abs(float(gold["loss"]))}
+        need(e["loss"] <= GOLD_LOSS_TOL, f"golden {tag} loss {lv} vs {float(gold['loss'])}")
+        for name, x in zip(("verts", "sigmas", "colors"), gr):
+            e[name] = rel(x.cpu().numpy(), gold["grad_" + name])
+            need(e[name] <= GOLD_GRAD_TOL, f"golden {tag} grad {name} rel err {e[name]:.3e}")
+        gold_err[tag] = e
+        print(f"fitting step {tag} vs voge_tpu golden: loss {lv:.8f} rel err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
+    details["golden_grad"] = gold_err
+
+    # 3c. the 1K quickstart through GaussianRenderer -> white background
+    q, qcams, qcolors = scene(1000, (256, 256), 300.0, dev)
+    qcam = vt.PerspectiveCameras(focal_length=300.0, principal_point=((128.0, 128.0),),
+                                 image_size=(hw,), device=dev)
+    qrend = vt.GaussianRenderer(qcam, vt.GaussianRenderSettings(image_size=hw))
+    target = torch.rand((1, 256, 256, 3), device=dev,
+                        generator=torch.Generator(dev).manual_seed(7))
+
+    def white_step():
+        cols = qcolors.detach().requires_grad_(True)
+        img = vt.to_white_background(qrend(q, R=qcams[0], T=qcams[1]), cols)
+        return torch.autograd.grad(((img - target) ** 2).mean(), (q.verts, cols))
+
+    zero_counts()
+    wg = white_step()
+    add(read_counts("white background", ("emit_keys", "fine_select", "fine_bwd",
+                                          "attr_merge", "attr_merge_bwd")))
+    with plain_path():
+        wp = white_step()
+    white_err = {n: grad_err(a, b, f"white-background grad {n}")
+                 for n, a, b in zip(("verts", "colors"), wg, wp)}
+    print(f"quickstart white background fwd+bwd, kernel vs plain path: {white_err}")
+    details["white_background_grad_err"] = white_err
 
     gold = np.load(GOLDEN)
     g1, cams1, colors1 = scene(1000, (128, 128), 150.0, dev)
@@ -262,7 +441,6 @@ def main():
     print(f"golden 1K 128x128: flips={flips:.2e} max_err={gerr}")
     details["golden"] = dict(flips=flips, **gerr)
 
-    q, qcams, qcolors = scene(1000, (256, 256), 300.0, dev)
     fq = vt.render_pipeline(q.verts, q.sigmas, *qcams, image_size=(256, 256), max_assign=20)
     wsum = fq.vert_weight.sum().item()
     sil = vt.get_silhouette(fq).mean().item()
@@ -281,52 +459,66 @@ def main():
         return vt.render_pipeline(v, sig, *cams, image_size=hw, max_assign=20,
                                   attrs=colors).attr_img
 
-    def timed(vs):
+    def fwd_bwd(v):
+        v = v.detach().requires_grad_(True)
+        s = sig.detach().requires_grad_(True)
+        c = colors.detach().requires_grad_(True)
+        frag = vt.render_pipeline(v, s, *cams, image_size=hw, max_assign=20,
+                                  cam_ctx=ctx, attrs=c)
+        return torch.autograd.grad(bench_loss(frag), (v, s, c))
+
+    def timed(fn, vs):
         out = []
         for v in vs:
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
-            forward(v)
+            fn(v)
             b.record()
             torch.cuda.synchronize()
             out.append(a.elapsed_time(b))
         return out
 
-    runs = {"kernel": [], "plain": []}
-    for v in inputs[:2]:
-        forward(v)
-    with plain_path():
-        forward(inputs[0])
-    torch.cuda.synchronize()
-    for order, path in enumerate(("plain", "kernel", "kernel", "plain")):
-        part = inputs[4 + 10 * (order % 2): 14 + 10 * (order % 2)]
-        if path == "plain":
-            with plain_path():
-                runs[path] += timed(part)
-        else:
-            runs[path] += timed(part)
-    fwd = {}
-    for path, ts in runs.items():
-        med = statistics.median(ts)
-        fwd[path] = dict(median_ms=med, min_ms=min(ts), max_ms=max(ts),
-                         spread=(max(ts) - min(ts)) / med, n=len(ts))
-        print(f"headline forward {path} path: median {med:.3f} ms, "
-              f"min {min(ts):.3f}, max {max(ts):.3f}, n={len(ts)}")
-    details["forward"] = fwd
+    for label, fn in (("forward", forward), ("fwd+bwd", fwd_bwd)):
+        runs = {"kernel": [], "plain": []}
+        for v in inputs[:2]:
+            fn(v)
+        with plain_path():
+            fn(inputs[0])
+        torch.cuda.synchronize()
+        for order, path in enumerate(("plain", "kernel", "kernel", "plain")):
+            part = inputs[4 + 10 * (order % 2): 14 + 10 * (order % 2)]
+            if path == "plain":
+                with plain_path():
+                    runs[path] += timed(fn, part)
+            else:
+                runs[path] += timed(fn, part)
+        stats = {}
+        for path, ts in runs.items():
+            med = statistics.median(ts)
+            stats[path] = dict(median_ms=med, min_ms=min(ts), max_ms=max(ts),
+                               spread=(max(ts) - min(ts)) / med, n=len(ts))
+            print(f"headline {label} {path} path: median {med:.3f} ms, "
+                  f"min {min(ts):.3f}, max {max(ts):.3f}, n={len(ts)}")
+        details[label] = stats
+    step_ms = details["fwd+bwd"]["kernel"]["median_ms"]
 
-    k2 = head["k2"]
-    k3 = head["k3"]
+    k2, k3 = head["k2"], head["k3"]
     per = {
         "emit_keys": (lambda: emit_keys(*head["k1"]), lambda: emit_keys_plain(*head["k1"])),
         "fine_select": (lambda: fine_select(*k2), lambda: fine_select_plain(*k2)),
         "attr_merge": (lambda: attr_merge(*k3), lambda: attr_merge_plain(*k3)),
+        "fold_weights": (lambda: fold_weights(*head["fold"]),
+                         lambda: fold_weights_plain(*head["fold"])),
+        "fine_bwd": (lambda: fine_bwd(*head["k3b"]), lambda: fine_bwd_plain(*head["k3b"])),
+        "attr_merge_bwd": (lambda: attr_merge_bwd(*head["k4b"]),
+                           lambda: attr_merge_bwd_plain(*head["k4b"])),
     }
     kern = []
     for name, (kfn, pfn) in per.items():
         ms = cuda_ms(kfn, 50)
-        plain_ms = cuda_ms(pfn, 5 if name == "fine_select" else 20)
+        plain_ms = cuda_ms(pfn, 5 if name in ("fine_select", "fine_bwd") else 20)
         print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        src, rep = KERNELS[name]
+        _, src, rep = KERNELS[name]
         kern.append(dict(name=name, route="cuda", source=src, replaces=rep,
                          launches=launches[name], max_abs_err=err[name],
                          ms=ms, plain_ms=plain_ms))
@@ -338,21 +530,21 @@ def main():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for v in inputs[:5]:
-            forward(v)
+            fwd_bwd(v)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kinds = {ev.key: ev.self_device_time_total / 1e3 for ev in prof.key_averages()
              if ev.device_type == torch.autograd.DeviceType.CUDA}
-    # device time per forward from the trace, over the untraced median wall
+    # device time per fitting step from the trace, over the untraced median wall
     dev_ms = sum(kinds.values()) / 5
-    busy = dev_ms / fwd["kernel"]["median_ms"]
-    top = sorted(kinds.items(), key=lambda kv: -kv[1])[:8]
-    print(f"profile: device {dev_ms:.3f} ms per forward, busy share {busy:.3f} of the "
-          f"untraced median (traced wall {wall_ms / 5:.3f} ms); top over 5 forwards: "
+    busy = dev_ms / step_ms
+    top = sorted(kinds.items(), key=lambda kv: -kv[1])[:10]
+    print(f"profile: device {dev_ms:.3f} ms per fitting step, busy share {busy:.3f} of the "
+          f"untraced median (traced wall {wall_ms / 5:.3f} ms); top over 5 steps: "
           + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
-    details["profile"] = dict(device_ms_per_forward=dev_ms, device_busy_share=busy,
-                              traced_wall_ms_per_forward=wall_ms / 5,
-                              device_ms_by_kernel_5_forwards=kinds)
+    details["profile"] = dict(device_ms_per_step=dev_ms, device_busy_share=busy,
+                              traced_wall_ms_per_step=wall_ms / 5,
+                              device_ms_by_kernel_5_steps=kinds)
     (OUT_DIR / "profile.txt").write_text(
         prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
 

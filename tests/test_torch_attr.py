@@ -1,14 +1,18 @@
-"""Kernel K3f of the port (the plain version of
-``voge_tpu_torch.ops.cuda_attr.attr_merge``) against ``voge_tpu``'s attribute
-merge kernel ``pallas_attr.attr_merge_compact`` in interpret mode, on
-selections drawn from emission-compacted candidate rows.
+"""Kernels K3f and K4b of the port (the plain versions of
+``voge_tpu_torch.ops.cuda_attr.attr_merge`` and ``attr_merge_bwd``) against
+``voge_tpu``'s attribute merge ``pallas_attr.attr_merge_compact`` and its VJP
+(``_attr_bwd_call``, the Pallas ``_bwd_unified_kernel``) in interpret mode,
+on selections drawn from emission-compacted candidate rows.
 
-Tolerance: the composited image agrees to atol 1e-5 (f32 sums of K terms in
-another order; the envelope for composited images is 1e-4)."""
+Tolerance: the composited image and d_w agree to atol 1e-5 (f32 sums of K
+terms in another order; the envelope for composited images is 1e-4); d_attr,
+a sum over the hundreds of slots that hold one Gaussian, to rtol 1e-5 and
+atol 1e-5."""
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import voge_tpu.ops.fine as F
@@ -16,7 +20,7 @@ from voge_tpu.cameras import look_at_view_transform
 from voge_tpu.ops import coarse as jcoarse
 from voge_tpu.ops.pallas_attr import attr_merge_compact
 from voge_tpu.rays import camera_rays
-from voge_tpu_torch.ops.cuda_attr import AttrMerge, attr_merge_plain
+from voge_tpu_torch.ops.cuda_attr import AttrMerge, attr_merge_bwd_plain, attr_merge_plain
 
 torch.set_num_threads(2)
 
@@ -71,9 +75,54 @@ def test_plain_attr_merge_matches_pallas(case):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
 
 
-def test_attr_merge_backward_raises(case):
-    w = torch.as_tensor(case["w"]).requires_grad_(True)
-    attrs = torch.as_tensor(np.swapaxes(case["attr"], 1, 2).reshape(B * P, CA).copy())
-    out = AttrMerge.apply(w, attrs, torch.as_tensor(case["sel"]))
-    with pytest.raises(NotImplementedError, match="pallas_attr"):
-        out.sum().backward()
+def _unbin(x):
+    BH, BW = (H - 1) // BS + 1, (W - 1) // BS + 1
+    return np.array(F.unbin_kern(jnp.asarray(x), B, BH, BW, H, W, BS, BS, True))
+
+
+def _to_kern(x):
+    """(B, H, W, C) -> the (nb, 4 * BS * BS, C) kernel layout, zero outside
+    the image."""
+    BH, BW = (H - 1) // BS + 1, (W - 1) // BS + 1
+    C = x.shape[-1]
+    xp = np.zeros((B, BH * BS, BW * BS, C), np.float32)
+    xp[:, :H, :W] = x
+    xb = xp.reshape(B, BH, BS, BW, BS, C).transpose(0, 1, 3, 2, 4, 5)
+    xb = xb.reshape(B * BH * BW, BS * BS, C)
+    return F._group_supertiles(jnp.asarray(xb), B, BH, BW)[0]
+
+
+def test_plain_attr_merge_bwd_matches_pallas(case):
+    """d_w and d_attr against ``jax.vjp`` of ``attr_merge_compact`` (its
+    backward runs the Pallas ``_bwd_unified_kernel`` in interpret mode)."""
+    w_eff = jnp.asarray(np.where(case["sel"] >= 0, case["w"], 0.0).astype(np.float32))
+    g_img = np.random.RandomState(12).normal(size=(B, H, W, CA)).astype(np.float32)
+    sel_k = jnp.asarray(case["sel"])
+    _, vjp = jax.vjp(
+        lambda a, w: attr_merge_compact(a, w, sel_k, case["ids_c"], case["pos_c"],
+                                        case["counts_c"], None, B, True),
+        jnp.asarray(case["attr"]), w_eff)
+    d_attr_j, d_w_j = vjp(_to_kern(g_img))
+    sel, w = _unbin(case["sel"]), _unbin(case["w"])
+    attrs = np.swapaxes(case["attr"], 1, 2).reshape(B * P, CA).copy()
+    t = torch.as_tensor
+    d_w, d_attr = attr_merge_bwd_plain(t(sel), t(w), t(attrs), t(g_img))
+    assert d_w.shape == (B, H, W, K) and d_attr.shape == (B * P, CA)
+    want_w = np.where(sel >= 0, _unbin(d_w_j), 0.0)
+    np.testing.assert_allclose(d_w.numpy(), want_w, rtol=0, atol=1e-5)
+    want_attr = np.swapaxes(np.asarray(d_attr_j), 1, 2).reshape(B * P, CA)
+    assert np.abs(want_attr).max() > 0.1
+    np.testing.assert_allclose(d_attr.numpy(), want_attr, rtol=1e-5, atol=1e-5)
+
+
+def test_attr_merge_autograd_uses_its_backward(case):
+    """``AttrMerge``'s backward returns the plain backward's d_w and d_attr
+    and leaves ``idx`` without a gradient."""
+    t = torch.as_tensor
+    sel, w0 = t(_unbin(case["sel"])), t(_unbin(case["w"]))
+    w = w0.clone().requires_grad_(True)
+    attrs = t(np.swapaxes(case["attr"], 1, 2).reshape(B * P, CA).copy()).requires_grad_(True)
+    g = torch.randn(B, H, W, CA, generator=torch.Generator().manual_seed(1))
+    AttrMerge.apply(w, attrs, sel).backward(g)
+    d_w, d_attr = attr_merge_bwd_plain(sel, w0, attrs.detach(), g)
+    assert torch.equal(w.grad, d_w) and torch.equal(attrs.grad, d_attr)

@@ -2,7 +2,10 @@
 version of kernel K1) against ``voge_tpu``'s Pallas emission kernel run in
 interpret mode (``emit_supertile_candidates(..., _force="kernel")``), on the
 cases of ``tests/test_ops.py::test_emit_kernel_matches_xla_emission``.
-Candidate rows are integer outputs: they must match exactly."""
+Candidate rows and the inverse emission map are integer outputs: they must
+match exactly.  The gather-back through that map against
+``pallas_attr.gather_back_rows``: atol 1e-6 (sums of <= 9 rows in another
+order)."""
 import numpy as np
 import pytest
 import torch
@@ -11,9 +14,11 @@ import jax.numpy as jnp
 
 from voge_tpu.cameras import look_at_view_transform
 from voge_tpu.ops import coarse as jcoarse
+from voge_tpu.ops.pallas_attr import gather_back_rows as j_gather_back_rows
 from voge_tpu.rays import camera_rays
 from voge_tpu_torch.ops import coarse as tcoarse
 from voge_tpu_torch.ops.cuda_coarse import emit_keys, emit_keys_plain
+from voge_tpu_torch.ops.fine import gather_back_rows
 
 torch.set_num_threads(2)
 
@@ -86,3 +91,43 @@ def test_emit_keys_dispatch_on_cpu_is_the_plain_version():
     assert a[0].dtype == torch.int64
     for x, y in zip(a, b):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case,B,M_max", [("plain", 1, 64), ("big", 1, 64),
+                                          ("big", 2, 64), ("plain", 1, 8)])
+def test_dst_matches_pallas_emission(case, B, M_max):
+    """``return_dst=True``: the inverse emission map equals ``voge_tpu``'s
+    (local keys, global members, their indices and validity), with one
+    image, two images, a global member and rows capped below the densest
+    supertile; then gathering random per-slot rows back through it equals
+    ``pallas_attr.gather_back_rows``."""
+    cams, pts, isig, hw = _inputs(case, B=B)
+    thr, bin_size = 0.01, 10
+    ref = jcoarse.emit_supertile_candidates(
+        *[jnp.asarray(c) for c in cams], jnp.asarray(pts), jnp.asarray(isig),
+        hw, thr, bin_size, M_max, return_dst=True, _force="kernel")
+    got = tcoarse.emit_supertile_candidates(
+        *[torch.as_tensor(c) for c in cams], torch.as_tensor(pts),
+        torch.as_tensor(isig), hw, thr, bin_size, M_max, return_dst=True)
+    names = ["pos_c", "bits_c", "ids_c", "counts_c", "overflow_c"]
+    for nm, r, g in zip(names, ref[:5], got[:5]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r).reshape(g.shape), err_msg=nm)
+    for nm, r, g in zip(["dst_l", "dst_g", "gpos", "g_valid"], ref[5], got[5]):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r), err_msg=nm)
+    dst_l, dst_g = got[5][0].numpy(), got[5][1].numpy()
+    assert (dst_l >= 0).sum() + (dst_g >= 0).sum() == got[3].sum()
+    if case == "big":
+        assert (dst_g >= 0).sum() > 1
+    if M_max == 8:
+        assert got[4].sum() > 0
+
+    nb = got[0].shape[0]
+    rng = np.random.RandomState(4)
+    rows = rng.normal(size=(nb * M_max, 15)).astype(np.float32)
+    rows *= (np.arange(M_max)[None] < got[3].numpy()[:, None]).reshape(-1, 1)
+    P = pts.shape[1]
+    want = j_gather_back_rows(jnp.asarray(rows), tuple(jnp.asarray(x) for x in ref[5]),
+                              B, P, nb * M_max)
+    gg = gather_back_rows(torch.as_tensor(rows), got[5])
+    assert gg.shape == (B, P, 15)
+    np.testing.assert_allclose(gg.numpy(), np.asarray(want), rtol=0, atol=1e-6)

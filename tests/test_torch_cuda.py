@@ -9,7 +9,10 @@ run there without the suite's conftest (which imports JAX):
 Tolerances: K1 and K3f's inputs give equal outputs (K1 bit for bit, K3f to
 1e-5: the kernel's sum may contract into FMAs); K2 selections equal but for
 knife-edge pixels (< 0.1% flipped), len / act / dsd rtol 1e-5 atol 1e-5 and
-weights / images atol 1e-4 on agreeing pixels.
+weights / images atol 1e-4 on agreeing pixels.  The backward kernels (the
+fold, K3, K4b) and the gradients of a whole render: max |kernel - plain| <=
+1e-4 max |plain| per tensor (f32 sums in another order); two backward runs
+equal to the bit.
 """
 import numpy as np
 import pytest
@@ -17,10 +20,15 @@ import torch
 
 import voge_tpu_torch as vt
 from voge_tpu_torch.aggregation import expend_sigma
-from voge_tpu_torch.ops import coarse, fine
-from voge_tpu_torch.ops.cuda_attr import attr_merge, attr_merge_plain
+from voge_tpu_torch.ops import coarse, cuda_attr, fine
+from voge_tpu_torch.ops.cuda_attr import (
+    attr_merge, attr_merge_bwd, attr_merge_bwd_plain, attr_merge_plain,
+)
 from voge_tpu_torch.ops.cuda_coarse import emit_keys, emit_keys_plain
 from voge_tpu_torch.ops.cuda_fine import fine_select, fine_select_plain
+from voge_tpu_torch.ops.cuda_fine_bwd import (
+    fine_bwd, fine_bwd_plain, fold_weights, fold_weights_plain,
+)
 from voge_tpu_torch.rays import camera_rays
 
 torch.set_num_threads(2)
@@ -82,7 +90,8 @@ def test_emit_kernel_equals_plain(stage):
 def test_select_kernel_matches_plain(stage, K, with_attrs):
     cams, hw, rays, points, isig, colors = stage
     c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
-    args = (rays, c.table_c, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K,
+    table = fine.candidate_table(points, isig, c.pos_c)
+    args = (rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K,
             c.bin_size, 0.9, colors if with_attrs else None)
     before = fine_select.launches
     got = fine_select(*args)
@@ -104,7 +113,8 @@ def test_select_kernel_matches_plain(stage, K, with_attrs):
 def test_attr_kernel_matches_plain(stage):
     cams, hw, rays, points, isig, colors = stage
     c = fine.compact_candidates(*cams, points, isig, hw, 0.01, 20)
-    idx, _, _, _, w, _ = fine_select_plain(rays, c.table_c, c.bits_c, c.ids_c,
+    table = fine.candidate_table(points, isig, c.pos_c)
+    idx, _, _, _, w, _ = fine_select_plain(rays, table, c.bits_c, c.ids_c,
                                            c.counts_c, c.thr_act, 20, c.bin_size, 1.0)
     before = attr_merge.launches
     got = attr_merge(idx, w, colors)
@@ -115,11 +125,146 @@ def test_attr_kernel_matches_plain(stage):
 def test_wrappers_check_their_inputs(stage):
     cams, hw, rays, points, isig, colors = stage
     c = fine.compact_candidates(*cams, points, isig, hw, 0.01, 20)
+    table = fine.candidate_table(points, isig, c.pos_c)
     with pytest.raises(TypeError):
-        fine_select(rays, c.table_c, c.bits_c.long(), c.ids_c, c.counts_c,
+        fine_select(rays, table, c.bits_c.long(), c.ids_c, c.counts_c,
                     c.thr_act, 20, c.bin_size, 1.0)
     with pytest.raises(ValueError):
-        fine_select(rays.cpu(), c.table_c, c.bits_c, c.ids_c, c.counts_c,
+        fine_select(rays.cpu(), table, c.bits_c, c.ids_c, c.counts_c,
                     c.thr_act, 20, c.bin_size, 1.0)
     with pytest.raises(ValueError):
-        attr_merge(c.ids_c[:, ::2], torch.ones_like(c.table_c[:, ::2, 0]), colors)
+        attr_merge(c.ids_c[:, ::2], torch.ones_like(table[:, ::2, 0]), colors)
+    sel = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, 20,
+                      c.bin_size, 1.0)
+    with pytest.raises(ValueError):
+        fine_bwd(rays, table, c.ids_c, c.counts_c, *sel[:5], None, None, None,
+                 sel[4][..., :3].contiguous(), c.bin_size, 1.0)
+    with pytest.raises(ValueError):
+        attr_merge_bwd(sel[0], sel[4], colors, torch.ones_like(rays).cpu())
+
+
+def _close(got, want):
+    """max |kernel - plain| <= 1e-4 max |plain|."""
+    assert want.abs().max() > 0
+    err = (got - want).abs().max().item()
+    assert err <= 1e-4 * want.abs().max().item(), err
+
+
+def _cotangents(shape, dev, n, seed):
+    gen = torch.Generator(dev).manual_seed(seed)
+    return [torch.randn(shape, device=dev, generator=gen) for _ in range(n)]
+
+
+@pytest.mark.parametrize("K", [5, 20, 40])
+def test_fold_kernel_matches_plain(stage, K):
+    cams, hw, rays, points, isig, colors = stage
+    c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
+    table = fine.candidate_table(points, isig, c.pos_c)
+    _, l, a, d, w, _ = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c,
+                                   c.thr_act, K, c.bin_size, 0.9)
+    (gw,) = _cotangents(w.shape, rays.device, 1, K)
+    before = fold_weights.launches
+    got = fold_weights(l, a, d, w, gw, 0.9)
+    want = fold_weights_plain(l, a, d, w, gw, 0.9)
+    torch.cuda.synchronize()
+    assert fold_weights.launches == before + 1
+    for g, x in zip(got, want):
+        _close(g, x)
+
+
+@pytest.mark.parametrize("want_rays", [False, True])
+@pytest.mark.parametrize("with_attrs", [False, True])
+def test_fine_bwd_kernel_matches_plain(stage, with_attrs, want_rays):
+    cams, hw, rays, points, isig, colors = stage
+    c = fine.compact_candidates(*cams, points, isig, hw, 0.01, 20)
+    table = fine.candidate_table(points, isig, c.pos_c)
+    attrs = colors if with_attrs else None
+    sel = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, 20,
+                      c.bin_size, 0.9, attrs)
+    cots = _cotangents(sel[1].shape, rays.device, 4, 3)
+    g_img = _cotangents(rays.shape, rays.device, 1, 4)[0] if with_attrs else None
+    args = (rays, table, c.ids_c, c.counts_c, *sel[:5], *cots, c.bin_size, 0.9,
+            attrs, g_img, want_rays)
+    before = fine_bwd.launches
+    got = fine_bwd(*args)
+    again = fine_bwd(*args)
+    want = fine_bwd_plain(*args)
+    torch.cuda.synchronize()
+    assert fine_bwd.launches == before + 2
+    assert got[0].shape == (table.shape[0], table.shape[1], 15 if with_attrs else 12)
+    _close(got[0], want[0])
+    assert torch.equal(got[0], again[0])
+    if want_rays:
+        _close(got[1], want[1])
+        assert torch.equal(got[1], again[1])
+    else:
+        assert got[1] is None and want[1] is None
+
+
+def test_attr_merge_bwd_kernel_matches_plain(stage):
+    cams, hw, rays, points, isig, colors = stage
+    c = fine.compact_candidates(*cams, points, isig, hw, 0.01, 20)
+    table = fine.candidate_table(points, isig, c.pos_c)
+    idx, _, _, _, w, _ = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c,
+                                     c.thr_act, 20, c.bin_size, 1.0)
+    (g,) = _cotangents(rays.shape, rays.device, 1, 5)
+    before = attr_merge_bwd.launches
+    got = attr_merge_bwd(idx, w, colors, g)
+    again = attr_merge_bwd(idx, w, colors, g)
+    want = attr_merge_bwd_plain(idx, w, colors, g)
+    torch.cuda.synchronize()
+    assert attr_merge_bwd.launches == before + 2
+    for x, y, z in zip(got, want, again):
+        _close(x, y)
+        assert torch.equal(x, z)
+
+
+class _PlainPath:
+    """Route a render and its backward through the plain versions."""
+
+    def __enter__(self):
+        from voge_tpu_torch.ops import cuda_coarse
+
+        self.saved = [(coarse, "emit_keys", cuda_coarse.emit_keys_plain),
+                      (fine, "fine_select", fine_select_plain),
+                      (fine, "fine_bwd", fine_bwd_plain),
+                      (cuda_attr, "attr_merge", attr_merge_plain),
+                      (cuda_attr, "attr_merge_bwd", attr_merge_bwd_plain)]
+        self.saved = [(m, n, getattr(m, n), f) for m, n, f in self.saved]
+        for m, n, _, f in self.saved:
+            setattr(m, n, f)
+
+    def __exit__(self, *exc):
+        for m, n, f, _ in self.saved:
+            setattr(m, n, f)
+
+
+def test_render_gradients_kernel_path_match_plain_path(dev):
+    """The fitting step's gradients through the kernels against the same
+    step through the plain versions, and two kernel-path backward runs equal
+    to the bit; the white-background path through K4b as well."""
+    g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 1000,
+                                         percentage=0.6, as_obj=True, device=dev)
+    R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70, device=dev)
+    f = torch.tensor([[150.0, 150.0]], device=dev)
+    pp = torch.tensor([[64.0, 64.0]], device=dev)
+    colors = ((g.verts.detach() + 1) / 3).contiguous().requires_grad_(True)
+
+    def step():
+        frag = vt.render_pipeline(g.verts, g.sigmas, R, T, f, pp, image_size=(128, 128),
+                                  max_assign=20, attrs=colors)
+        white = vt.to_white_background(frag, colors)
+        loss = (((frag.attr_img - 0.5) ** 2).mean() + (vt.get_silhouette(frag) ** 2).mean()
+                + white.square().mean())
+        return torch.autograd.grad(loss, (g.verts, g.sigmas, colors))
+
+    before = (fine_bwd.launches, attr_merge_bwd.launches)
+    k1, k2 = step(), step()
+    assert fine_bwd.launches == before[0] + 2 and attr_merge_bwd.launches == before[1] + 2
+    with _PlainPath():
+        p = step()
+    torch.cuda.synchronize()
+    for a, b, c in zip(k1, k2, p):
+        assert torch.equal(a, b)
+        assert torch.isfinite(a).all()
+        _close(a, c)

@@ -1,13 +1,23 @@
-"""Kernel K2 of the port (the plain version of
-``voge_tpu_torch.ops.cuda_fine.fine_select``) against ``voge_tpu``'s
-streaming select kernel ``pallas_fine2.fine_select_compact_pallas`` in
-interpret mode, with fused weights (``agg_ow=0.9``) and a fused 8-channel
-attribute image, on the same emission-compacted candidate rows and rays.
+"""Kernels K2 and K3 of the port against ``voge_tpu``'s Pallas kernels in
+interpret mode, on the same emission-compacted candidate rows and rays:
 
-Tolerances (as in ``tests/test_parity_full.py:22-49``):
-selections equal but for knife-edge pixels, flipped pixels < 0.1%;
-len / act / dsd rtol 1e-5, atol 1e-5 on agreeing pixels; weights and the
-attribute image atol 1e-4 on agreeing pixels."""
+- the plain select (``cuda_fine.fine_select_plain``) against
+  ``pallas_fine2.fine_select_compact_pallas``, with fused weights
+  (``agg_ow=0.9``) and a fused 8-channel attribute image;
+- the plain weight fold (``cuda_fine_bwd.fold_weights_plain``) against
+  ``pallas_fine2.fold_weights_pallas``;
+- the plain fine backward (``cuda_fine_bwd.fine_bwd_plain``) against
+  ``pallas_bwd.fine_bwd_compact_t_pallas``, fed the Pallas select's own
+  outputs, with and without the attribute VJP, with and without rays.
+
+Tolerances (as in ``tests/test_parity_full.py:22-49``): selections equal but
+for knife-edge pixels, flipped pixels < 0.1%; len / act / dsd rtol 1e-5, atol
+1e-5 on agreeing pixels; weights and the attribute image atol 1e-4 on
+agreeing pixels.  The fold: rtol 1e-4, atol 1e-5 (``tests/test_pallas.py``'s
+fold test; ``torch.erf`` and ``voge_tpu``'s polynomial ``_erf32`` differ by
+~1e-7).  Gradients: normwise relative error <= 1e-3 per tensor and the
+elementwise envelope rtol 5e-3, atol 5e-4 of ``tests/test_pallas.py:548-550``
+(f32 sums in another order; XLA's ``segment_sum`` order)."""
 import math
 
 import numpy as np
@@ -19,9 +29,14 @@ import jax.numpy as jnp
 import voge_tpu.ops.fine as F
 from voge_tpu.cameras import look_at_view_transform
 from voge_tpu.ops import coarse as jcoarse
-from voge_tpu.ops.pallas_fine2 import fine_select_compact_pallas, prefix_visit_lists
+from voge_tpu.aggregation import weights_from_sel
+from voge_tpu.ops.pallas_bwd import fine_bwd_compact_t_pallas
+from voge_tpu.ops.pallas_fine2 import (
+    fine_select_compact_pallas, fold_weights_pallas, prefix_visit_lists,
+)
 from voge_tpu.rays import camera_rays
-from voge_tpu_torch.ops.cuda_fine import FineSelect, fine_select_plain
+from voge_tpu_torch.ops.cuda_fine import fine_select_plain
+from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd_plain, fold_weights_plain
 
 torch.set_num_threads(2)
 
@@ -55,7 +70,7 @@ def _case():
     table = rows[(img_row * P + pos_c).reshape(-1)].reshape(nb, M_MAX, 16 + CA)
     return dict(rays=np.array(rays), table=np.array(table),
                 bits=np.array(bits_c)[..., 0], ids=np.array(ids_c)[..., 0],
-                counts=np.array(counts_c),
+                counts=np.array(counts_c), pos=np.array(pos_c),
                 attrs=np.swapaxes(attr, 1, 2).reshape(B * P, CA).copy())
 
 
@@ -64,20 +79,43 @@ def case():
     return _case()
 
 
-def _pallas(c, K):
-    BH, BW = (H - 1) // BS + 1, (W - 1) // BS + 1
+BH, BW = (H - 1) // BS + 1, (W - 1) // BS + 1
+
+
+def _unbin(x):
+    """voge_tpu's grouped kernel layout (nb, R_pad, C) -> (B, H, W, C)."""
+    return np.asarray(F.unbin_kern(jnp.asarray(x), B, BH, BW, H, W, BS, BS, True))
+
+
+def _to_kern(x):
+    """(B, H, W, C) -> voge_tpu's grouped kernel layout (nb, 4 * R_pad, C)
+    (``_rays_features`` + ``_group_supertiles``), zero outside the image and
+    in each bin's padding."""
+    C = x.shape[-1]
+    xp = np.zeros((B, BH * BS, BW * BS, C), np.float32)
+    xp[:, :H, :W] = x
+    xb = xp.reshape(B, BH, BS, BW, BS, C).transpose(0, 1, 3, 2, 4, 5)
+    xb = xb.reshape(B * BH * BW, BS * BS, C)
+    r_pad = -(-BS * BS // 8) * 8
+    xb = np.concatenate([xb, np.zeros((xb.shape[0], r_pad - BS * BS, C), np.float32)], 1)
+    return F._group_supertiles(jnp.asarray(xb), B, BH, BW)[0]
+
+
+def _pallas(c, K, attrs=True, raw=False):
     rays_feat, _, _ = F._rays_features(jnp.asarray(c["rays"]), BH, BW, BS, BS)
     rf_k, _, _ = F._group_supertiles(rays_feat, B, BH, BW)
     counts = jnp.asarray(c["counts"])
     csel, cnts = prefix_visit_lists(counts, M_MAX, 128)
+    table = c["table"] if attrs else c["table"][..., :16]
     out = fine_select_compact_pallas(
-        jnp.swapaxes(rf_k, 1, 2), jnp.asarray(c["table"]),
+        jnp.swapaxes(rf_k, 1, 2), jnp.asarray(table),
         jnp.asarray(c["bits"])[..., None], jnp.asarray(c["ids"])[..., None],
         csel, cnts, THR_ACT, K, sub_bins=4, ray_chunk=rf_k.shape[1],
-        cand_chunk=128, per_bin_cand=True, agg_ow=OW, n_attr=CA,
-        interpret=True)
-    unbin = lambda x: np.asarray(F.unbin_kern(x, B, BH, BW, H, W, BS, BS, True))
-    return [unbin(x) for x in out[:5]] + [unbin(jnp.swapaxes(out[5], 1, 2))]
+        cand_chunk=128, per_bin_cand=True, agg_ow=OW, n_attr=CA if attrs else 0,
+        interpret=True, return_raw=raw)
+    if raw:
+        return out
+    return [_unbin(x) for x in out[:5]] + [_unbin(jnp.swapaxes(out[5], 1, 2))]
 
 
 def _port(c, K):
@@ -107,13 +145,91 @@ def test_plain_select_matches_pallas(case, K):
     _assert_close(got, want)
 
 
-def test_select_backward_raises(case):
-    """Forward with grad-requiring inputs works; ``.backward()`` through the
-    select raises until the backward kernel is ported."""
+def _grad_close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert np.abs(want).max() > 0
+    rel = np.linalg.norm(got - want) / np.linalg.norm(want)
+    assert rel <= 1e-3, rel
+    np.testing.assert_allclose(got, want, rtol=5e-3, atol=5e-4)
+
+
+@pytest.mark.parametrize("K,Kp", [(5, 8), (20, 24)])
+def test_plain_fold_matches_pallas(K, Kp):
+    """The weight fold on random selections with invalid slots (len / act
+    1e10, dsd 0) against ``fold_weights_pallas`` on the transposed, padded
+    buffers the select kernel emits."""
+    rng = np.random.RandomState(21)
+    nb, R = 3, 40
+    l = rng.uniform(1, 9, (nb, R, K)).astype(np.float32)
+    a = rng.uniform(0, 4, (nb, R, K)).astype(np.float32)
+    d = rng.uniform(0.1, 50, (nb, R, K)).astype(np.float32)
+    inv = rng.rand(nb, R, K) < 0.3
+    l[inv], a[inv], d[inv] = 1e10, 1e10, 0.0
+    gw = rng.normal(size=(nb, R, K)).astype(np.float32)
+    w = np.array(weights_from_sel(jnp.asarray(l), jnp.asarray(a), jnp.asarray(d), OW))
+
+    def t_pad(x, fill):
+        x_t = np.swapaxes(x, 1, 2)
+        return jnp.asarray(np.concatenate(
+            [x_t, np.full((nb, Kp - K, R), fill, np.float32)], axis=1))
+
+    want = fold_weights_pallas(t_pad(l, 1e10), t_pad(a, 1e10), t_pad(d, 0.0),
+                               t_pad(w, 0.0), t_pad(gw, 0.0), OW, K, interpret=True)
     t = torch.as_tensor
-    table = t(case["table"][..., :16].copy()).requires_grad_(True)
-    out = FineSelect.apply(table, t(case["rays"]), None, t(case["bits"]),
-                           t(case["ids"]), t(case["counts"]), THR_ACT, 20, BS, OW)
-    assert out[4].requires_grad and not out[0].requires_grad
-    with pytest.raises(NotImplementedError, match="_bwd_t_kernel"):
-        out[4].sum().backward()
+    got = fold_weights_plain(t(l), t(a), t(d), t(w), t(gw), OW)
+    for g, x in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.swapaxes(np.asarray(x), 1, 2)[..., :K],
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mode", ["both", "gauss"])
+@pytest.mark.parametrize("with_attrs", [False, True])
+def test_plain_fine_bwd_matches_pallas(case, with_attrs, mode):
+    """K3's plain version against ``fine_bwd_compact_t_pallas`` (the
+    transposed unified backward, ``_bwd_t_kernel``), both fed the Pallas
+    select's outputs and the same random cotangents; the port's per-row
+    output summed per Gaussian by ``pos_c`` (the Pallas side's
+    ``segment_sum``)."""
+    K = 20
+    sel, raw = _pallas(case, K, attrs=with_attrs, raw=True)
+    rng = np.random.RandomState(8)
+    cot = [rng.normal(size=(B, H, W, K)).astype(np.float32) for _ in range(4)]
+    g_img = rng.normal(size=(B, H, W, CA)).astype(np.float32)
+    Kp = raw[0].shape[1]
+    t_pad = lambda x: jnp.pad(jnp.swapaxes(_to_kern(x), 1, 2), ((0, 0), (0, Kp - K), (0, 0)))
+    rays_feat, _, _ = F._rays_features(jnp.asarray(case["rays"]), BH, BW, BS, BS)
+    rf_k, _, _ = F._group_supertiles(rays_feat, B, BH, BW)
+    table = case["table"] if with_attrs else case["table"][..., :16]
+    kw = dict(n_attr=CA, g_img_t=jnp.swapaxes(_to_kern(g_img), 1, 2)) if with_attrs else {}
+    gg, rb_t = fine_bwd_compact_t_pallas(
+        jnp.swapaxes(rf_k, 1, 2), jnp.asarray(table), jnp.asarray(case["ids"])[..., None],
+        jnp.asarray(case["counts"]), raw, tuple(t_pad(x) for x in cot), K=K,
+        cand_chunk=128, dst=None, B=B, P_pad=P, agg_ow=OW, mode=mode,
+        interpret=True, pos_c=jnp.asarray(case["pos"]), **kw)
+    gg = np.swapaxes(np.asarray(gg), 1, 2)                        # (B, P, 16 + Ca)
+
+    t = torch.as_tensor
+    idx, l, a, d, w = (t(_unbin(x).copy()) for x in sel[:5])
+    assert (idx >= 0).any()
+    rows, g_rays = fine_bwd_plain(
+        t(case["rays"]), t(case["table"][..., :16].copy()), t(case["ids"]),
+        t(case["counts"]), idx, l, a, d, w, *(t(x) for x in cot), BS, OW,
+        t(case["attrs"]) if with_attrs else None, t(g_img) if with_attrs else None,
+        want_rays=mode == "both")
+    C = 12 + (CA if with_attrs else 0)
+    assert rows.shape == (case["ids"].shape[0], M_MAX, C)
+    nb = rows.shape[0]
+    valid = np.arange(M_MAX)[None] < case["counts"][:, None]
+    seg = np.where(valid, (np.arange(nb)[:, None] // (nb // B)) * P + case["pos"], B * P)
+    summed = np.zeros((B * P + 1, C), np.float64)
+    np.add.at(summed, seg.reshape(-1), rows.numpy().reshape(-1, C))
+    summed = summed[:B * P].reshape(B, P, C)
+    _grad_close(summed[..., 0:3], gg[..., 0:3])
+    _grad_close(summed[..., 3:12], gg[..., 3:12])
+    if with_attrs:
+        _grad_close(summed[..., 12:], gg[..., 16:16 + CA])
+    if mode == "both":
+        want_rays = _unbin(jnp.swapaxes(rb_t, 1, 2)[..., 0:3])
+        _grad_close(g_rays.numpy(), want_rays)
+    else:
+        assert g_rays is None and rb_t is None

@@ -1,12 +1,15 @@
 """voge_tpu_torch: the PyTorch + CUDA port of ``voge_tpu`` for NVIDIA Hopper.
 
 Same module names as ``voge_tpu``; inside, PyTorch idiom (``nn.Module``
-scenes and renderer, plain functions on tensors, explicit devices).  The
-render path runs three hand-written CUDA kernels (``csrc/``): K1 coarse
-emission, K2 streaming top-K select with fused weights and attribute image,
-K3f attribute merge.  On CPU tensors each kernel's plain PyTorch version
-runs instead.  Importing builds nothing; a kernel is compiled by ``nvcc`` at
-its first launch.  The port imports neither JAX nor ``voge_tpu``.
+scenes and renderer, plain functions on tensors, explicit devices,
+``torch.autograd.Function`` where a kernel needs a gradient).  A render and
+its backward run hand-written CUDA kernels (``csrc/``): K1 coarse emission,
+K2 streaming top-K select with fused weights and attribute image, K3 the
+fine backward with the weight fold and the attribute VJP, K3f attribute
+merge and K4b its backward.  On CPU tensors each kernel's plain PyTorch
+version runs instead.  Importing builds nothing; a kernel is compiled by
+``nvcc`` at its first launch.  The port imports neither JAX nor
+``voge_tpu``.
 """
 
 __version__ = "0.1.0"

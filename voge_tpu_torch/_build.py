@@ -14,6 +14,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
@@ -27,7 +28,8 @@ _NVCC_FLAGS = [
 # keep every product rounded once (see the notes in the sources).
 _EXTRA_FLAGS = {"emit": ["-fmad=false"], "fine_select": ["-fmad=false"]}
 
-_lock = threading.Lock()
+_lock = threading.Lock()          # guards the dicts below
+_name_locks: dict = {}            # one per library: builds run in parallel
 _libs: dict = {}
 # name -> (seconds spent compiling, nvcc's stderr: ptxas register/spill report)
 build_info: dict = {}
@@ -54,6 +56,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is not None:
             return lib
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
+        with _lock:
+            if name in _libs:
+                return _libs[name]
         src = _CSRC / f"{name}.cu"
         out = BUILD_DIR / f"lib{name}.so"
         newest = max(p.stat().st_mtime for p in _CSRC.iterdir())
@@ -70,7 +77,16 @@ def load(name: str) -> ctypes.CDLL:
                     f"{' '.join(cmd)}\n{res.stderr}"
                 )
             os.replace(tmp, out)
-            build_info[name] = (time.perf_counter() - t0, res.stderr)
+            with _lock:
+                build_info[name] = (time.perf_counter() - t0, res.stderr)
         lib = ctypes.CDLL(str(out))
-        _libs[name] = lib
+        with _lock:
+            _libs[name] = lib
         return lib
+
+
+def load_all(names) -> list:
+    """Load several libraries, running their ``nvcc`` builds side by side."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return list(pool.map(load, names))

@@ -76,7 +76,7 @@ def emission_geometry(P: int, image_size, bin_size: int):
 def emit_supertile_candidates(R, T, focal, principal, points, isigmas,
                               image_size, thr: float, bin_size: int,
                               M_max: int, n_globals: int = 64,
-                              row_align: int = 0):
+                              row_align: int = 0, return_dst: bool = False):
     """Per-supertile candidate rows of ascending Gaussian index.
 
     :param points: (B, P, 3) camera-centred means; :param isigmas: (B, P, 3, 3)
@@ -84,10 +84,18 @@ def emit_supertile_candidates(R, T, focal, principal, points, isigmas,
     :param row_align: when > 0, ``M_max`` is only a floor: the rows grow to
         hold the densest supertile, rounded up to a multiple of ``row_align``
         (costs one host read), so nothing but excess globals is dropped
+    :param return_dst: also return the inverse emission map (below)
     :return: (pos_c (nb, M) int32 per-image Gaussian index, bits_c (nb, M)
         int32 sub-bin bits, ids_c (nb, M) int32 flattened ``b * P + p`` ids
         (-1 pad), counts_c (nb,) int32 row occupancy, overflow_c (nb,) int32
         members dropped), nb = B * BH2 * BW2 supertiles in row-major order.
+        With ``return_dst`` a sixth element ``(dst_l (B, P, win^2), dst_g
+        (B, n_globals, nst), gpos (B, n_globals), g_valid (B, n_globals))``:
+        the slot ``row * M + rank`` each emitted key landed in (int32, -1
+        when not emitted or dropped), for the local window keys and for the
+        global members' per-supertile keys, with the globals' Gaussian
+        indices and validity.  The backward gathers every Gaussian's
+        gradient rows through it (``ops.fine.gather_back_rows``).
     """
     B, P = points.shape[0], points.shape[1]
     H, W = int(image_size[0]), int(image_size[1])
@@ -121,7 +129,7 @@ def emit_supertile_candidates(R, T, focal, principal, points, isigmas,
     key_g = ((img * nst + s_all) * S + gpos[..., None]) * 16 + bits_g
     key_g = torch.where(valid_g, key_g, big)
 
-    flat = torch.sort(torch.cat([keys.reshape(-1), key_g.reshape(-1)])).values
+    flat, order = torch.sort(torch.cat([keys.reshape(-1), key_g.reshape(-1)]))
     edges = torch.arange(nb + 1, device=dev, dtype=i64) * (S * 16)
     starts = torch.searchsorted(flat, edges)
     counts_full = starts[1:] - starts[:-1]
@@ -142,5 +150,21 @@ def emit_supertile_candidates(R, T, focal, principal, points, isigmas,
     bits_c = torch.where(valid, rows % 16, 0)
     ids_c = torch.where(valid, (row // nst)[:, None] * P + pos_c, -1)
     i32 = torch.int32
-    return (pos_c.to(i32), bits_c.to(i32), ids_c.to(i32), counts_c.to(i32),
-            overflow_c.to(i32))
+    out = (pos_c.to(i32), bits_c.to(i32), ids_c.to(i32), counts_c.to(i32),
+           overflow_c.to(i32))
+    if not return_dst:
+        return out
+
+    # inverse map: sorted position t holds key flat[t], the emission order[t];
+    # its row is the key's supertile and its rank t - starts[row].  Valid keys
+    # are distinct, so the sort order of the sentinels is irrelevant, and the
+    # write back to emission order stores integers to distinct slots.
+    run = flat // (S * 16)
+    t = torch.arange(flat.shape[0], device=dev, dtype=i64)
+    rank = t - starts[run]                     # run <= nb: starts has nb + 1
+    dst_s = torch.where((run < nb) & (rank < M_max), run * M_max + rank, -1)
+    dst_e = torch.empty_like(dst_s).scatter_(0, order, dst_s).to(i32)
+    n_loc = keys.numel()
+    dst_l = dst_e[:n_loc].reshape(keys.shape)
+    dst_g = dst_e[n_loc:].reshape(key_g.shape)
+    return out + ((dst_l, dst_g, gpos.to(i32), g_valid),)

@@ -16,9 +16,8 @@ candidate rows staged through shared memory, the running top-K in registers
 ``-fmad=false`` so that len / act / dsd equal :func:`fine_select_plain`'s
 bit for bit.
 
-The forward runs inside :class:`FineSelect`, an autograd function whose
-backward raises: the backward kernel (``pallas_bwd._bwd_t_kernel``) is ported
-in the next slice.
+The forward runs inside ``ops.fine.FineSelect``, whose backward is K3
+(``ops/cuda_fine_bwd.py``).
 """
 from __future__ import annotations
 
@@ -41,16 +40,16 @@ _E_HALF = 1.6487212707001282
 _PLAIN_CHUNK = 1 << 24
 
 
-def _supertile_rays(rays, bin_size: int):
-    """(B, H, W, 3) -> (nb, st*st, 3): supertile-local rays, row-major in
-    the supertile, zero outside the image."""
-    B, H, W, _ = rays.shape
+def _supertile(x, bin_size: int, fill=0):
+    """(B, H, W, C) image layout -> (nb, st*st, C) supertile layout, rays
+    row-major in the supertile, ``fill`` outside the image."""
+    B, H, W, C = x.shape
     st = 2 * bin_size
     BH2, BW2 = supertile_grid(H, W, bin_size)
-    pad = rays.new_zeros((B, BH2 * st, BW2 * st, 3))
-    pad[:, :H, :W] = rays
-    x = pad.reshape(B, BH2, st, BW2, st, 3).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(B * BH2 * BW2, st * st, 3)
+    pad = x.new_full((B, BH2 * st, BW2 * st, C), fill)
+    pad[:, :H, :W] = x
+    pad = pad.reshape(B, BH2, st, BW2, st, C).permute(0, 1, 3, 2, 4, 5)
+    return pad.reshape(B * BH2 * BW2, st * st, C)
 
 
 def _to_image(x, B: int, H: int, W: int, bin_size: int):
@@ -93,7 +92,7 @@ def fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
     dev = rays.device
     st = 2 * bin_size
     R = st * st
-    r_all = _supertile_rays(rays, bin_size)                    # (nb, R, 3)
+    r_all = _supertile(rays, bin_size)                         # (nb, R, 3)
     lr = torch.arange(R, device=dev) // st
     lc = torch.arange(R, device=dev) % st
     g = (2 * (lr // bin_size) + lc // bin_size)[None, :, None]  # sub-bin
@@ -199,22 +198,3 @@ def fine_select(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
 
 fine_select.launches = 0
 
-
-class FineSelect(torch.autograd.Function):
-    """:func:`fine_select` as an autograd node: differentiable inputs are
-    ``table_c``, ``rays`` and ``attrs``; the backward is not ported yet."""
-
-    @staticmethod
-    def forward(ctx, table_c, rays, attrs, bits_c, ids_c, counts_c, thr_act,
-                K, bin_size, agg_ow):
-        out = fine_select(rays, table_c, bits_c, ids_c, counts_c, thr_act, K,
-                          bin_size, agg_ow, attrs)
-        ctx.mark_non_differentiable(out[0])
-        return out if attrs is not None else out[:5]
-
-    @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "voge_tpu_torch renders forward only: the backward of the select "
-            "kernel (voge_tpu/ops/pallas_bwd.py::_bwd_t_kernel) is ported in "
-            "the next slice (ROADMAP queue 1, slice 2)")

@@ -1,0 +1,260 @@
+"""K3: the fine backward (``csrc/fine_bwd.cu``) and the weight-cotangent
+fold (``csrc/fold_weights.cu``, the device function of ``csrc/fine_bwd.cuh``),
+with their plain PyTorch versions.
+
+K3 replaces ``voge_tpu/ops/pallas_bwd.py::_bwd_t_kernel``
+(``fine_bwd_compact_t_pallas``): from the select's saved image-layout outputs
+(idx, len, act, dsd, w) and their cotangents it folds the weight cotangent
+(and, with attributes, the attribute image's weight cotangent) into the
+len / act / dsd cotangents, applies the entry-space chain rule, and reduces
+per candidate row to the gradients of mu (3), Lambda (9) and the attributes
+(d), and per ray to the ray gradient (3).  The per-row sums run in (ray,
+slot) order in one thread each: no float atomics, two runs give the same
+bits.  The rows go back to Gaussians through the inverse emission map
+(``ops.fine.gather_back_rows``).
+
+The chain rule is ``voge_tpu``'s (``ray_trace_voge.cu:324-326``: with
+``ksk = dsd``, ``msk = len * dsd``, ``g_ksk = (g_a msk - g_l) msk / ksk^2 +
+g_d``, ``g_msk = (g_l - 2 g_a msk) / ksk``, ``g_msm = g_a``), rewritten around
+the residual ``delta = mu - len * r`` that the forward's activation also uses
+(the compensated residual form).  With ``c = g_l / ksk``:
+
+    g_Lambda = g_d r r^T + (c - g_a l) delta r^T + g_a l r delta^T
+               + g_a delta delta^T
+    g_mu     = c Lambda r + g_a l (Lambda^T - Lambda) r
+               + g_a (Lambda + Lambda^T) delta
+    g_r      = g_d (Lambda + Lambda^T) r + g_a l^2 (Lambda - Lambda^T) r
+               - c l Lambda r + (c - 2 g_a l) Lambda^T delta
+
+The same function: ``voge_tpu``'s terms in ``mu mu^T`` and ``mu r^T`` are
+~``len^2`` (~36 at the headline) times larger than their sum, and forming
+the per-row sums first and combining them with ``mu`` afterwards loses
+that factor in float32 (the sigma gradient of the 9,602-Gaussian headline
+was 3.8e-3 from a float64 evaluation; this form keeps it near 1e-4).
+
+``fold_weights`` replaces ``voge_tpu/ops/pallas_fine2.py::fold_weights_pallas``:
+the same fold on its own, so that it has its own check against the plain
+version.  The plain versions use ``torch.erf``, ``voge_tpu`` a rational
+polynomial (``pallas_fine2._erf32``); the two differ by about 1e-7.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from voge_tpu_torch._build import load
+from voge_tpu_torch.ops._dispatch import (
+    FLOAT, INT, LONG, VOIDP, check, on_cuda, ptr, raise_on_error, stream,
+)
+from voge_tpu_torch.ops.coarse import supertile_grid
+from voge_tpu_torch.ops.cuda_fine import FEAT, MAX_K, _supertile, _to_image
+
+_INV_SQRT_PI = 0.5641895835477563
+_I32_MAX = 2 ** 31 - 1
+
+
+def fold_weights_plain(length, act, dsd, w, g_w, ow: float):
+    """Plain version of the fold; same contract as :func:`fold_weights`."""
+    s = torch.sqrt(dsd + 1e-10)
+    e = torch.exp(-act)
+    G = g_w * w
+    B = torch.zeros_like(length)
+    A, C, D = [], [], []
+    for k in range(length.shape[-1]):
+        diff = length - length[..., k:k + 1]
+        ca = diff * s[..., k:k + 1]
+        phi = torch.exp(-ca * ca) * _INV_SQRT_PI
+        Phi = (torch.erf(ca) + 1.0) * 0.5
+        A.append((G * Phi).sum(-1))
+        C.append((G * phi).sum(-1))
+        D.append((G * phi * diff).sum(-1))
+        B = B + (e[..., k:k + 1] * s[..., k:k + 1]) * phi
+    A, C, D = (torch.stack(x, dim=-1) for x in (A, C, D))
+    da = -G + ow * e * A
+    dl = -ow * (G * B - e * s * C)
+    dd = -ow * e * D * (0.5 / s)
+    return dl, da, dd
+
+
+def _fold_kernel():
+    fn = load("fold_weights").voge_fold_weights
+    fn.argtypes = [VOIDP] * 8 + [LONG, INT, FLOAT, VOIDP]
+    fn.restype = INT
+    return fn
+
+
+def fold_weights(length, act, dsd, w, g_w, ow: float):
+    """Cotangents of (len, act, dsd) from the cotangent ``g_w`` of the erf
+    compositing weights ``w`` (``aggregation.weights_from_sel``).
+
+    :param length, act, dsd, w, g_w: (..., K) float32, the select's outputs
+        (invalid slots: len / act 1e10, dsd 0, w 0) and the weight cotangent
+    :param ow: occupation weight of the compositing
+    :return: (dl, da, dd), each (..., K) float32
+    """
+    if not on_cuda(length, act, dsd, w, g_w):
+        return fold_weights_plain(length, act, dsd, w, g_w, ow)
+    K = length.shape[-1]
+    if not 0 < K <= MAX_K:
+        raise NotImplementedError(f"K={K}: the fold kernel takes 1 <= K <= {MAX_K}")
+    for t, name in ((length, "length"), (act, "act"), (dsd, "dsd"), (w, "w"),
+                    (g_w, "g_w")):
+        check(t, name, torch.float32, length.shape)
+    dl, da, dd = (torch.empty_like(length) for _ in range(3))
+    err = _fold_kernel()(
+        ptr(length), ptr(act), ptr(dsd), ptr(w), ptr(g_w), ptr(dl), ptr(da),
+        ptr(dd), length.numel() // K, K, float(ow), stream(length.device))
+    raise_on_error(err, "fold_weights")
+    fold_weights.launches += 1
+    return dl, da, dd
+
+
+fold_weights.launches = 0
+
+
+def _check_args(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
+                grads, bin_size, attrs, g_img):
+    B, H, W, K = idx.shape
+    BH2, BW2 = supertile_grid(H, W, bin_size)
+    nb, M = B * BH2 * BW2, table_c.shape[1]
+    if not 0 < K <= MAX_K:
+        raise NotImplementedError(f"K={K}: the backward kernel takes 1 <= K <= {MAX_K}")
+    check(rays, "rays", torch.float32, (B, H, W, 3))
+    check(table_c, "table_c", torch.float32, (nb, M, FEAT))
+    check(ids_c, "ids_c", torch.int32, (nb, M))
+    check(counts_c, "counts_c", torch.int32, (nb,))
+    check(idx, "idx", torch.int32)
+    for t, name in ((length, "len"), (act, "act"), (dsd, "dsd"), (w, "w")):
+        check(t, name, torch.float32, idx.shape)
+    for t, name in zip(grads, ("g_len", "g_act", "g_dsd", "g_w")):
+        if t is not None:
+            check(t, name, torch.float32, idx.shape)
+    if (attrs is None) != (g_img is None):
+        raise ValueError("attrs and g_img go together")
+    if attrs is not None:
+        check(attrs, "attrs", torch.float32)
+        if attrs.ndim != 2:
+            raise ValueError(f"attrs: expected (rows, d), got {tuple(attrs.shape)}")
+        check(g_img, "g_img", torch.float32, (B, H, W, attrs.shape[1]))
+    return B, H, W, K, BH2, BW2, nb, M
+
+
+def fine_bwd_plain(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
+                   g_len, g_act, g_dsd, g_w, bin_size: int, agg_ow: float,
+                   attrs: Optional[torch.Tensor] = None,
+                   g_img: Optional[torch.Tensor] = None,
+                   want_rays: bool = True):
+    """Plain version of K3: dense tensor ops per slot and a segmented sum
+    (``index_add_``) per candidate row.  Same contract as :func:`fine_bwd`."""
+    B, H, W, K, BH2, BW2, nb, M = _check_args(
+        rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
+        (g_len, g_act, g_dsd, g_w), bin_size, attrs, g_img)
+    zero = lambda g: torch.zeros_like(length) if g is None else g
+    gl, ga, gd, gw = (zero(g) for g in (g_len, g_act, g_dsd, g_w))
+    valid = idx >= 0
+    d = 0 if attrs is None else attrs.shape[1]
+    if d:
+        ok = valid & (idx < attrs.shape[0])
+        dw = (attrs[torch.where(ok, idx, 0).long()] * g_img[..., None, :]).sum(-1)
+        gw = gw + torch.where(ok, dw, 0.0)
+    dl, da, dd = fold_weights_plain(length, act, dsd, w, gw, agg_ow)
+    vf = valid.to(length.dtype)
+    cl = (gl + dl) / torch.where(valid, dsd, 1.0) * vf          # g_len / ksk
+    ga, gd = (ga + da) * vf, (gd + dd) * vf
+    lv = torch.where(valid, length, 0.0)
+
+    # supertile layout: (nb, R, K) slots, (nb, R, 3) rays
+    st = lambda x, fill=0: _supertile(x, bin_size, fill)
+    idx_s = st(idx, -1)
+    R = idx_s.shape[1]
+    cl, ga, gd, lv, w_s = (st(x)[..., None] for x in (cl, ga, gd, lv, w))
+    r = st(rays)[:, :, None, :]                                  # (nb, R, 1, 3)
+    # each slot's candidate row: ids ascend along a row (slices of the sorted
+    # emission keys), padding sorts last
+    key = torch.where(ids_c >= 0, ids_c, _I32_MAX)
+    rank = torch.searchsorted(key, idx_s.reshape(nb, R * K)).reshape(nb, R, K)
+    rank_c = rank.clamp(max=M - 1)
+    found = (idx_s >= 0) & (key.gather(1, rank_c.reshape(nb, -1)).reshape(nb, R, K) == idx_s)
+    row = torch.arange(nb, device=idx.device)[:, None, None] * M + rank_c
+    flat = torch.where(found, row, nb * M).reshape(-1)
+    feats = torch.cat([table_c.reshape(nb * M, FEAT),
+                       table_c.new_zeros((1, FEAT))])[flat].reshape(nb, R, K, FEAT)
+    L = feats[..., 4:13].reshape(nb, R, K, 3, 3)
+    Lt = L.transpose(-1, -2)
+    delta = feats[..., 13:16] - lv * r                           # mu - l r
+    mv = lambda m, v: (m * v[..., None, :]).sum(-1)             # m @ v
+    Lr, La_r = mv(L, r), mv(L - Lt, r)
+    g_mu = cl * Lr - ga * lv * La_r + ga * mv(L + Lt, delta)
+    outer = lambda a, b: (a[..., :, None] * b[..., None, :]).flatten(-2)
+    g_L = (gd * outer(r, r) + (cl - ga * lv) * outer(delta, r)
+           + ga * lv * outer(r, delta) + ga * outer(delta, delta))
+    cols = [g_mu, g_L]
+    if d:
+        cols.append(w_s * st(g_img)[:, :, None, :])
+    vals = torch.cat(cols, dim=-1).reshape(-1, 12 + d)
+    rows = vals.new_zeros((nb * M + 1, 12 + d)).index_add_(0, flat, vals)
+    rows = rows[:nb * M].reshape(nb, M, 12 + d)
+
+    g_rays = None
+    if want_rays:
+        g_ray = (gd * mv(L + Lt, r) + ga * lv * lv * La_r - cl * lv * Lr
+                 + (cl - 2.0 * ga * lv) * mv(Lt, delta)).sum(2)
+        g_rays = _to_image(g_ray, B, H, W, bin_size).contiguous()
+    return rows, g_rays
+
+
+def _kernel():
+    fn = load("fine_bwd").voge_fine_bwd
+    fn.argtypes = [VOIDP] * 18 + [LONG, LONG] + [INT] * 9 + [FLOAT, VOIDP]
+    fn.restype = INT
+    return fn
+
+
+def fine_bwd(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
+             g_len, g_act, g_dsd, g_w, bin_size: int, agg_ow: float,
+             attrs: Optional[torch.Tensor] = None,
+             g_img: Optional[torch.Tensor] = None, want_rays: bool = True):
+    """Backward of the select (K2) over the emission-compacted rows.
+
+    :param rays: (B, H, W, 3); :param table_c: (nb, M, 16) candidate rows
+    :param ids_c, counts_c: (nb, M) ascending ids (-1 pad) / (nb,) counts
+    :param idx, length, act, dsd, w: (B, H, W, K) the select's outputs
+    :param g_len, g_act, g_dsd, g_w: (B, H, W, K) cotangents, None for zero
+    :param agg_ow: occupation weight of the fused erf compositing
+    :param attrs, g_img: (rows, d) attributes indexed by id and the
+        (B, H, W, d) cotangent of the fused attribute image, or both None
+    :param want_rays: compute the ray gradient (else skip that reduction)
+    :return: (rows (nb, M, 12 + d) float32 per candidate row: grad mu (3),
+        grad Lambda (9, row-major), grad attrs (d); zero beyond each count;
+        g_rays (B, H, W, 3) float32 or None)
+    """
+    grads = (g_len, g_act, g_dsd, g_w)
+    if not on_cuda(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
+                   *grads, attrs, g_img):
+        return fine_bwd_plain(rays, table_c, ids_c, counts_c, idx, length, act,
+                              dsd, w, *grads, bin_size, agg_ow, attrs, g_img,
+                              want_rays)
+    B, H, W, K, BH2, BW2, nb, M = _check_args(
+        rays, table_c, ids_c, counts_c, idx, length, act, dsd, w, grads,
+        bin_size, attrs, g_img)
+    dev = rays.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    d = 0 if attrs is None else attrs.shape[1]
+    coef = torch.empty((B, H, W, K, 4), **f32)
+    rows = torch.empty((nb, M, 12 + d), **f32)
+    g_rays = torch.empty((B, H, W, 3), **f32) if want_rays else None
+    n_rows = 0 if attrs is None else attrs.shape[0]
+    err = _kernel()(
+        ptr(rays), ptr(table_c), ptr(ids_c), ptr(counts_c), ptr(idx),
+        ptr(length), ptr(act), ptr(dsd), ptr(w), *(ptr(g) for g in grads),
+        ptr(attrs), ptr(g_img), ptr(coef), ptr(rows), ptr(g_rays),
+        B * H * W, n_rows, nb, H, W, bin_size, BW2, BH2 * BW2, M, K, d,
+        float(agg_ow), stream(dev),
+    )
+    raise_on_error(err, "fine_bwd")
+    fine_bwd.launches += 1
+    return rows, g_rays
+
+
+fine_bwd.launches = 0

@@ -1,14 +1,18 @@
-"""Fine stage: the forward of the emission-compacted ray tracing
+"""Fine stage: the emission-compacted ray tracing and its backward
 (counterpart of the compacted branch of ``voge_tpu.ops.fine.ray_tracing``,
-``fine.py:1366-1455``, and of ``_rt_fine_compact_impl``, ``fine.py:969-1031``).
+``fine.py:1366-1455``, and of the ``_rt_fine_kern_c`` custom VJP,
+``fine.py:969-1151``).
 
 Every render takes this one path: K1 emits the per-supertile candidate rows
-(``ops.coarse.emit_supertile_candidates``), the Gaussian feature rows are
-gathered into a per-supertile table, and K2 selects, weights and (given
-attributes) composites in one kernel.  Unlike ``voge_tpu`` on a TPU, the rows
-are sized from the counts the sort produces, so no member is dropped for
-capacity.  The no-coarse setting (``max_points_per_bin == -1``) and K above
-128 are not ported yet and raise.
+and the inverse emission map (``ops.coarse.emit_supertile_candidates``), the
+Gaussian feature rows are gathered into a per-supertile table, and K2
+selects, weights and (given attributes) composites in one kernel.  The
+backward runs K3 over the same rows and gathers each Gaussian's gradient
+rows back through the inverse map: no float atomics, so gradients repeat to
+the bit.  Unlike ``voge_tpu`` on a TPU, the rows are sized from the counts
+the sort produces, so no member is dropped for capacity.  The no-coarse
+setting (``max_points_per_bin == -1``) and K above 128 are not ported yet
+and raise.
 """
 from __future__ import annotations
 
@@ -22,7 +26,8 @@ from voge_tpu_torch.ops.coarse import (
     emit_supertile_candidates,
     supertile_grid,
 )
-from voge_tpu_torch.ops.cuda_fine import MAX_K, FineSelect
+from voge_tpu_torch.ops.cuda_fine import FEAT, MAX_K, fine_select
+from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -72,12 +77,14 @@ def _gauss_feature_planes_batched(mus: torch.Tensor, isigmas: torch.Tensor):
 
 
 class Candidates(NamedTuple):
-    """What the select kernel takes besides rays and attributes."""
-    table_c: torch.Tensor     # (nb, M, 16) feature rows per supertile
+    """The coarse stage's output: what the select kernel takes besides rays,
+    features and attributes, and what the backward gathers back through."""
+    pos_c: torch.Tensor       # (nb, M) int32 per-image Gaussian index
     bits_c: torch.Tensor      # (nb, M) int32 sub-bin bits
-    ids_c: torch.Tensor       # (nb, M) int32 flattened ids, -1 pad
+    ids_c: torch.Tensor       # (nb, M) int32 flattened ids, ascending, -1 pad
     counts_c: torch.Tensor    # (nb,) int32 occupied rows
     overflow_c: torch.Tensor  # (nb,) int32 members dropped
+    dst: tuple                # inverse emission map (ops.coarse)
     bin_size: int
     thr_act: float
 
@@ -86,9 +93,9 @@ def compact_candidates(R, T, focal, principal, points: torch.Tensor,
                        isigmas: torch.Tensor, image_size, thr: float,
                        n_assign: int, bin_size: Optional[int] = None,
                        max_points_per_bin: Optional[int] = None) -> Candidates:
-    """Coarse stage plus the feature-row gather: the per-supertile
-    candidate table of camera-centred ``points`` (B, P, 3) with precisions
-    ``isigmas`` (B, P, 3, 3).  Differentiable in the table."""
+    """Coarse stage: the per-supertile candidate rows of camera-centred
+    ``points`` (B, P, 3) with precisions ``isigmas`` (B, P, 3, 3), and the
+    inverse emission map.  Discrete, so not differentiable."""
     B, P = points.shape[0], points.shape[1]
     H, W = int(image_size[0]), int(image_size[1])
     bs, mppb = production_bin_geometry((H, W), n_assign, P, bin_size,
@@ -108,25 +115,114 @@ def compact_candidates(R, T, focal, principal, points: torch.Tensor,
     P_pad = _ceil_to(max(P, 1024), 1024)
     m_min = mppb if (max_points_per_bin is not None and max_points_per_bin > 0) else 0
     M_floor = _pick_m_max(P_pad, nst, cc, 4 * m_min)
-    pos_c, bits_c, ids_c, counts_c, overflow_c = emit_supertile_candidates(
+    pos_c, bits_c, ids_c, counts_c, overflow_c, dst = emit_supertile_candidates(
         R, T, focal, principal, points, isigmas, (H, W), thr, bs, M_floor,
-        row_align=cc,
+        row_align=cc, return_dst=True,
     )
+    return Candidates(pos_c, bits_c, ids_c, counts_c, overflow_c, dst, bs,
+                      -math.log(thr + 1.0 / 1e10))
+
+
+@torch.no_grad()
+def candidate_table(points: torch.Tensor, isigmas: torch.Tensor,
+                    pos_c: torch.Tensor) -> torch.Tensor:
+    """(nb, M, 16) feature rows of every supertile's candidates (``pos_c``
+    gathers them per image).  Built without autograd: the backward returns
+    the rows' gradients through the inverse emission map, never through the
+    gather (whose backward would be a float atomic scatter on CUDA)."""
+    B, P = points.shape[0], points.shape[1]
+    nb, M = pos_c.shape
     feat = _gauss_feature_planes_batched(points, isigmas)       # (B, 16, P)
-    table = feat.transpose(1, 2).reshape(B * P, 16)
-    img_row = torch.arange(B * nst, device=points.device)[:, None] // nst
-    table_c = table[(img_row * P + pos_c).reshape(-1)].reshape(
-        B * nst, pos_c.shape[1], 16)
-    return Candidates(table_c.contiguous(), bits_c, ids_c, counts_c,
-                      overflow_c, bs, -math.log(thr + 1.0 / 1e10))
+    table = feat.transpose(1, 2).reshape(B * P, FEAT)
+    img_row = torch.arange(nb, device=points.device)[:, None] // (nb // B)
+    return table[(img_row * P + pos_c).reshape(-1)].reshape(nb, M, FEAT).contiguous()
+
+
+def gather_back_rows(rows: torch.Tensor, dst) -> torch.Tensor:
+    """Per-Gaussian sums of per-slot rows through the inverse emission map
+    (counterpart of ``voge_tpu.ops.pallas_attr.gather_back_rows``).
+
+    :param rows: (nb * M, C) per-slot rows
+    :param dst: ``(dst_l (B, P, E), dst_g (B, ng, nst), gpos (B, ng),
+        g_valid (B, ng))`` from ``emit_supertile_candidates(return_dst=True)``
+    :return: (B, P, C): each Gaussian's <= E window slots summed in window
+        order, plus, for global members, their per-supertile slots summed in
+        supertile order.  Missing slots read a zero dump row, invalid global
+        entries write to a dump Gaussian: integer gathers and a scatter to
+        distinct slots, no float atomics.
+    """
+    dst_l, dst_g, gpos, g_valid = dst
+    B, P, E = dst_l.shape
+    C = rows.shape[1]
+    dump = rows.shape[0]
+    rows = torch.cat([rows, rows.new_zeros((1, C))])
+    src = torch.where(dst_l >= 0, dst_l, dump).long().reshape(-1)
+    gg = rows[src].reshape(B, P, E, C).sum(2)
+    ng = dst_g.shape[1]
+    if ng:
+        src_g = torch.where(dst_g >= 0, dst_g, dump).long().reshape(-1)
+        gst = rows[src_g].reshape(B, ng, -1, C).sum(2)
+        gst = torch.where(g_valid[..., None], gst, 0.0)
+        at = torch.where(g_valid, gpos.long(), P)[..., None].expand(B, ng, C)
+        gg = torch.cat([gg, gg.new_zeros((B, 1, C))], dim=1)
+        gg = gg.scatter(1, at, gg.gather(1, at) + gst)[:, :P]
+    return gg
+
+
+class FineSelect(torch.autograd.Function):
+    """The select (K2) as an autograd node, counterpart of ``voge_tpu``'s
+    ``_rt_fine_kern_c`` custom VJP.  Differentiable inputs: ``points``
+    (B, P, 3), ``isigmas`` (B, P, 3, 3), ``rays`` (B, H, W, 3) and ``attrs``
+    (B, P, d) or None; ``cand`` is the coarse stage's output.  The forward
+    gathers the candidate table under no autograd and runs K2; the backward
+    runs K3 and gathers the per-row gradients back to Gaussians by ``dst``.
+    The ray gradient (and its reduction) is skipped when ``camera_grad`` is
+    False or the rays need no gradient."""
+
+    @staticmethod
+    def forward(ctx, points, isigmas, rays, attrs, cand, K, agg_ow, camera_grad):
+        table_c = candidate_table(points, isigmas, cand.pos_c)
+        attr_rows = None
+        if attrs is not None:
+            attr_rows = attrs.to(torch.float32).reshape(-1, attrs.shape[-1]).contiguous()
+        out = fine_select(rays, table_c, cand.bits_c, cand.ids_c, cand.counts_c,
+                          cand.thr_act, K, cand.bin_size, agg_ow, attr_rows)
+        ctx.mark_non_differentiable(out[0])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(rays, table_c, attr_rows, *out[:5])
+        ctx.cand, ctx.agg_ow, ctx.camera_grad = cand, agg_ow, camera_grad
+        ctx.attrs_shape = None if attrs is None else attrs.shape
+        return out if attrs is not None else out[:5]
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_len, g_act, g_dsd, g_w, g_img=None):
+        rays, table_c, attr_rows, idx, length, act, dsd, w = ctx.saved_tensors
+        c = ctx.cand
+        want_rays = bool(ctx.camera_grad) and ctx.needs_input_grad[2]
+        cont = lambda g: None if g is None else g.contiguous()
+        if g_img is None:
+            attr_rows = None
+        rows, g_rays = fine_bwd(
+            rays, table_c, c.ids_c, c.counts_c, idx, length, act, dsd, w,
+            cont(g_len), cont(g_act), cont(g_dsd), cont(g_w), c.bin_size,
+            ctx.agg_ow, attr_rows, cont(g_img), want_rays)
+        gg = gather_back_rows(rows.reshape(-1, rows.shape[-1]), c.dst)
+        B, P = gg.shape[0], gg.shape[1]
+        g_attrs = None
+        if attr_rows is not None and ctx.needs_input_grad[3]:
+            g_attrs = gg[..., 12:].reshape(ctx.attrs_shape)
+        return (gg[..., 0:3], gg[..., 3:12].reshape(B, P, 3, 3), g_rays, g_attrs,
+                None, None, None, None)
 
 
 def ray_tracing(cameras_or_params, points: torch.Tensor, isigmas: torch.Tensor,
                 rays: torch.Tensor, image_size, thr: float, n_assign: int,
                 bin_size: Optional[int] = None,
                 max_points_per_bin: Optional[int] = None,
-                agg_ow: float = 1.0, attrs: Optional[torch.Tensor] = None):
-    """Coarse + fine forward (reference ``RayTracing.py:12-30``).
+                agg_ow: float = 1.0, attrs: Optional[torch.Tensor] = None,
+                camera_grad: bool = True):
+    """Coarse + fine (reference ``RayTracing.py:12-30``), differentiable in
+    ``points``, ``isigmas``, ``rays`` and ``attrs``.
 
     :param cameras_or_params: a ``PerspectiveCameras`` or ``(R, T, focal,
         principal)``
@@ -134,6 +230,7 @@ def ray_tracing(cameras_or_params, points: torch.Tensor, isigmas: torch.Tensor,
     :param rays: (B, H, W, 3)
     :param agg_ow: occupation weight of the fused erf compositing
     :param attrs: optional (B, P, d) attributes composited in the same kernel
+    :param camera_grad: False skips the ray gradient in the backward
     :return: ((idx, len, act, dsd, w, img or None) in image layout
         (B, H, W, K) / (B, H, W, d), overflow_points (scalar int32 tensor))
     """
@@ -143,14 +240,8 @@ def ray_tracing(cameras_or_params, points: torch.Tensor, isigmas: torch.Tensor,
         cams = cameras_or_params.batched_params(points.shape[0])
     c = compact_candidates(*cams, points, isigmas, image_size, thr, n_assign,
                            bin_size, max_points_per_bin)
-    attr_rows = None
-    if attrs is not None:
-        attr_rows = attrs.to(torch.float32).reshape(
-            points.shape[0] * points.shape[1], -1).contiguous()
-    sel = FineSelect.apply(
-        c.table_c, rays.contiguous(), attr_rows, c.bits_c, c.ids_c,
-        c.counts_c, float(c.thr_act), int(n_assign), c.bin_size, float(agg_ow),
-    )
+    sel = FineSelect.apply(points, isigmas, rays.contiguous(), attrs, c,
+                           int(n_assign), float(agg_ow), bool(camera_grad))
     if attrs is None:
         sel = tuple(sel) + (None,)
     return tuple(sel), c.overflow_c.sum().to(torch.int32)

@@ -3,8 +3,10 @@
 ``render_pipeline``, ``GaussianRenderer`` and the compositing helpers.
 
 The forward runs the coarse emission (K1), the fused select (K2) and, through
-``interpolate_attr``, the attribute merge (K3f).  The port renders forward
-only: a ``.backward()`` through a render raises ``NotImplementedError``.
+``interpolate_attr``, the attribute merge (K3f).  A ``.backward()`` through a
+render runs the fine backward (K3, with the weight fold and the fused
+attribute VJP) and the attribute-merge backward (K4b), and gathers the
+gradients back to the Gaussians without float atomics.
 """
 from __future__ import annotations
 
@@ -107,16 +109,32 @@ class GaussianRenderSettings:
 
 class CameraCtx:
     """Camera-static tensors for :func:`render_pipeline`: ray directions
-    (B, H, W, 3) and origins (B, 3).  Must match the cameras of the call."""
+    (B, H, W, 3) and origins (B, 3), built without autograd.  It must match
+    the cameras of the call: gradients for the cameras flow only when the
+    render builds its rays from them (no context)."""
 
     def __init__(self, rays: torch.Tensor, origins: torch.Tensor):
         self.rays = rays
         self.origins = origins
 
 
-def precompute_camera_ctx(R, T, focal, principal, image_size) -> CameraCtx:
-    """Build a :class:`CameraCtx` once for a loop over fixed cameras."""
-    return CameraCtx(*camera_rays(R, T, focal, principal, image_size))
+def precompute_camera_ctx(R, T, focal, principal, image_size,
+                          n_gauss: Optional[int] = None, max_assign: int = 20,
+                          bin_size: Optional[int] = None,
+                          max_point_per_bin: Optional[int] = None,
+                          device=None) -> CameraCtx:
+    """Build a :class:`CameraCtx` once for a loop over fixed cameras, with
+    ``voge_tpu.renderer.precompute_camera_ctx``'s signature.  ``n_gauss``,
+    ``max_assign``, ``bin_size`` and ``max_point_per_bin`` fix the bin
+    geometry of ``voge_tpu``'s cached ray-feature planes; the port's select
+    reads the rays directly and keeps no such planes, so they change
+    nothing here.  ``device`` (default: the cameras') is where the tensors
+    are placed."""
+    with torch.no_grad():
+        dev = torch.device(device) if device is not None else None
+        R, T, focal, principal = (torch.as_tensor(x, dtype=torch.float32, device=dev)
+                                  for x in (R, T, focal, principal))
+        return CameraCtx(*camera_rays(R, T, focal, principal, image_size))
 
 
 def render_pipeline(
@@ -127,14 +145,20 @@ def render_pipeline(
     inverse_sigma: bool = False, bin_size: Optional[int] = None,
     max_point_per_bin: Optional[int] = None,
     cam_ctx: Optional[CameraCtx] = None,
+    camera_grad: bool = True,
     attrs: Optional[torch.Tensor] = None,
 ) -> Fragments:
-    """Forward render (reference ``Renderer.py:102-150``): rays, verts
-    centred on the camera, sigmas scaled (or inverted), coarse + fine ray
-    tracing with the erf compositing fused in.
+    """Render (reference ``Renderer.py:102-150``): rays, verts centred on the
+    camera, sigmas scaled (or inverted), coarse + fine ray tracing with the
+    erf compositing fused in.  Differentiable in ``verts``, ``sigmas``,
+    ``attrs`` and the cameras.
 
     :param verts: (B, N, 3) or (N, 3); :param sigmas: (N,), (N, 3) or (N, 3, 3)
     :param R, T, focal, principal: (B, 3, 3), (B, 3), (B, 2), (B, 2)
+    :param cam_ctx: rays and origins from :func:`precompute_camera_ctx` for a
+        loop over fixed cameras (constants: no camera gradient through them)
+    :param camera_grad: False declares the camera pose not differentiated:
+        the backward skips the ray gradient and its per-ray reduction
     :param attrs: optional (N, d) or (B, N, d) attributes; the fragments then
         carry ``attr_img = interpolate_attr(frag, attrs)``, computed in the
         select kernel
@@ -169,7 +193,7 @@ def render_pipeline(
         (R, T, focal, principal), points, isigma, rays, image_size,
         thr=thr_activation, n_assign=max_assign, bin_size=bin_size,
         max_points_per_bin=max_point_per_bin, agg_ow=float(absorptivity),
-        attrs=attrs_b,
+        attrs=attrs_b, camera_grad=camera_grad,
     )
     return Fragments(weight, idx, (idx >= 0).sum(-1), length,
                      overflow_points=overflow, attr_img=img)
@@ -178,7 +202,10 @@ def render_pipeline(
 class GaussianRenderer(nn.Module):
     """Holds a camera batch and settings (reference ``Renderer.py:87-150``);
     the call kwargs ``R``, ``T``, ``focal``, ``principal`` update the
-    cameras.  Renders on the device of the scene's ``verts``."""
+    cameras.  Renders on the device of the scene's ``verts``.  The camera
+    context is kept between calls while the cameras' values and the settings
+    stay the same; cameras that need a gradient bypass it, so pose gradients
+    flow through the rays."""
 
     to_set_args = ["R", "T", "focal", "principal"]
 
@@ -205,8 +232,24 @@ class GaussianRenderer(nn.Module):
             thr_activation=s.thr_activation, absorptivity=s.absorptivity,
             inverse_sigma=s.inverse_sigma, bin_size=s.bin_size,
             max_point_per_bin=s.max_point_per_bin,
+            cam_ctx=self._cached_camera_ctx(R, T, focal, principal,
+                                            tuple(s.image_size)),
         )
 
+    def _cached_camera_ctx(self, R, T, focal, principal, image_size):
+        """The camera context, kept while the cameras' values and the image
+        size stay the same (``voge_tpu``'s ``_cached_camera_ctx``); None when
+        a camera tensor requires grad."""
+        cams = (R, T, focal, principal)
+        if any(x.requires_grad for x in cams):
+            return None
+        key = (tuple(x.detach().cpu().numpy().tobytes() for x in cams),
+               R.device, image_size)
+        if getattr(self, "_cam_ctx_key", None) != key:
+            self._cam_ctx_val = precompute_camera_ctx(R, T, focal, principal,
+                                                      image_size, device=R.device)
+            self._cam_ctx_key = key
+        return self._cam_ctx_val
 
 def interpolate_attr(fragments: Fragments, vert_attr: torch.Tensor) -> torch.Tensor:
     """Composite per-kernel attributes (N, d) or (B * N, d) into an
@@ -230,8 +273,10 @@ def get_overflow_points(fragments: Fragments) -> int:
 
 
 def get_silhouette(fragments: Fragments) -> torch.Tensor:
-    """Per-pixel silhouette ``min(sum_k w_k, 1)``."""
-    return fragments.vert_weight.sum(-1).clamp(max=1.0)
+    """Per-pixel silhouette ``min(sum_k w_k, 1)`` (at a tie the gradient
+    splits evenly, as ``jnp.minimum``'s does)."""
+    w = fragments.vert_weight.sum(-1)
+    return torch.minimum(w, torch.ones_like(w))
 
 
 def to_colored_background(fragments: Fragments, colors: torch.Tensor,
@@ -241,7 +286,8 @@ def to_colored_background(fragments: Fragments, colors: torch.Tensor,
         masks = (masks > thr).to(masks.dtype)
     rgb = interpolate_attr(fragments, colors)
     bg = torch.as_tensor(background_color, dtype=rgb.dtype, device=rgb.device)
-    return torch.clamp(rgb + (1 - masks) * bg, max=1.0)
+    out = rgb + (1 - masks) * bg
+    return torch.minimum(out, torch.ones_like(out))
 
 
 def to_white_background(fragments: Fragments, colors: torch.Tensor,
