@@ -1,5 +1,5 @@
-"""Drive the voge_tpu_torch render and its fitting step on one NVIDIA GPU and
-check them.
+"""Drive the voge_tpu_torch render, its fitting step and the no-coarse
+ShapeFitting trainer on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -11,7 +11,11 @@ Run from the root of a checkout.  Phases:
      scene at 128x128 and on the 10K-Gaussian headline at 256x256: K1
      exact; K2 at K = 5 and 20, with and without attributes; K3f; the fold,
      K3 (with and without attributes, with and without ray gradients) and
-     K4b with cotangents from a seeded ``torch.Generator``;
+     K4b with cotangents from a seeded ``torch.Generator``; then, at the
+     ShapeFitting shapes (5 views, 2,562 Gaussians, 128x128, K = 25), K2's
+     global entry (with and without a random sub-bin bits plane, selections
+     exact) and K3's global entry (with and without ray gradients, with the
+     weight cotangent set and zero);
   3. the main paths, each with every launch counter set to 0 just before it
      and read just after:
      - the forward at the headline, through ``render_pipeline(attrs=)`` and
@@ -25,11 +29,19 @@ Run from the root of a checkout.  Phases:
      - the 1K quickstart through ``GaussianRenderer`` ->
        ``to_white_background`` -> mean-squared loss -> backward (K1, K2,
        K3, K3f, K4b), gradients against the plain path on the card;
+     - the ShapeFitting step at full width (``bench.py:234-290``'s scene,
+       views and targets, ``max_point_per_bin=-1``, silhouette + RGB loss
+       through ``interpolate_attr``; K2 global, K3 global, K3f, K4b, and no
+       K1): overflow 0, two backward runs equal to the bit, the loss and the
+       gradients against ``voge_tpu``'s golden file; then three
+       ``models.ShapeFitter`` steps (default optimizer), losses and
+       parameters against the same file;
      then the 1K forward against its golden file and the quickstart bounds;
-  4. CUDA-event timings of the headline forward and fitting step on the
-     kernel path and on the plain path, in turns, and of each kernel against
-     its plain version; a torch.profiler trace of five kernel-path fitting
-     steps gives the device's busy share and the time by kernel.
+  4. CUDA-event timings of the headline forward and fitting step and of the
+     ShapeFitting step on the kernel path and on the plain path, in turns,
+     and of each kernel against its plain version; torch.profiler traces of
+     five kernel-path steps of each give the device's busy share and the
+     time by kernel.
 
 Any failed check raises, so the exit code is nonzero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it a JSON line of the
@@ -39,6 +51,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -54,6 +67,8 @@ DATA = ROOT / "tests" / "data"
 GOLDEN = DATA / "voge_tpu_golden_1k_128.npz"
 GOLDEN_GRAD = {"1k": DATA / "voge_tpu_golden_grad_1k_128.npz",
                "headline": DATA / "voge_tpu_golden_grad_10k_256.npz"}
+GOLDEN_SF = DATA / "voge_tpu_golden_shapefit_128.npz"
+SF_B, SF_HW, SF_K = 5, (128, 128), 25   # the ShapeFitting step (bench.py:234-290)
 OUT_DIR = ROOT / "chiprun_out"
 KERNELS = {  # name -> (library, source, replaced TPU kernel)
     "emit_keys": ("emit", "voge_tpu_torch/csrc/emit.cu",
@@ -68,6 +83,10 @@ KERNELS = {  # name -> (library, source, replaced TPU kernel)
                  "voge_tpu/ops/pallas_bwd.py:573"),
     "attr_merge_bwd": ("attr_merge_bwd", "voge_tpu_torch/csrc/attr_merge_bwd.cu",
                        "voge_tpu/ops/pallas_attr.py:90"),
+    "fine_select_global": ("fine_select", "voge_tpu_torch/csrc/fine_select.cu",
+                           "voge_tpu/ops/pallas_fine2.py:803"),
+    "fine_bwd_global": ("fine_bwd", "voge_tpu_torch/csrc/fine_bwd.cu",
+                        "voge_tpu/ops/pallas_bwd.py:255"),
 }
 # tolerances (tests/test_parity_full.py:22-49): selections equal but for
 # knife-edge pixels (< 0.1% flipped); len/act/dsd rtol 1e-5 atol 1e-5;
@@ -80,6 +99,9 @@ FLIP_MAX, LAD_TOL, W_TOL = 1e-3, 1e-5, 1e-4
 # gradient and the loss to a relative 1e-5 (XLA's sum order, its erf
 # against erff, knife-edge pixels).
 GRAD_TOL, GOLD_GRAD_TOL, GOLD_LOSS_TOL = 1e-4, 1e-3, 1e-5
+# ShapeFitter steps against the golden file: each loss to a relative 1e-5,
+# and the parameters' displacement from the start to a normwise relative
+# 1e-3 (each update is lr x the momentum trace of gradients held to 1e-3).
 
 
 def need(cond, msg):
@@ -142,6 +164,8 @@ def plain_path():
     swaps = [(coarse, "emit_keys", cuda_coarse.emit_keys_plain),
              (fine, "fine_select", cuda_fine.fine_select_plain),
              (fine, "fine_bwd", cuda_fine_bwd.fine_bwd_plain),
+             (fine, "fine_select_global", cuda_fine.fine_select_global_plain),
+             (fine, "fine_bwd_global", cuda_fine_bwd.fine_bwd_global_plain),
              (cuda_attr, "attr_merge", cuda_attr.attr_merge_plain),
              (cuda_attr, "attr_merge_bwd", cuda_attr.attr_merge_bwd_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
@@ -211,6 +235,39 @@ def fitting_step(g, cams, colors, hw, ctx=None):
     return frag, loss, (verts, sigmas, cols)
 
 
+def shapefit_scene(dev):
+    """``bench.py:234-290``'s ShapeFitting scene through the port's own
+    converters: ``ico_sphere(4)`` (2,562 Gaussians) through
+    ``naive_vertices_converter(percentage=0.5)``, colours 0.5, five views at
+    dist 2.7, elevations ``linspace(-10, 30, 5)``, azimuths ``linspace(-60,
+    60, 5)``, focal 126 at 128x128; targets RGB 0.3 and silhouette 0.
+    :return: (verts (N, 3), inverse sigmas (N,), colours (N, 3), (R, T,
+        focal, principal), (target_rgb, target_sil))"""
+    import voge_tpu_torch as vt
+
+    v, f = vt.ico_sphere(4)
+    verts, isig, _ = vt.naive_vertices_converter(v, f, percentage=0.5)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    R, T = vt.look_at_view_transform(dist=[2.7] * SF_B, elev=list(np.linspace(-10, 30, SF_B)),
+                                     azim=list(np.linspace(-60, 60, SF_B)), device=dev)
+    cams = (R, T, t(np.full((SF_B, 2), 126.0)), t(np.full((SF_B, 2), 64.0)))
+    targets = (t(np.full((SF_B,) + SF_HW + (3,), 0.3)), t(np.zeros((SF_B,) + SF_HW)))
+    return t(verts), t(isig), t(np.full((len(verts), 3), 0.5)), cams, targets
+
+
+def shapefit_loss(verts, isig, colors, cams, targets):
+    """The ShapeFitting loss ``mean((sil - t_sil)^2) + mean((rgb -
+    t_rgb)^2)`` through ``render_pipeline(max_point_per_bin=-1)``,
+    ``interpolate_attr`` and ``get_silhouette``; (fragments, loss)."""
+    import voge_tpu_torch as vt
+
+    frag = vt.render_pipeline(verts, isig, *cams, image_size=SF_HW, max_assign=SF_K,
+                              max_point_per_bin=-1)
+    rgb = vt.interpolate_attr(frag, colors)
+    loss = ((vt.get_silhouette(frag) - targets[1]) ** 2).mean() + ((rgb - targets[0]) ** 2).mean()
+    return frag, loss
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device visible; the port's checks run only on a GPU")
@@ -222,10 +279,15 @@ def main():
         attr_merge, attr_merge_bwd, attr_merge_bwd_plain, attr_merge_plain,
     )
     from voge_tpu_torch.ops.cuda_coarse import emit_keys, emit_keys_plain
-    from voge_tpu_torch.ops.cuda_fine import fine_select, fine_select_plain
-    from voge_tpu_torch.ops.cuda_fine_bwd import (
-        fine_bwd, fine_bwd_plain, fold_weights, fold_weights_plain,
+    from voge_tpu_torch.aggregation import expend_sigma
+    from voge_tpu_torch.ops.cuda_fine import (
+        fine_select, fine_select_global, fine_select_global_plain, fine_select_plain,
     )
+    from voge_tpu_torch.ops.cuda_fine_bwd import (
+        fine_bwd, fine_bwd_global, fine_bwd_global_plain, fine_bwd_plain, fold_weights,
+        fold_weights_plain,
+    )
+    from voge_tpu_torch.rays import camera_rays
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -234,7 +296,9 @@ def main():
     details = {}
     launchers = {"emit_keys": emit_keys, "fine_select": fine_select,
                  "attr_merge": attr_merge, "fold_weights": fold_weights,
-                 "fine_bwd": fine_bwd, "attr_merge_bwd": attr_merge_bwd}
+                 "fine_bwd": fine_bwd, "attr_merge_bwd": attr_merge_bwd,
+                 "fine_select_global": fine_select_global,
+                 "fine_bwd_global": fine_bwd_global}
 
     def zero_counts():
         for fn in launchers.values():
@@ -255,7 +319,7 @@ def main():
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     details["card"] = smi
     t0 = time.perf_counter()
-    _build.load_all(lib for lib, _, _ in KERNELS.values())
+    _build.load_all(dict.fromkeys(lib for lib, _, _ in KERNELS.values()))
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s wall, in parallel: " + ", ".join(
         f"{k} {v[0]:.1f} s" for k, v in _build.build_info.items()))
@@ -333,6 +397,49 @@ def main():
         if tag == "headline":
             head.update(k1=k1_args, scene=(g, cams, colors), P=P,
                         k4b=(idx, w, attrs, g_att))
+    torch.cuda.synchronize()
+
+    # 2b. the global entries of K2 and K3 at the ShapeFitting shapes
+    sf = shapefit_scene(dev)
+    verts_sf, isig_sf, colors_sf, cams_sf, targets_sf = sf
+    rays_sf, origins_sf = camera_rays(*cams_sf, SF_HW)
+    P_sf = verts_sf.shape[0]
+    points_sf = verts_sf[None] - origins_sf[:, None, :]
+    isig3 = (2.0 * expend_sigma(isig_sf))[None].expand(SF_B, P_sf, 3, 3)
+    table_sf = fine.feature_table(points_sf, isig3)
+    bs_sf, mppb = fine.production_bin_geometry(SF_HW, SF_K, P_sf, None, -1)
+    need(mppb == -1, "the ShapeFitting geometry has a coarse stage")
+    thr_act = -math.log(0.01 + 1.0 / 1e10)
+    nb_sf = SF_B * math.prod(coarse.supertile_grid(*SF_HW, bs_sf))
+    bits_sf = torch.randint(0, 16, (nb_sf, P_sf), dtype=torch.int32, device=dev,
+                            generator=torch.Generator(dev).manual_seed(40))
+    for bits in (None, bits_sf):
+        args = (rays_sf, table_sf, bits, thr_act, SF_K, bs_sf, 1.0)
+        got, want = fine_select_global(*args), fine_select_global_plain(*args)
+        need(torch.equal(got[0], want[0]), f"K2 global bits={bits is not None}: selections differ")
+        _, e = compare_select(got, want)
+        err["fine_select_global"] = max(err["fine_select_global"], e)
+        print(f"K2 global shapefit: P={P_sf} supertiles={nb_sf} bs={bs_sf} "
+              f"bits={'random' if bits is not None else 'none'} selections equal, "
+              f"valid slots {int((got[0] >= 0).sum())}, max_err(w)={e:.3e}")
+        if bits is None:
+            sel_sf = got
+            head["k2g"] = args
+    g_sf = [seeded(sel_sf[1].shape, dev, 50 + q) for q in range(4)]
+    # (g_len, g_act, g_dsd, g_w): all set, g_w zero, and the trainer's own
+    # configuration (only g_w: the loss reads the weights alone)
+    for cots in (g_sf, g_sf[:3] + [torch.zeros_like(g_sf[3])], [None, None, None, g_sf[3]]):
+        for want_rays in (False, True):
+            b_args = (rays_sf, table_sf, *sel_sf, *cots, 1.0, want_rays)
+            kb, pb = fine_bwd_global(*b_args), fine_bwd_global_plain(*b_args)
+            e = grad_err(kb[0], pb[0], "K3 global rows")
+            if want_rays:
+                e = max(e, grad_err(kb[1], pb[1], "K3 global rays"))
+            else:
+                need(kb[1] is None and pb[1] is None, "K3 global: unasked ray gradient")
+            err["fine_bwd_global"] = max(err["fine_bwd_global"], e)
+    head["k3g"] = (rays_sf, table_sf, *sel_sf, None, None, None, g_sf[3], 1.0, False)
+    print(f"K3 global shapefit: max_err/max|plain| {err['fine_bwd_global']:.3e}")
     torch.cuda.synchronize()
 
     # ---- 3. the main paths --------------------------------------------
@@ -451,6 +558,57 @@ def main():
     print(f"quickstart 1K 256x256: weight_sum={wsum:.2f} silhouette={sil:.4f}")
     details["quickstart"] = dict(weight_sum=wsum, silhouette=sil)
 
+    # 3d. the ShapeFitting step (slice 3) and three ShapeFitter steps
+    no_coarse = ("fine_select_global", "fine_bwd_global", "attr_merge", "attr_merge_bwd")
+
+    def compacted_unused(counts, path):
+        need(all(counts[k] == 0 for k in ("emit_keys", "fine_select", "fine_bwd")),
+             f"{path}: the compacted path's kernels ran on the no-coarse path")
+
+    gold = np.load(GOLDEN_SF)
+    zero_counts()
+    leaves = [x.clone().requires_grad_(True) for x in (verts_sf, isig_sf, colors_sf)]
+    frag_sf, loss_sf = shapefit_loss(*leaves, cams_sf, targets_sf)
+    gr = torch.autograd.grad(loss_sf, leaves, retain_graph=True)
+    gr2 = torch.autograd.grad(loss_sf, leaves)
+    counts = read_counts("shapefit step", no_coarse)
+    compacted_unused(counts, "shapefit step")
+    add(counts)
+    need(vt.get_overflow_points(frag_sf) == 0, "shapefit overflow_points != 0")
+    valid_sf = int((frag_sf.vert_index >= 0).sum())
+    e = {"loss": abs(loss_sf.item() - float(gold["loss"])) / abs(float(gold["loss"]))}
+    need(e["loss"] <= GOLD_LOSS_TOL, f"shapefit loss {loss_sf.item()} vs {float(gold['loss'])}")
+    for name, a, b in zip(("verts", "sigmas", "colors"), gr, gr2):
+        need(bool(torch.isfinite(a).all()), f"non-finite shapefit {name} gradient")
+        need(torch.equal(a, b), f"shapefit {name} gradient differs between two backward runs")
+        e[name] = rel(a.cpu().numpy(), gold["grad_" + name])
+        need(e[name] <= GOLD_GRAD_TOL, f"shapefit grad {name} rel err {e[name]:.3e}")
+    print(f"shapefit step vs voge_tpu golden: loss {loss_sf.item():.8f} valid slots {valid_sf} "
+          "overflow 0, rel err " + ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
+
+    def make_fitter():
+        return vt.ShapeFitter({"verts": verts_sf, "colors": colors_sf}, {"sigmas": isig_sf},
+                              image_size=SF_HW, focal=cams_sf[2][0], principal=cams_sf[3][0],
+                              max_assign=SF_K, device=dev)
+
+    zero_counts()
+    fitter = make_fitter()
+    fit_loss = [fitter.step(cams_sf[0], cams_sf[1], *targets_sf) for _ in range(3)]
+    counts = read_counts("ShapeFitter steps", no_coarse)
+    compacted_unused(counts, "ShapeFitter steps")
+    add(counts)
+    for i, (a, b) in enumerate(zip(fit_loss, gold["fit_loss"])):
+        e[f"fit_loss_{i}"] = abs(a - float(b)) / abs(float(b))
+        need(e[f"fit_loss_{i}"] <= GOLD_LOSS_TOL, f"ShapeFitter step {i} loss {a} vs {float(b)}")
+    for name, x0 in (("verts", verts_sf), ("colors", colors_sf)):
+        moved = (fitter.params[name].detach() - x0).cpu().numpy()
+        k = f"fit_{name}"
+        e[k] = rel(moved, gold[k] - x0.cpu().numpy())
+        need(e[k] <= GOLD_GRAD_TOL, f"ShapeFitter {name} rel err {e[k]:.3e}")
+    print(f"ShapeFitter 3 steps vs voge_tpu golden: losses {fit_loss}, rel err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in e.items() if k.startswith("fit")))
+    details["golden_shapefit"] = dict(e, valid_slots=valid_sf)
+
     # ---- 4. timings -----------------------------------------------------
     inputs = [g.verts.detach() * (1.0 + 1e-5 * i) for i in range(24)]
     sig = g.sigmas.detach()
@@ -502,6 +660,32 @@ def main():
         details[label] = stats
     step_ms = details["fwd+bwd"]["kernel"]["median_ms"]
 
+    # the ShapeFitting step, ShapeFitter.step on 5 views: each step moves the
+    # parameters, so every timed step has distinct inputs
+    sf_fitter = make_fitter()
+
+    def sf_step(_):
+        return sf_fitter.step(cams_sf[0], cams_sf[1], *targets_sf)
+
+    runs = {"kernel": [], "plain": []}
+    sf_step(0)
+    with plain_path():
+        sf_step(0)
+    for path in ("plain", "kernel", "kernel", "plain"):
+        if path == "plain":
+            with plain_path():
+                runs[path] += timed(sf_step, range(10))
+        else:
+            runs[path] += timed(sf_step, range(10))
+    stats = {}
+    for path, ts in runs.items():
+        med = statistics.median(ts)
+        stats[path] = dict(median_ms=med, min_ms=min(ts), max_ms=max(ts),
+                           spread=(max(ts) - min(ts)) / med, n=len(ts))
+        print(f"shapefit step {path} path: median {med:.3f} ms, "
+              f"min {min(ts):.3f}, max {max(ts):.3f}, n={len(ts)}")
+    details["shapefit_step"] = stats
+
     k2, k3 = head["k2"], head["k3"]
     per = {
         "emit_keys": (lambda: emit_keys(*head["k1"]), lambda: emit_keys_plain(*head["k1"])),
@@ -512,11 +696,15 @@ def main():
         "fine_bwd": (lambda: fine_bwd(*head["k3b"]), lambda: fine_bwd_plain(*head["k3b"])),
         "attr_merge_bwd": (lambda: attr_merge_bwd(*head["k4b"]),
                            lambda: attr_merge_bwd_plain(*head["k4b"])),
+        "fine_select_global": (lambda: fine_select_global(*head["k2g"]),
+                               lambda: fine_select_global_plain(*head["k2g"])),
+        "fine_bwd_global": (lambda: fine_bwd_global(*head["k3g"]),
+                            lambda: fine_bwd_global_plain(*head["k3g"])),
     }
     kern = []
     for name, (kfn, pfn) in per.items():
         ms = cuda_ms(kfn, 50)
-        plain_ms = cuda_ms(pfn, 5 if name in ("fine_select", "fine_bwd") else 20)
+        plain_ms = cuda_ms(pfn, 5 if name.startswith(("fine_select", "fine_bwd")) else 20)
         print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms")
         _, src, rep = KERNELS[name]
         kern.append(dict(name=name, route="cuda", source=src, replaces=rep,
@@ -526,27 +714,34 @@ def main():
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for v in inputs[:5]:
-            fwd_bwd(v)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kinds = {ev.key: ev.self_device_time_total / 1e3 for ev in prof.key_averages()
-             if ev.device_type == torch.autograd.DeviceType.CUDA}
-    # device time per fitting step from the trace, over the untraced median wall
-    dev_ms = sum(kinds.values()) / 5
-    busy = dev_ms / step_ms
-    top = sorted(kinds.items(), key=lambda kv: -kv[1])[:10]
-    print(f"profile: device {dev_ms:.3f} ms per fitting step, busy share {busy:.3f} of the "
-          f"untraced median (traced wall {wall_ms / 5:.3f} ms); top over 5 steps: "
-          + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
-    details["profile"] = dict(device_ms_per_step=dev_ms, device_busy_share=busy,
-                              traced_wall_ms_per_step=wall_ms / 5,
-                              device_ms_by_kernel_5_steps=kinds)
-    (OUT_DIR / "profile.txt").write_text(
-        prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+    def profiled(tag, fn, args, untraced_ms, path):
+        """Device time per step from a trace of five steps, over the
+        untraced median wall: the device's busy share."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for a in args:
+                fn(a)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kinds = {ev.key: ev.self_device_time_total / 1e3 for ev in prof.key_averages()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA}
+        dev_ms = sum(kinds.values()) / len(args)
+        busy = dev_ms / untraced_ms
+        top = sorted(kinds.items(), key=lambda kv: -kv[1])[:10]
+        print(f"profile {tag}: device {dev_ms:.3f} ms per step, busy share {busy:.3f} of the "
+              f"untraced median (traced wall {wall_ms / len(args):.3f} ms); top over "
+              f"{len(args)} steps: " + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+        (OUT_DIR / path).write_text(
+            prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        return dict(device_ms_per_step=dev_ms, device_busy_share=busy,
+                    traced_wall_ms_per_step=wall_ms / len(args),
+                    device_ms_by_kernel=kinds)
+
+    details["profile"] = profiled("fitting step", fwd_bwd, inputs[:5], step_ms, "profile.txt")
+    details["profile_shapefit"] = profiled(
+        "shapefit step", sf_step, range(5), details["shapefit_step"]["kernel"]["median_ms"],
+        "profile_shapefit.txt")
 
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     print(f"nvidia-smi: {smi_line()}")

@@ -12,8 +12,11 @@ knife-edge pixels (< 0.1% flipped), len / act / dsd rtol 1e-5 atol 1e-5 and
 weights / images atol 1e-4 on agreeing pixels.  The backward kernels (the
 fold, K3, K4b) and the gradients of a whole render: max |kernel - plain| <=
 1e-4 max |plain| per tensor (f32 sums in another order); two backward runs
-equal to the bit.
+equal to the bit.  The global entries of K2 and K3 (the no-coarse path):
+selections equal to the plain version's, the rest as above.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -25,9 +28,12 @@ from voge_tpu_torch.ops.cuda_attr import (
     attr_merge, attr_merge_bwd, attr_merge_bwd_plain, attr_merge_plain,
 )
 from voge_tpu_torch.ops.cuda_coarse import emit_keys, emit_keys_plain
-from voge_tpu_torch.ops.cuda_fine import fine_select, fine_select_plain
+from voge_tpu_torch.ops.cuda_fine import (
+    fine_select, fine_select_global, fine_select_global_plain, fine_select_plain,
+)
 from voge_tpu_torch.ops.cuda_fine_bwd import (
-    fine_bwd, fine_bwd_plain, fold_weights, fold_weights_plain,
+    fine_bwd, fine_bwd_global, fine_bwd_global_plain, fine_bwd_plain, fold_weights,
+    fold_weights_plain,
 )
 from voge_tpu_torch.rays import camera_rays
 
@@ -228,6 +234,8 @@ class _PlainPath:
         self.saved = [(coarse, "emit_keys", cuda_coarse.emit_keys_plain),
                       (fine, "fine_select", fine_select_plain),
                       (fine, "fine_bwd", fine_bwd_plain),
+                      (fine, "fine_select_global", fine_select_global_plain),
+                      (fine, "fine_bwd_global", fine_bwd_global_plain),
                       (cuda_attr, "attr_merge", attr_merge_plain),
                       (cuda_attr, "attr_merge_bwd", attr_merge_bwd_plain)]
         self.saved = [(m, n, getattr(m, n), f) for m, n, f in self.saved]
@@ -268,3 +276,94 @@ def test_render_gradients_kernel_path_match_plain_path(dev):
         assert torch.equal(a, b)
         assert torch.isfinite(a).all()
         _close(a, c)
+
+
+def _global_select(stage, K, bits_kind):
+    cams, hw, rays, points, isig, colors = stage
+    table = fine.feature_table(points, isig)
+    bs = 10
+    bits = None
+    if bits_kind == "random":
+        nb = points.shape[0] * math.prod(coarse.supertile_grid(*hw, bs))
+        gen = torch.Generator(rays.device).manual_seed(6)
+        bits = torch.randint(0, 16, (nb, points.shape[1]), dtype=torch.int32,
+                             device=rays.device, generator=gen)
+    return rays, table, (rays, table, bits, -math.log(0.01 + 1e-10), K, bs, 0.9)
+
+
+@pytest.mark.parametrize("K", [5, 25, 40])
+@pytest.mark.parametrize("bits_kind", ["none", "random"])
+def test_select_global_kernel_matches_plain(stage, K, bits_kind):
+    _, _, args = _global_select(stage, K, bits_kind)
+    before = fine_select_global.launches
+    got = fine_select_global(*args)
+    want = fine_select_global_plain(*args)
+    torch.cuda.synchronize()
+    assert fine_select_global.launches == before + 1
+    assert torch.equal(got[0], want[0]) and (got[0] >= 0).any()
+    for g, w in zip(got[1:4], want[1:4]):
+        torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("want_rays", [False, True])
+@pytest.mark.parametrize("g_w", ["set", "zero", "only"])
+def test_fine_bwd_global_kernel_matches_plain(stage, want_rays, g_w):
+    rays, table, args = _global_select(stage, 25, "none")
+    sel = fine_select_global(*args)
+    cots = _cotangents(sel[1].shape, rays.device, 4, 7)
+    if g_w == "zero":
+        cots[3] = torch.zeros_like(cots[3])
+    elif g_w == "only":
+        cots[:3] = [None] * 3
+    b_args = (rays, table, *sel, *cots, 0.9, want_rays)
+    before = fine_bwd_global.launches
+    got = fine_bwd_global(*b_args)
+    again = fine_bwd_global(*b_args)
+    want = fine_bwd_global_plain(*b_args)
+    torch.cuda.synchronize()
+    assert fine_bwd_global.launches == before + 2
+    assert got[0].shape == (table.shape[0], 12)
+    _close(got[0], want[0])
+    assert torch.equal(got[0], again[0])
+    if want_rays:
+        _close(got[1], want[1])
+        assert torch.equal(got[1], again[1])
+    else:
+        assert got[1] is None and want[1] is None
+
+
+def test_shape_fitter_kernel_path_matches_plain_path(dev):
+    """Two ``ShapeFitter`` steps on the no-coarse path (``ico_sphere(3)``,
+    three views at 64x64, K = 25) through the kernels and through the plain
+    versions: the global entries and the attribute merge are launched and
+    K1 is not; losses to a relative 1e-5 and the parameters' displacement to
+    a normwise relative 1e-4."""
+    v, f = vt.ico_sphere(3)
+    verts, isig, _ = vt.naive_vertices_converter(v, f, percentage=0.5)
+    R, T = vt.look_at_view_transform(dist=2.7, elev=[-10.0, 10.0, 30.0],
+                                     azim=[-60.0, 0.0, 60.0], device=dev)
+    t_rgb = torch.full((3, 64, 64, 3), 0.3, device=dev)
+    t_sil = torch.zeros((3, 64, 64), device=dev)
+
+    def run():
+        fitter = vt.ShapeFitter({"verts": verts, "colors": np.full_like(verts, 0.5)},
+                                {"sigmas": isig}, image_size=(64, 64), focal=63.0,
+                                principal=(32.0, 32.0), device=dev)
+        losses = [fitter.step(R, T, t_rgb, t_sil) for _ in range(2)]
+        return losses, {k: p.detach() for k, p in fitter.params.items()}
+
+    before = {fn: fn.launches for fn in (fine_select_global, fine_bwd_global, attr_merge,
+                                         attr_merge_bwd, emit_keys)}
+    lk, pk = run()
+    torch.cuda.synchronize()
+    for fn, n in before.items():
+        assert (fn.launches > n) == (fn is not emit_keys), fn.__name__
+    with _PlainPath():
+        lp, pp = run()
+    for a, b in zip(lk, lp):
+        assert abs(a - b) <= 1e-5 * abs(b)
+    for k in pk:
+        x0 = torch.as_tensor(verts if k == "verts" else np.full_like(verts, 0.5), device=dev)
+        moved_k, moved_p = pk[k] - x0, pp[k] - x0
+        assert (moved_k - moved_p).norm() <= 1e-4 * moved_p.norm(), k

@@ -264,10 +264,13 @@ def test_paths_not_ported_raise():
                                          percentage=0.6, as_obj=True)
     R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70)
     args = (g.verts, g.sigmas, R, T, torch.tensor([[30.0, 30.0]]), torch.tensor([[16.0, 16.0]]))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        vt.render_pipeline(*args, image_size=(32, 32), max_point_per_bin=-1)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        vt.render_pipeline(*args, image_size=(32, 32), max_assign=129)
+    for mppb in (None, -1):
+        with pytest.raises(NotImplementedError, match="item 15"):
+            vt.render_pipeline(*args, image_size=(32, 32), max_assign=129,
+                               max_point_per_bin=mppb)
+    # no coarse stage renders now, and culls nothing
+    frag = vt.render_pipeline(*args, image_size=(32, 32), max_point_per_bin=-1)
+    assert vt.get_overflow_points(frag) == 0 and (frag.valid_num > 0).any()
 
 
 def test_golden_file_is_voge_tpu_output():

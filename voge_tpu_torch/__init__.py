@@ -4,21 +4,29 @@ Same module names as ``voge_tpu``; inside, PyTorch idiom (``nn.Module``
 scenes and renderer, plain functions on tensors, explicit devices,
 ``torch.autograd.Function`` where a kernel needs a gradient).  A render and
 its backward run hand-written CUDA kernels (``csrc/``): K1 coarse emission,
-K2 streaming top-K select with fused weights and attribute image, K3 the
-fine backward with the weight fold and the attribute VJP, K3f attribute
-merge and K4b its backward.  On CPU tensors each kernel's plain PyTorch
-version runs instead.  Importing builds nothing; a kernel is compiled by
-``nvcc`` at its first launch.  The port imports neither JAX nor
-``voge_tpu``.
+K2 streaming top-K select with fused weights and attribute image (over
+emission-compacted rows, or over every Gaussian on the no-coarse path), K3
+the fine backward with the weight fold and the attribute VJP (both spaces),
+K3f attribute merge and K4b its backward.  ``models.ShapeFitter`` fits a
+scene with ``torch.optim`` on top of the renderer.  On CPU tensors each
+kernel's plain PyTorch version runs instead.  Importing builds nothing; a
+kernel is compiled by ``nvcc`` at its first launch.  The port imports
+neither JAX nor ``voge_tpu``.
 """
 
 __version__ = "0.1.0"
 
-from voge_tpu_torch import aggregation, cameras, converter, interop, meshes, ops
+from voge_tpu_torch import aggregation, cameras, converter, interop, meshes, models, ops
 from voge_tpu_torch import rays, renderer, utils
 from voge_tpu_torch.cameras import PerspectiveCameras, look_at_view_transform
-from voge_tpu_torch.interop import cameras_from_numpy, scene_from_numpy
+from voge_tpu_torch.converter import (
+    get_vert_edge_length,
+    ico_sphere,
+    naive_vertices_converter,
+)
+from voge_tpu_torch.interop import cameras_from_numpy, fitter_from_numpy, scene_from_numpy
 from voge_tpu_torch.meshes import GaussianMeshes, GaussianMeshesNaive
+from voge_tpu_torch.models import ShapeFitter
 from voge_tpu_torch.renderer import (
     CameraCtx,
     Fragments,

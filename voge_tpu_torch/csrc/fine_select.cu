@@ -1,10 +1,19 @@
 // K2: streaming top-K select with fused erf weights and fused attribute image.
 //
-// Replaces voge_tpu/ops/pallas_fine2.py::_kernel_tc (reached through
-// fine_select_compact_pallas <- fine._rt_fine_compact_impl).  For every ray
-// of a supertile (2x2 bins of bs x bs pixels) it streams the supertile's
-// emission-compacted candidate rows in ascending order and keeps the K
-// nearest passing hits by ascending length:
+// Replaces voge_tpu/ops/pallas_fine2.py::_kernel_tc through both of its
+// entries:
+//  - compacted (voge_fine_select; fine_select_compact_pallas <-
+//    fine._rt_fine_compact_impl): the candidates of a supertile are its
+//    emission-compacted rows (nb, M, 16), with their ids and counts;
+//  - global (voge_fine_select_global; fine_select_mask_pallas <-
+//    fine._rt_fine_kern, the no-coarse path): the candidates of supertile s
+//    are all P Gaussians of its image b = s / nst, read in place from one
+//    (B * P, 16) table (no copy per supertile), slot n has id b * P + n, and
+//    the sub-bin bits come from an optional (nb, P) plane (null: every
+//    Gaussian is a member of every sub-bin, which is what no-coarse means).
+// For every ray of a supertile (2x2 bins of bs x bs pixels) it streams the
+// candidates in ascending order and keeps the K nearest passing hits by
+// ascending length:
 //   msk = A.r, ksk = r^T Lambda r, len = msk / ksk,
 //   act = d^T Lambda d with d = mu - len * r  (the compensated residual form),
 //   pass iff act < thr_act and the ray's sub-bin bit is set in the row's bits.
@@ -35,6 +44,18 @@
 // Splitting dense supertiles across blocks and a merge of partial top-Ks is
 // the next step for speed.
 //
+// The global entry is bound the same way, by arithmetic latency: at the
+// ShapeFitting step (5 views, 128x128, bin 10: 245 supertiles of 400 rays,
+// 2,562 Gaussians) every ray tests every Gaussian of its image, 210M pairs.
+// The TPU kernel's any-hit gate skips a chunk no ray of the tile passes; a
+// thread here skips the insertion of every pair that fails the test, which
+// is what that gate saves on a GPU: the hit test itself cannot be skipped
+// without a bound that culls, and no-coarse culls nothing.  Measured there on
+// an H100 80GB HBM3 at 700 W: 2.42 ms (the K = 32 bucket, 255 registers),
+// 59% of the trainer step's device time; the plain version takes 66 ms.
+// Each supertile's fourth block holds 16 live rays of 128; with no bits
+// plane, blocks of 128 consecutive rays of an image would avoid that.
+//
 // Exactness: compiled with -fmad=false.  The TPU kernel evaluates the hit
 // test as separate multiplies and adds on its vector unit; keeping every
 // product rounded once makes this kernel agree with the plain PyTorch
@@ -55,10 +76,10 @@ constexpr float E_HALF = 1.6487212707001282f;
 
 struct Args {
   const float* rays;   // (B, H, W, 3)
-  const float* table;  // (nb, M, 16) feature rows
-  const int* bits;     // (nb, M) sub-bin membership bits
-  const int* ids;      // (nb, M) global flattened ids
-  const int* counts;   // (nb,) occupied rows
+  const float* table;  // (nb, M, 16) feature rows; global: (B * M, 16)
+  const int* bits;     // (nb, M) sub-bin membership bits; global: may be null
+  const int* ids;      // (nb, M) global flattened ids; global: null
+  const int* counts;   // (nb,) occupied rows; global: null (all M = P)
   const float* attrs;  // (n_rows, d) or null
   int* o_idx;          // (B, H, W, K)
   float* o_len;
@@ -147,14 +168,17 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
     ts[k] = -1;
   }
 
-  const int cnt = a.counts[s];
-  const float4* rows = reinterpret_cast<const float4*>(a.table + (size_t)s * a.M * 16);
-  const int* brow = a.bits + (size_t)s * a.M;
+  // compacted: the supertile's own rows; global: its image's Gaussians
+  const bool global = a.ids == nullptr;
+  const int cnt = global ? a.M : a.counts[s];
+  const float4* rows = reinterpret_cast<const float4*>(
+      a.table + (global ? (size_t)b : (size_t)s) * a.M * 16);
+  const int* brow = a.bits != nullptr ? a.bits + (size_t)s * a.M : nullptr;
   for (int c0 = 0; c0 < cnt; c0 += TILE) {
     const int n = min(TILE, cnt - c0);
     __syncthreads();
     for (int t = threadIdx.x; t < n * 4; t += THREADS) s_tab[t] = rows[(size_t)c0 * 4 + t];
-    for (int t = threadIdx.x; t < n; t += THREADS) s_bits[t] = brow[c0 + t];
+    for (int t = threadIdx.x; t < n; t += THREADS) s_bits[t] = brow != nullptr ? brow[c0 + t] : 0xF;
     __syncthreads();
     if (!live) continue;
     for (int c = 0; c < n; ++c) {
@@ -199,7 +223,8 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
 #pragma unroll
   for (int k = 0; k < KB; ++k) {
     if (k < a.K) {
-      a.o_idx[o + k] = ts[k] >= 0 ? a.ids[(size_t)s * a.M + ts[k]] : -1;
+      a.o_idx[o + k] = ts[k] < 0 ? -1
+                       : global ? b * a.M + ts[k] : a.ids[(size_t)s * a.M + ts[k]];
       a.o_len[o + k] = tl[k];
       a.o_act[o + k] = ta[k];
       a.o_dsd[o + k] = td[k];
@@ -227,6 +252,16 @@ cudaError_t launch(const Args& a, int nb, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+int launch_k(const Args& a, int nb, cudaStream_t s) {
+  cudaError_t err;
+  if (a.K <= 8) err = launch<8>(a, nb, s);
+  else if (a.K <= 16) err = launch<16>(a, nb, s);
+  else if (a.K <= 32) err = launch<32>(a, nb, s);
+  else if (a.K <= 64) err = launch<64>(a, nb, s);
+  else err = launch<128>(a, nb, s);
+  return (int)err;
+}
+
 }  // namespace
 
 extern "C" int voge_fine_select(
@@ -235,7 +270,9 @@ extern "C" int voge_fine_select(
     void* o_act, void* o_dsd, void* o_w, void* o_img, int nb, int H, int W,
     int bs, int BW2, int nst, int M, int K, int d, long long n_rows,
     float thr_act, float ow, void* stream) {
-  if (nb <= 0 || bs <= 0 || K <= 0 || K > 128) return (int)cudaErrorInvalidValue;
+  if (nb <= 0 || bs <= 0 || K <= 0 || K > 128 || bits == nullptr ||
+      ids == nullptr || counts == nullptr)
+    return (int)cudaErrorInvalidValue;
   Args a;
   a.rays = (const float*)rays;
   a.table = (const float*)table;
@@ -251,12 +288,27 @@ extern "C" int voge_fine_select(
   a.o_img = (float*)o_img;
   a.H = H; a.W = W; a.bs = bs; a.BW2 = BW2; a.nst = nst; a.M = M; a.K = K;
   a.d = d; a.n_rows = n_rows; a.thr_act = thr_act; a.ow = ow;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
-  if (K <= 8) err = launch<8>(a, nb, s);
-  else if (K <= 16) err = launch<16>(a, nb, s);
-  else if (K <= 32) err = launch<32>(a, nb, s);
-  else if (K <= 64) err = launch<64>(a, nb, s);
-  else err = launch<128>(a, nb, s);
-  return (int)err;
+  return launch_k(a, nb, (cudaStream_t)stream);
+}
+
+// The global entry: candidates of supertile s are the P rows of image
+// s / nst in ``table`` (B * P, 16); ``bits`` (nb, P) or null for all members.
+extern "C" int voge_fine_select_global(
+    const void* rays, const void* table, const void* bits, void* o_idx,
+    void* o_len, void* o_act, void* o_dsd, void* o_w, int nb, int H, int W,
+    int bs, int BW2, int nst, int P, int K, float thr_act, float ow,
+    void* stream) {
+  if (nb <= 0 || bs <= 0 || P <= 0 || K <= 0 || K > 128) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.rays = (const float*)rays;
+  a.table = (const float*)table;
+  a.bits = (const int*)bits;
+  a.o_idx = (int*)o_idx;
+  a.o_len = (float*)o_len;
+  a.o_act = (float*)o_act;
+  a.o_dsd = (float*)o_dsd;
+  a.o_w = (float*)o_w;
+  a.H = H; a.W = W; a.bs = bs; a.BW2 = BW2; a.nst = nst; a.M = P; a.K = K;
+  a.thr_act = thr_act; a.ow = ow;
+  return launch_k(a, nb, (cudaStream_t)stream);
 }

@@ -1,6 +1,7 @@
-"""Carry scenes and cameras over from numpy arrays: the arrays a
-``voge_tpu`` object exposes (``np.asarray(g.verts)``) or a saved scene
-(``voge_tpu.checkpoint.save_scene``'s ``.npz``), without importing JAX."""
+"""Carry scenes, cameras and fitting state over from numpy arrays: the
+arrays a ``voge_tpu`` object exposes (``np.asarray(g.verts)``) or a saved
+scene (``voge_tpu.checkpoint.save_scene``'s ``.npz``), without importing
+JAX."""
 from __future__ import annotations
 
 import numpy as np
@@ -8,6 +9,7 @@ import torch
 
 from voge_tpu_torch.cameras import PerspectiveCameras
 from voge_tpu_torch.meshes import GaussianMeshes
+from voge_tpu_torch.models.fitting import ShapeFitter
 
 
 def scene_from_numpy(verts, sigmas, colors=None, device="cpu"):
@@ -28,3 +30,31 @@ def cameras_from_numpy(R, T, focal, principal, image_size, device="cpu"):
         R=np.asarray(R, np.float32), T=np.asarray(T, np.float32),
         image_size=image_size, device=device,
     )
+
+
+def fitter_from_numpy(params, fixed=None, opt_trace=None, **kwargs) -> ShapeFitter:
+    """A ``ShapeFitter`` from a ``voge_tpu.models.ShapeFitter``'s state as
+    numpy arrays (``{k: np.asarray(v) for k, v in fitter.params.items()}``,
+    likewise ``fixed``), so that a fit can resume in the port.
+
+    :param opt_trace: optional ``{name: array}`` momentum trace of
+        ``voge_tpu``'s default ``optax.sgd(0.8, momentum=0.9)``
+        (``fitter.opt_state[0].trace``); it becomes the ``momentum_buffer``
+        of each parameter in ``torch.optim.SGD``'s state, whose next update
+        is then ``optax``'s
+    :param kwargs: ``ShapeFitter``'s keyword arguments (``image_size``,
+        ``focal``, ``principal``, ``device``, ...)
+    """
+    f = ShapeFitter({k: np.array(v, np.float32) for k, v in params.items()},
+                    {k: np.array(v, np.float32) for k, v in (fixed or {}).items()},
+                    **kwargs)
+    if opt_trace is not None:
+        if not isinstance(f.opt, torch.optim.SGD) or not f.opt.defaults["momentum"]:
+            raise ValueError("opt_trace is the momentum trace of SGD with momentum")
+        if set(opt_trace) != set(f.params):
+            raise ValueError(f"opt_trace has {sorted(opt_trace)}, the params "
+                             f"{sorted(f.params)}")
+        for k, p in f.params.items():
+            f.opt.state[p]["momentum_buffer"] = torch.as_tensor(
+                np.array(opt_trace[k], np.float32), device=p.device)
+    return f

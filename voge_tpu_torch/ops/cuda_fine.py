@@ -1,23 +1,28 @@
 """K2: streaming top-K select with fused erf weights and fused attribute
 image (``csrc/fine_select.cu``), and its plain PyTorch version.
 
-Replaces ``voge_tpu/ops/pallas_fine2.py::_kernel_tc`` (compacted entry,
-``fine_select_compact_pallas``).  For every pixel it keeps the K nearest
-candidates of its supertile row that pass ``act < thr_act`` and whose
-sub-bin bit is set, by ascending hit length with earlier candidates winning
-ties, then composites their erf weights and, given attributes, the attribute
-image.  Outputs are in image layout.
+Replaces ``voge_tpu/ops/pallas_fine2.py::_kernel_tc`` through both of its
+entries: :func:`fine_select` is the compacted entry
+(``fine_select_compact_pallas``), :func:`fine_select_global` the global one
+(``fine_select_mask_pallas``, the no-coarse path).  For every pixel it keeps
+the K nearest candidates of its supertile that pass ``act < thr_act`` and
+whose sub-bin bit is set, by ascending hit length with earlier candidates
+winning ties, then composites their erf weights and, given attributes, the
+attribute image.  The candidates of a supertile are its emission-compacted
+rows (compacted entry) or every Gaussian of its image in ascending index
+(global entry).  Outputs are in image layout.
 
 Bound on the H100: latency, not throughput: each thread walks its
 supertile's candidate rows in order, and the densest supertile sets the time
-(see the source note).  Design: one thread per ray, 128 rays per block,
+(see the source note); on the global entry every ray walks all of its
+image's Gaussians (no culling).  Design: one thread per ray, 128 rays per block,
 candidate rows staged through shared memory, the running top-K in registers
 (K bucket template, unrolled stable insertion), compiled with
 ``-fmad=false`` so that len / act / dsd equal :func:`fine_select_plain`'s
 bit for bit.
 
-The forward runs inside ``ops.fine.FineSelect``, whose backward is K3
-(``ops/cuda_fine_bwd.py``).
+The forward runs inside ``ops.fine.FineSelect`` / ``FineSelectGlobal``,
+whose backward is K3 (``ops/cuda_fine_bwd.py``).
 """
 from __future__ import annotations
 
@@ -68,7 +73,7 @@ def _check_args(rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs):
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
             f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
-            "waits for the dense path (ROADMAP queue 1, item 8)")
+            "waits for the dense path (ROADMAP queue 1, item 15)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     check(table_c, "table_c", torch.float32, (nb, M, FEAT))
     check(bits_c, "bits_c", torch.int32, (nb, M))
@@ -198,3 +203,84 @@ def fine_select(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
 
 fine_select.launches = 0
 
+
+
+def _check_global(rays, table, bits, K, bin_size):
+    B, H, W, _ = rays.shape
+    BH2, BW2 = supertile_grid(H, W, bin_size)
+    nb = B * BH2 * BW2
+    if not 0 < K <= MAX_K:
+        raise NotImplementedError(
+            f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
+            "waits for the dense path (ROADMAP queue 1, item 15)")
+    check(rays, "rays", torch.float32, (B, H, W, 3))
+    if table.ndim != 2 or table.shape[0] % B or table.shape[0] == 0:
+        raise ValueError(f"table: expected (B * P, {FEAT}) with B={B}, got {tuple(table.shape)}")
+    P = table.shape[0] // B
+    check(table, "table", torch.float32, (B * P, FEAT))
+    if bits is not None:
+        check(bits, "bits", torch.int32, (nb, P))
+    return B, H, W, BH2, BW2, nb, P
+
+
+def fine_select_global_plain(rays, table, bits, thr_act: float, K: int,
+                             bin_size: int, agg_ow: float):
+    """Plain version of K2's global entry: every supertile's candidate rows
+    are its image's P feature rows in ascending index, ids ``b * P + n`` and
+    the sub-bin bits of ``bits`` (all four when None), evaluated by
+    :func:`fine_select_plain` (dense over rays x candidates in chunks of
+    ``_PLAIN_CHUNK``, the kernel's operation order).  Same contract as
+    :func:`fine_select_global`."""
+    B, H, W, BH2, BW2, nb, P = _check_global(rays, table, bits, K, bin_size)
+    dev = rays.device
+    img = torch.arange(nb, device=dev) // (BH2 * BW2)
+    table_c = table.reshape(B, P, FEAT)[img]
+    ids_c = (img[:, None] * P + torch.arange(P, device=dev)).to(torch.int32)
+    if bits is None:
+        bits = torch.full((nb, P), 0xF, dtype=torch.int32, device=dev)
+    counts = torch.full((nb,), P, dtype=torch.int32, device=dev)
+    return fine_select_plain(rays, table_c, bits, ids_c, counts, thr_act, K,
+                             bin_size, agg_ow)[:5]
+
+
+def _kernel_global():
+    fn = load("fine_select").voge_fine_select_global
+    fn.argtypes = [VOIDP] * 8 + [INT] * 8 + [FLOAT, FLOAT, VOIDP]
+    fn.restype = INT
+    return fn
+
+
+def fine_select_global(rays, table, bits, thr_act: float, K: int,
+                       bin_size: int, agg_ow: float):
+    """Select the K nearest passing Gaussians of every pixel over the global
+    candidate space: every Gaussian of the pixel's image, in ascending index
+    (the no-coarse path; ``voge_tpu``'s ``fine_select_mask_pallas``).
+
+    :param rays: (B, H, W, 3) float32 unit world directions
+    :param table: (B * P, 16) float32 feature rows
+        (``ops.fine._gauss_feature_planes_batched``), row ``b * P + n`` the
+        n-th Gaussian of image b
+    :param bits: (nb, P) int32 sub-bin membership bits of each supertile
+        (nb = B * BH2 * BW2), or None: every Gaussian is a member everywhere
+    :return: (idx (B,H,W,K) int32 ids ``b * P + n``, len, act, dsd, w
+        (B,H,W,K) float32); empty slots hold idx -1, len / act 1e10, dsd 0,
+        w 0
+    """
+    if not on_cuda(rays, table, bits):
+        return fine_select_global_plain(rays, table, bits, thr_act, K, bin_size, agg_ow)
+    B, H, W, BH2, BW2, nb, P = _check_global(rays, table, bits, K, bin_size)
+    dev = rays.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    idx = torch.empty((B, H, W, K), dtype=torch.int32, device=dev)
+    sl, sa, sd, w = (torch.empty((B, H, W, K), **f32) for _ in range(4))
+    err = _kernel_global()(
+        ptr(rays), ptr(table), ptr(bits), ptr(idx), ptr(sl), ptr(sa), ptr(sd),
+        ptr(w), nb, H, W, bin_size, BW2, BH2 * BW2, P, K, thr_act, agg_ow,
+        stream(dev),
+    )
+    raise_on_error(err, "fine_select_global")
+    fine_select_global.launches += 1
+    return idx, sl, sa, sd, w
+
+
+fine_select_global.launches = 0

@@ -2,8 +2,13 @@
 fold (``csrc/fold_weights.cu``, the device function of ``csrc/fine_bwd.cuh``),
 with their plain PyTorch versions.
 
-K3 replaces ``voge_tpu/ops/pallas_bwd.py::_bwd_t_kernel``
-(``fine_bwd_compact_t_pallas``): from the select's saved image-layout outputs
+K3 has two entries.  :func:`fine_bwd` replaces
+``voge_tpu/ops/pallas_bwd.py::_bwd_t_kernel`` (``fine_bwd_compact_t_pallas``,
+the emission-compacted rows); :func:`fine_bwd_global` replaces
+``pallas_bwd.py::_bwd_unified_kernel`` (``fine_bwd_unified_pallas``, the
+global candidate space of the no-coarse path), whose per-Gaussian sums run
+over each Gaussian's run of a stable sort of the slot ids, one warp per
+Gaussian in a fixed order.  From the select's saved image-layout outputs
 (idx, len, act, dsd, w) and their cotangents it folds the weight cotangent
 (and, with attributes, the attribute image's weight cotangent) into the
 len / act / dsd cotangents, applies the entry-space chain rule, and reduces
@@ -11,7 +16,7 @@ per candidate row to the gradients of mu (3), Lambda (9) and the attributes
 (d), and per ray to the ray gradient (3).  The per-row sums run in (ray,
 slot) order in one thread each: no float atomics, two runs give the same
 bits.  The rows go back to Gaussians through the inverse emission map
-(``ops.fine.gather_back_rows``).
+(``ops.fine.gather_back_rows``); the global entry's rows are the Gaussians.
 
 The chain rule is ``voge_tpu``'s (``ray_trace_voge.cu:324-326``: with
 ``ksk = dsd``, ``msk = len * dsd``, ``g_ksk = (g_a msk - g_l) msk / ksk^2 +
@@ -140,6 +145,45 @@ def _check_args(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
     return B, H, W, K, BH2, BW2, nb, M
 
 
+def _slot_coefs(idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
+                agg_ow: float, attrs=None, g_img=None):
+    """Per-slot chain-rule coefficients (g_d, c = g_len / ksk, g_a, l), each
+    (..., K), zero on empty slots: the weight cotangent (plus, with
+    attributes, the fused image's d_w) folded into (g_len, g_act, g_dsd)."""
+    zero = lambda g: torch.zeros_like(length) if g is None else g
+    gl, ga, gd, gw = (zero(g) for g in (g_len, g_act, g_dsd, g_w))
+    valid = idx >= 0
+    if attrs is not None:
+        ok = valid & (idx < attrs.shape[0])
+        dw = (attrs[torch.where(ok, idx, 0).long()] * g_img[..., None, :]).sum(-1)
+        gw = gw + torch.where(ok, dw, 0.0)
+    dl, da, dd = fold_weights_plain(length, act, dsd, w, gw, agg_ow)
+    vf = valid.to(length.dtype)
+    cl = (gl + dl) / torch.where(valid, dsd, 1.0) * vf
+    return (gd + dd) * vf, cl, (ga + da) * vf, torch.where(valid, length, 0.0)
+
+
+def _slot_grads(feats, r, gd, cl, ga, lv, want_rays: bool):
+    """Per-slot gradients of the chain rule in the residual form (module
+    note): (g_mu (..., 3), g_Lambda (..., 9) row-major, g_ray (..., 3) or
+    None) from the slots' feature rows ``feats`` (..., 16), rays ``r``
+    (..., 3) and coefficients (..., 1)."""
+    L = feats[..., 4:13].reshape(feats.shape[:-1] + (3, 3))
+    Lt = L.transpose(-1, -2)
+    delta = feats[..., 13:16] - lv * r                           # mu - l r
+    mv = lambda m, v: (m * v[..., None, :]).sum(-1)             # m @ v
+    Lr, La_r = mv(L, r), mv(L - Lt, r)
+    g_mu = cl * Lr - ga * lv * La_r + ga * mv(L + Lt, delta)
+    outer = lambda a, b: (a[..., :, None] * b[..., None, :]).flatten(-2)
+    g_L = (gd * outer(r, r) + (cl - ga * lv) * outer(delta, r)
+           + ga * lv * outer(r, delta) + ga * outer(delta, delta))
+    g_ray = None
+    if want_rays:
+        g_ray = (gd * mv(L + Lt, r) + ga * lv * lv * La_r - cl * lv * Lr
+                 + (cl - 2.0 * ga * lv) * mv(Lt, delta))
+    return g_mu, g_L, g_ray
+
+
 def fine_bwd_plain(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
                    g_len, g_act, g_dsd, g_w, bin_size: int, agg_ow: float,
                    attrs: Optional[torch.Tensor] = None,
@@ -150,25 +194,15 @@ def fine_bwd_plain(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
     B, H, W, K, BH2, BW2, nb, M = _check_args(
         rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
         (g_len, g_act, g_dsd, g_w), bin_size, attrs, g_img)
-    zero = lambda g: torch.zeros_like(length) if g is None else g
-    gl, ga, gd, gw = (zero(g) for g in (g_len, g_act, g_dsd, g_w))
-    valid = idx >= 0
     d = 0 if attrs is None else attrs.shape[1]
-    if d:
-        ok = valid & (idx < attrs.shape[0])
-        dw = (attrs[torch.where(ok, idx, 0).long()] * g_img[..., None, :]).sum(-1)
-        gw = gw + torch.where(ok, dw, 0.0)
-    dl, da, dd = fold_weights_plain(length, act, dsd, w, gw, agg_ow)
-    vf = valid.to(length.dtype)
-    cl = (gl + dl) / torch.where(valid, dsd, 1.0) * vf          # g_len / ksk
-    ga, gd = (ga + da) * vf, (gd + dd) * vf
-    lv = torch.where(valid, length, 0.0)
+    gd, cl, ga, lv = _slot_coefs(idx, length, act, dsd, w, g_len, g_act, g_dsd,
+                                 g_w, agg_ow, attrs, g_img)
 
     # supertile layout: (nb, R, K) slots, (nb, R, 3) rays
     st = lambda x, fill=0: _supertile(x, bin_size, fill)
     idx_s = st(idx, -1)
     R = idx_s.shape[1]
-    cl, ga, gd, lv, w_s = (st(x)[..., None] for x in (cl, ga, gd, lv, w))
+    gd, cl, ga, lv, w_s = (st(x)[..., None] for x in (gd, cl, ga, lv, w))
     r = st(rays)[:, :, None, :]                                  # (nb, R, 1, 3)
     # each slot's candidate row: ids ascend along a row (slices of the sorted
     # emission keys), padding sorts last
@@ -180,15 +214,7 @@ def fine_bwd_plain(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
     flat = torch.where(found, row, nb * M).reshape(-1)
     feats = torch.cat([table_c.reshape(nb * M, FEAT),
                        table_c.new_zeros((1, FEAT))])[flat].reshape(nb, R, K, FEAT)
-    L = feats[..., 4:13].reshape(nb, R, K, 3, 3)
-    Lt = L.transpose(-1, -2)
-    delta = feats[..., 13:16] - lv * r                           # mu - l r
-    mv = lambda m, v: (m * v[..., None, :]).sum(-1)             # m @ v
-    Lr, La_r = mv(L, r), mv(L - Lt, r)
-    g_mu = cl * Lr - ga * lv * La_r + ga * mv(L + Lt, delta)
-    outer = lambda a, b: (a[..., :, None] * b[..., None, :]).flatten(-2)
-    g_L = (gd * outer(r, r) + (cl - ga * lv) * outer(delta, r)
-           + ga * lv * outer(r, delta) + ga * outer(delta, delta))
+    g_mu, g_L, g_ray = _slot_grads(feats, r, gd, cl, ga, lv, want_rays)
     cols = [g_mu, g_L]
     if d:
         cols.append(w_s * st(g_img)[:, :, None, :])
@@ -198,9 +224,7 @@ def fine_bwd_plain(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
 
     g_rays = None
     if want_rays:
-        g_ray = (gd * mv(L + Lt, r) + ga * lv * lv * La_r - cl * lv * Lr
-                 + (cl - 2.0 * ga * lv) * mv(Lt, delta)).sum(2)
-        g_rays = _to_image(g_ray, B, H, W, bin_size).contiguous()
+        g_rays = _to_image(g_ray.sum(2), B, H, W, bin_size).contiguous()
     return rows, g_rays
 
 
@@ -258,3 +282,91 @@ def fine_bwd(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
 
 
 fine_bwd.launches = 0
+
+
+def _check_global(rays, table, idx, length, act, dsd, w, grads):
+    B, H, W, K = idx.shape
+    if not 0 < K <= MAX_K:
+        raise NotImplementedError(f"K={K}: the backward kernel takes 1 <= K <= {MAX_K}")
+    check(rays, "rays", torch.float32, (B, H, W, 3))
+    if table.ndim != 2 or table.shape[0] % B or table.shape[0] == 0:
+        raise ValueError(f"table: expected (B * P, {FEAT}) with B={B}, got {tuple(table.shape)}")
+    check(table, "table", torch.float32, (table.shape[0], FEAT))
+    check(idx, "idx", torch.int32)
+    for t, name in ((length, "len"), (act, "act"), (dsd, "dsd"), (w, "w")):
+        check(t, name, torch.float32, idx.shape)
+    for t, name in zip(grads, ("g_len", "g_act", "g_dsd", "g_w")):
+        if t is not None:
+            check(t, name, torch.float32, idx.shape)
+    return B, H, W, K, table.shape[0]
+
+
+def fine_bwd_global_plain(rays, table, idx, length, act, dsd, w, g_len, g_act,
+                          g_dsd, g_w, agg_ow: float, want_rays: bool = True):
+    """Plain version of K3's global entry: dense tensor ops per slot, each
+    slot's feature row read by its id, and a segmented sum (``index_add_``)
+    per Gaussian (``voge_tpu``'s entry-space backward, ``fine.py:259-329``,
+    in the residual form).  Same contract as :func:`fine_bwd_global`."""
+    B, H, W, K, n_tab = _check_global(rays, table, idx, length, act, dsd, w,
+                                      (g_len, g_act, g_dsd, g_w))
+    coefs = _slot_coefs(idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w, agg_ow)
+    ok = (idx >= 0) & (idx < n_tab)
+    seg = torch.where(ok, idx, n_tab).long()                     # (B, H, W, K)
+    feats = torch.cat([table, table.new_zeros((1, FEAT))])[seg]
+    g_mu, g_L, g_ray = _slot_grads(feats, rays[..., None, :],
+                                   *(c[..., None] for c in coefs), want_rays)
+    vals = torch.cat([g_mu, g_L], dim=-1).reshape(-1, 12)
+    rows = vals.new_zeros((n_tab + 1, 12)).index_add_(0, seg.reshape(-1), vals)
+    g_rays = None
+    if want_rays:
+        g_rays = torch.where(ok[..., None], g_ray, 0.0).sum(-2)
+    return rows[:n_tab], g_rays
+
+
+def _kernel_global():
+    fn = load("fine_bwd").voge_fine_bwd_global
+    fn.argtypes = [VOIDP] * 16 + [LONG, LONG, INT, FLOAT, VOIDP]
+    fn.restype = INT
+    return fn
+
+
+def fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
+                    g_dsd, g_w, agg_ow: float, want_rays: bool = True):
+    """Backward of the select's global entry (``fine_select_global``).
+
+    :param rays: (B, H, W, 3); :param table: (B * P, 16) feature rows,
+        indexed by the slots' ids
+    :param idx, length, act, dsd, w: (B, H, W, K) the select's outputs
+    :param g_len, g_act, g_dsd, g_w: (B, H, W, K) cotangents, None for zero
+    :param agg_ow: occupation weight of the fused erf compositing
+    :param want_rays: compute the ray gradient (else skip that reduction)
+    :return: (rows (B * P, 12) float32 per Gaussian: grad mu (3), grad
+        Lambda (9, row-major); g_rays (B, H, W, 3) float32 or None)
+    """
+    grads = (g_len, g_act, g_dsd, g_w)
+    if not on_cuda(rays, table, idx, length, act, dsd, w, *grads):
+        return fine_bwd_global_plain(rays, table, idx, length, act, dsd, w, *grads,
+                                     agg_ow, want_rays)
+    B, H, W, K, n_tab = _check_global(rays, table, idx, length, act, dsd, w, grads)
+    dev = rays.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    # one stable sort groups each Gaussian's slots into a run in slot order
+    flat = idx.reshape(-1)
+    key = torch.where((flat >= 0) & (flat < n_tab), flat, n_tab)
+    key_s, order = torch.sort(key, stable=True)
+    starts = torch.searchsorted(
+        key_s, torch.arange(n_tab + 1, dtype=key_s.dtype, device=dev))
+    coef = torch.empty((B, H, W, K, 4), **f32)
+    rows = torch.empty((n_tab, 12), **f32)
+    g_rays = torch.empty((B, H, W, 3), **f32) if want_rays else None
+    err = _kernel_global()(
+        ptr(rays), ptr(table), ptr(idx), ptr(length), ptr(act), ptr(dsd),
+        ptr(w), *(ptr(g) for g in grads), ptr(order), ptr(starts), ptr(coef),
+        ptr(rows), ptr(g_rays), B * H * W, n_tab, K, float(agg_ow), stream(dev),
+    )
+    raise_on_error(err, "fine_bwd_global")
+    fine_bwd_global.launches += 1
+    return rows, g_rays
+
+
+fine_bwd_global.launches = 0

@@ -1,18 +1,29 @@
-"""Fine stage: the emission-compacted ray tracing and its backward
-(counterpart of the compacted branch of ``voge_tpu.ops.fine.ray_tracing``,
-``fine.py:1366-1455``, and of the ``_rt_fine_kern_c`` custom VJP,
-``fine.py:969-1151``).
+"""Fine stage: the ray tracing and its backward, counterpart of
+``voge_tpu.ops.fine.ray_tracing`` on two paths.
 
-Every render takes this one path: K1 emits the per-supertile candidate rows
-and the inverse emission map (``ops.coarse.emit_supertile_candidates``), the
-Gaussian feature rows are gathered into a per-supertile table, and K2
-selects, weights and (given attributes) composites in one kernel.  The
-backward runs K3 over the same rows and gathers each Gaussian's gradient
-rows back through the inverse map: no float atomics, so gradients repeat to
-the bit.  Unlike ``voge_tpu`` on a TPU, the rows are sized from the counts
-the sort produces, so no member is dropped for capacity.  The no-coarse
-setting (``max_points_per_bin == -1``) and K above 128 are not ported yet
-and raise.
+- Emission-compacted (every ``max_points_per_bin`` but -1; the compacted
+  branch, ``fine.py:1366-1455``, and the ``_rt_fine_kern_c`` custom VJP,
+  ``fine.py:969-1151``): K1 emits the per-supertile candidate rows and the
+  inverse emission map (``ops.coarse.emit_supertile_candidates``), the
+  Gaussian feature rows are gathered into a per-supertile table, and K2
+  selects, weights and (given attributes) composites in one kernel.  The
+  backward runs K3 over the same rows and gathers each Gaussian's gradient
+  rows back through the inverse map.  Unlike ``voge_tpu`` on a TPU, the rows
+  are sized from the counts the sort produces, so no member is dropped for
+  capacity.
+- Global, no coarse stage (``max_points_per_bin == -1``; the mask branch,
+  ``fine.py:1303-1338``, and the ``_rt_fine_kern`` custom VJP,
+  ``fine.py:695-966``): no K1 and no sort; every Gaussian of an image is a
+  candidate of every pixel, in ascending index (``voge_tpu``'s CPU
+  candidate order, so ties break the same way; the TPU path's culling mask
+  is not copied, ROADMAP queue 3 item 2).  K2's global entry reads the
+  (B * P, 16) feature table in place, K3's global entry sums each
+  Gaussian's gradient over its slots, and attributes go through the
+  attribute merge (K3f / K4b).  Rays are tiled in the same supertiles;
+  nothing is culled and ``overflow_points`` is 0.
+
+Both backward paths are free of float atomics, so gradients repeat to the
+bit.  K above 128 is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -26,8 +37,9 @@ from voge_tpu_torch.ops.coarse import (
     emit_supertile_candidates,
     supertile_grid,
 )
-from voge_tpu_torch.ops.cuda_fine import FEAT, MAX_K, fine_select
-from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd
+from voge_tpu_torch.ops.cuda_attr import AttrMerge
+from voge_tpu_torch.ops.cuda_fine import FEAT, MAX_K, fine_select, fine_select_global
+from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd, fine_bwd_global
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -62,6 +74,13 @@ def production_bin_geometry(image_size, n_assign: int, n_points: int,
     heuristics (``voge_tpu``'s TPU-only geometry is not ported)."""
     return coarse_bin_config(image_size, n_assign, n_points, bin_size,
                              max_points_per_bin)
+
+
+def _check_k(n_assign: int):
+    if n_assign > MAX_K:
+        raise NotImplementedError(
+            f"max_assign={n_assign} > {MAX_K} is not ported yet: ROADMAP "
+            "queue 1, item 15 (dense large-K dispatch)")
 
 
 def _gauss_feature_planes_batched(mus: torch.Tensor, isigmas: torch.Tensor):
@@ -101,13 +120,9 @@ def compact_candidates(R, T, focal, principal, points: torch.Tensor,
     bs, mppb = production_bin_geometry((H, W), n_assign, P, bin_size,
                                        max_points_per_bin)
     if mppb == -1:
-        raise NotImplementedError(
-            "max_point_per_bin=-1 (no coarse culling) is not ported yet: "
-            "ROADMAP queue 1, item 8 (small-scene and no-coarse paths)")
-    if n_assign > MAX_K:
-        raise NotImplementedError(
-            f"max_assign={n_assign} > {MAX_K} is not ported yet: ROADMAP "
-            "queue 1, item 8 (dense large-K dispatch)")
+        raise ValueError("max_point_per_bin=-1 has no coarse stage: ray_tracing "
+                         "serves it over the global candidate space")
+    _check_k(n_assign)
     BH2, BW2 = supertile_grid(H, W, bs)
     nst = BH2 * BW2
     cc = _pick_cand_chunk(P)
@@ -124,6 +139,15 @@ def compact_candidates(R, T, focal, principal, points: torch.Tensor,
 
 
 @torch.no_grad()
+def feature_table(points: torch.Tensor, isigmas: torch.Tensor) -> torch.Tensor:
+    """(B * P, 16) feature rows of camera-centred ``points`` (B, P, 3) with
+    precisions ``isigmas`` (B, P, 3, 3), row ``b * P + n``; built without
+    autograd (the backward kernels return the rows' gradients)."""
+    feat = _gauss_feature_planes_batched(points, isigmas)        # (B, 16, P)
+    return feat.transpose(1, 2).reshape(-1, FEAT).contiguous()
+
+
+@torch.no_grad()
 def candidate_table(points: torch.Tensor, isigmas: torch.Tensor,
                     pos_c: torch.Tensor) -> torch.Tensor:
     """(nb, M, 16) feature rows of every supertile's candidates (``pos_c``
@@ -132,8 +156,7 @@ def candidate_table(points: torch.Tensor, isigmas: torch.Tensor,
     gather (whose backward would be a float atomic scatter on CUDA)."""
     B, P = points.shape[0], points.shape[1]
     nb, M = pos_c.shape
-    feat = _gauss_feature_planes_batched(points, isigmas)       # (B, 16, P)
-    table = feat.transpose(1, 2).reshape(B * P, FEAT)
+    table = feature_table(points, isigmas)
     img_row = torch.arange(nb, device=points.device)[:, None] // (nb // B)
     return table[(img_row * P + pos_c).reshape(-1)].reshape(nb, M, FEAT).contiguous()
 
@@ -215,6 +238,41 @@ class FineSelect(torch.autograd.Function):
                 None, None, None, None)
 
 
+class FineSelectGlobal(torch.autograd.Function):
+    """K2's global entry as an autograd node, counterpart of ``voge_tpu``'s
+    ``_rt_fine_kern`` custom VJP on the no-coarse path.  Differentiable
+    inputs: ``points`` (B, P, 3), ``isigmas`` (B, P, 3, 3) and ``rays``
+    (B, H, W, 3).  The forward builds the (B * P, 16) feature table under no
+    autograd and runs the select over every Gaussian of each image; the
+    backward runs K3's global entry, whose per-Gaussian rows are the
+    gradients: no gather stays under autograd (its backward would be a
+    float atomic scatter on CUDA).  The ray gradient is skipped when
+    ``camera_grad`` is False or the rays need no gradient."""
+
+    @staticmethod
+    def forward(ctx, points, isigmas, rays, thr_act, K, bin_size, agg_ow, camera_grad):
+        table = feature_table(points, isigmas)
+        out = fine_select_global(rays, table, None, thr_act, K, bin_size, agg_ow)
+        ctx.mark_non_differentiable(out[0])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(rays, table, *out)
+        ctx.agg_ow, ctx.camera_grad = agg_ow, camera_grad
+        return out
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_len, g_act, g_dsd, g_w):
+        rays, table, idx, length, act, dsd, w = ctx.saved_tensors
+        want_rays = bool(ctx.camera_grad) and ctx.needs_input_grad[2]
+        cont = lambda g: None if g is None else g.contiguous()
+        rows, g_rays = fine_bwd_global(
+            rays, table, idx, length, act, dsd, w, cont(g_len), cont(g_act),
+            cont(g_dsd), cont(g_w), ctx.agg_ow, want_rays)
+        B = rays.shape[0]
+        rows = rows.reshape(B, -1, 12)
+        return (rows[..., 0:3], rows[..., 3:12].reshape(B, -1, 3, 3), g_rays,
+                None, None, None, None, None)
+
+
 def ray_tracing(cameras_or_params, points: torch.Tensor, isigmas: torch.Tensor,
                 rays: torch.Tensor, image_size, thr: float, n_assign: int,
                 bin_size: Optional[int] = None,
@@ -228,12 +286,28 @@ def ray_tracing(cameras_or_params, points: torch.Tensor, isigmas: torch.Tensor,
         principal)``
     :param points: (B, P, 3) camera-centred means; :param isigmas: (B, P, 3, 3)
     :param rays: (B, H, W, 3)
+    :param max_points_per_bin: -1 for no coarse stage (the global path)
     :param agg_ow: occupation weight of the fused erf compositing
-    :param attrs: optional (B, P, d) attributes composited in the same kernel
+    :param attrs: optional (B, P, d) attributes composited in the select
+        kernel (compacted path) or by the attribute merge (global path)
     :param camera_grad: False skips the ray gradient in the backward
     :return: ((idx, len, act, dsd, w, img or None) in image layout
         (B, H, W, K) / (B, H, W, d), overflow_points (scalar int32 tensor))
     """
+    B, P = points.shape[0], points.shape[1]
+    bs, mppb = production_bin_geometry(image_size, n_assign, P, bin_size,
+                                       max_points_per_bin)
+    if mppb == -1:
+        _check_k(n_assign)
+        sel = FineSelectGlobal.apply(points, isigmas, rays.contiguous(),
+                                     -math.log(thr + 1.0 / 1e10), int(n_assign),
+                                     bs, float(agg_ow), bool(camera_grad))
+        img = None
+        if attrs is not None:
+            a = attrs.to(torch.float32).reshape(B * P, attrs.shape[-1]).contiguous()
+            img = AttrMerge.apply(sel[4], a, sel[0])
+        return tuple(sel) + (img,), torch.zeros((), dtype=torch.int32,
+                                                device=points.device)
     if isinstance(cameras_or_params, tuple):
         cams = cameras_or_params
     else:

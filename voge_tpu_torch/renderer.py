@@ -6,7 +6,10 @@ The forward runs the coarse emission (K1), the fused select (K2) and, through
 ``interpolate_attr``, the attribute merge (K3f).  A ``.backward()`` through a
 render runs the fine backward (K3, with the weight fold and the fused
 attribute VJP) and the attribute-merge backward (K4b), and gathers the
-gradients back to the Gaussians without float atomics.
+gradients back to the Gaussians without float atomics.  With
+``max_point_per_bin=-1`` (no coarse stage, the ShapeFitting setting) there
+is no K1: K2's and K3's global entries take every Gaussian of an image as a
+candidate of each of its pixels.
 """
 from __future__ import annotations
 
@@ -159,9 +162,11 @@ def render_pipeline(
         loop over fixed cameras (constants: no camera gradient through them)
     :param camera_grad: False declares the camera pose not differentiated:
         the backward skips the ray gradient and its per-ray reduction
+    :param max_point_per_bin: None for the default coarse stage, -1 for none
+        (every Gaussian a candidate of every pixel, nothing culled)
     :param attrs: optional (N, d) or (B, N, d) attributes; the fragments then
         carry ``attr_img = interpolate_attr(frag, attrs)``, computed in the
-        select kernel
+        select kernel (by the attribute merge without a coarse stage)
     """
     dev = verts.device
     f32 = torch.float32
