@@ -1,5 +1,6 @@
-"""Drive the voge_tpu_torch render, its fitting step and the no-coarse
-ShapeFitting trainer on one NVIDIA GPU and check them.
+"""Drive the voge_tpu_torch render, its fitting step, the no-coarse
+ShapeFitting trainer, texture extraction and the two-stage public tracer on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,12 @@ Run from the root of a checkout.  Phases:
      ShapeFitting shapes (5 views, 2,562 Gaussians, 128x128, K = 25), K2's
      global entry (with and without a random sub-bin bits plane, selections
      exact) and K3's global entry (with and without ray gradients, with the
-     weight cotangent set and zero);
+     weight cotangent set and zero); at the texture shapes (10,242
+     Gaussians, 256x672, K = 80) the two halves of K4b alone, ``attr_scatter``
+     (beside ``index_add_``) and ``attr_dw``, and K2's compacted entry on
+     the texture render's rows (the 128 bucket, with and without attributes,
+     selections exact; timed and bounded there too); at the headline K2's
+     per-bin-list entry on ``rasterize_coarse``'s lists (selections exact);
   3. the main paths, each with every launch counter set to 0 just before it
      and read just after:
      - the forward at the headline, through ``render_pipeline(attrs=)`` and
@@ -36,16 +42,32 @@ Run from the root of a checkout.  Phases:
        gradients against ``voge_tpu``'s golden file; then three
        ``models.ShapeFitter`` steps (default optimizer), losses and
        parameters against the same file;
+     - texture extraction at full width (``bench.py:189-231``: render at
+       K = 80 -> ``sample_features`` -> normalise -> ``to_white_background``;
+       K1, K2's 128 bucket, ``attr_scatter``, K3f, no plain version):
+       overflow 0, texture, weight sums and image against ``voge_tpu``'s
+       golden file; then one backward through the sampler alone
+       (``attr_dw``, K3f) against the plain path, two runs equal to the bit;
+     - the two-stage tracer at full width on the headline scene
+       (``rasterize_coarse`` -> ``ray_tracing_fine``; K2's per-bin-list
+       entry, K3's global entry with the cotangents of len, act and dsd and
+       the ray gradient): no bin truncated, selections against the render
+       path's, forward + backward of a seeded linear loss against the plain
+       path, two backward runs equal to the bit;
      then the 1K forward against its golden file and the quickstart bounds;
-  4. CUDA-event timings of the headline forward and fitting step and of the
-     ShapeFitting step on the kernel path and on the plain path, in turns,
-     and of each kernel against its plain version; torch.profiler traces of
-     five kernel-path steps of each give the device's busy share and the
-     time by kernel.
+  4. CUDA-event timings of the headline forward and fitting step, of the
+     ShapeFitting step, of the texture chain (and its three stages, and K2
+     there by K bucket) and of the two-stage forward + backward on the
+     kernel path and on the plain path, in turns, and of each kernel against its plain version and, where
+     one PyTorch call computes the same function, that call; each kernel's
+     bound (the larger of its bytes over the card's memory rate and its
+     operations over the card's FP32 rate, counted from this run's inputs);
+     torch.profiler traces of five kernel-path steps of each path give the
+     device's busy share and the time by kernel.
 
 Any failed check raises, so the exit code is nonzero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it a JSON line of the
-kernels.  Without a CUDA device the script exits nonzero at once.
+kernels, and before that the card's nvidia-smi line.  Without a CUDA device the script exits nonzero at once.
 Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
@@ -68,7 +90,9 @@ GOLDEN = DATA / "voge_tpu_golden_1k_128.npz"
 GOLDEN_GRAD = {"1k": DATA / "voge_tpu_golden_grad_1k_128.npz",
                "headline": DATA / "voge_tpu_golden_grad_10k_256.npz"}
 GOLDEN_SF = DATA / "voge_tpu_golden_shapefit_128.npz"
+GOLDEN_TEX = DATA / "voge_tpu_golden_texture_256x672.npz"
 SF_B, SF_HW, SF_K = 5, (128, 128), 25   # the ShapeFitting step (bench.py:234-290)
+TEX_HW, TEX_K = (256, 672), 80          # texture extraction (bench.py:189-231)
 OUT_DIR = ROOT / "chiprun_out"
 KERNELS = {  # name -> (library, source, replaced TPU kernel)
     "emit_keys": ("emit", "voge_tpu_torch/csrc/emit.cu",
@@ -87,7 +111,30 @@ KERNELS = {  # name -> (library, source, replaced TPU kernel)
                            "voge_tpu/ops/pallas_fine2.py:803"),
     "fine_bwd_global": ("fine_bwd", "voge_tpu_torch/csrc/fine_bwd.cu",
                         "voge_tpu/ops/pallas_bwd.py:255"),
+    "attr_scatter": ("attr_merge_bwd", "voge_tpu_torch/csrc/attr_merge_bwd.cu",
+                     "voge_tpu/ops/pallas_attr.py:168"),
+    "attr_dw": ("attr_merge_bwd", "voge_tpu_torch/csrc/attr_merge_bwd.cu",
+                "voge_tpu/ops/pallas_attr.py:190"),
+    "fine_select_bins": ("fine_select", "voge_tpu_torch/csrc/fine_select.cu",
+                         "voge_tpu/ops/pallas_fine.py:64"),
 }
+# The card's published peaks (H100 SXM): device memory 3.35 TB/s, FP32
+# outside the tensor cores 67 TFLOP/s.  A kernel's bound is the larger of its
+# bytes over the first and its operations over the second.
+HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
+# Operation counts behind the bounds, per unit of work (multiplies, adds,
+# divisions and transcendental calls each counted once per result):
+# a (ray, candidate) hit test of K2: msk 5, ksk 17, len 1, d 6, e 15, act 5;
+PAIR_FLOPS = 49
+# one (j, k) term of the erf compositing (difference, scale, erf, 3 more);
+WEIGHT_FLOPS = 6
+# one (j, k) term of the weight fold (erf, exp and ~16 multiply-adds);
+FOLD_FLOPS = 18
+# a slot's chain rule in K3 (g_mu, g_Lambda and g_ray around the residual);
+SLOT_BWD_FLOPS = 150
+# K1, per Gaussian: projection 15, the rotated 2x2 block 108, radii and
+# window 40, plus ~5 per bin-axis test and ~10 per key.
+EMIT_FLOPS = 163
 # tolerances (tests/test_parity_full.py:22-49): selections equal but for
 # knife-edge pixels (< 0.1% flipped); len/act/dsd rtol 1e-5 atol 1e-5;
 # weights and images atol 1e-4 on agreeing pixels (kernel vs plain, and the
@@ -159,9 +206,14 @@ def cuda_ms(fn, n):
 def plain_path():
     """Route a render and its backward through the plain versions on CUDA
     tensors."""
+    from voge_tpu_torch import sampler
     from voge_tpu_torch.ops import coarse, cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd, fine
 
     swaps = [(coarse, "emit_keys", cuda_coarse.emit_keys_plain),
+             (fine, "fine_select_bins", cuda_fine.fine_select_bins_plain),
+             (sampler, "attr_scatter", cuda_attr.attr_scatter_plain),
+             (sampler, "attr_dw", cuda_attr.attr_dw_plain),
+             (sampler, "attr_merge", cuda_attr.attr_merge_plain),
              (fine, "fine_select", cuda_fine.fine_select_plain),
              (fine, "fine_bwd", cuda_fine_bwd.fine_bwd_plain),
              (fine, "fine_select_global", cuda_fine.fine_select_global_plain),
@@ -172,6 +224,28 @@ def plain_path():
     try:
         for m, n, fn in swaps:
             setattr(m, n, fn)
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+@contextmanager
+def no_plain_version():
+    """Make every kernel's plain version raise: a main path inside it ran
+    on the kernels alone."""
+    from voge_tpu_torch.ops import cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd
+
+    def refuse(name):
+        def fn(*_a, **_k):
+            raise RuntimeError(f"chip_smoke: the plain version {name} ran on the main path")
+        return fn
+
+    saved = [(m, n, getattr(m, n)) for m in (cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd)
+             for n in dir(m) if n.endswith("_plain")]
+    try:
+        for m, n, _ in saved:
+            setattr(m, n, refuse(n))
         yield
     finally:
         for m, n, fn in saved:
@@ -268,6 +342,81 @@ def shapefit_loss(verts, isig, colors, cams, targets):
     return frag, loss
 
 
+def texture_scene(dev):
+    """``bench.py:204-214``'s texture scene through the port's own
+    converters: ``ico_sphere(5)`` (10,242 Gaussians) through
+    ``naive_vertices_converter(percentage=0.5, max_sig_rate=2)``, one view at
+    ``dist=3, elev=0.1, azim=0.6`` (radians), focal 1800, principal (336,
+    128), and the random image of ``np.random.RandomState(0)``.
+    :return: (verts (N, 3), inverse sigmas (N,), (R, T, focal, principal),
+        image (1, 256, 672, 3))"""
+    import voge_tpu_torch as vt
+
+    v, f = vt.ico_sphere(5)
+    verts, isig, _ = vt.naive_vertices_converter(v, f, percentage=0.5, max_sig_rate=2)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    R, T = vt.look_at_view_transform(dist=3, elev=0.1, azim=0.6, degrees=False, device=dev)
+    cams = (R, T, t([[1800.0, 1800.0]]), t([[336.0, 128.0]]))
+    image = t(np.random.RandomState(0).uniform(size=(1,) + TEX_HW + (3,)))
+    return t(verts), t(isig), cams, image
+
+
+def texture_chain(verts, isig, cams, image, ctx):
+    """``bench.py:220-227``: render at K = 80, pull the image back onto the
+    Gaussians, re-render with the sampled texture; (fragments, weight sums,
+    texture, image)."""
+    import voge_tpu_torch as vt
+
+    frag = vt.render_pipeline(verts, isig, *cams, image_size=TEX_HW, max_assign=TEX_K,
+                              cam_ctx=ctx)
+    feat, wsum = vt.sample_features(frag, image, n_vert=verts.shape[0])
+    texture = feat / (1e-8 + wsum[:, None])
+    return frag, wsum, texture, vt.to_white_background(frag, texture)
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound_ms(n_bytes, flops):
+    """(the least milliseconds the card could take, what bounds it)."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_S * 1e3, flops / FP32_FLOP_S * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def slot_counts(idx):
+    """(valid slots, sum over pixels of valid^2) of selections (..., K)."""
+    v = (idx >= 0).sum(-1).double()
+    return v.sum().item(), (v * v).sum().item()
+
+
+def tile_rays(H, W, th, tw, device):
+    """(TH, TW) live rays of each th x tw tile of an H x W image."""
+    hs = (torch.arange((H - 1) // th + 1, device=device) * th)
+    ws = (torch.arange((W - 1) // tw + 1, device=device) * tw)
+    return ((hs + th).clamp(max=H) - hs)[:, None] * ((ws + tw).clamp(max=W) - ws)[None, :]
+
+
+def compacted_pairs(bits_c, counts_c, H, W, bs):
+    """(ray, candidate) pairs K2's compacted entry tests: for every
+    supertile and sub-bin, its live rays times its occupied rows whose bit
+    is set."""
+    nb, M = bits_c.shape
+    live = tile_rays(H, W, bs, bs, bits_c.device).double()      # per bin
+    BH, BW = live.shape
+    BH2, BW2 = (BH + 1) // 2, (BW + 1) // 2
+    pad = torch.zeros((2 * BH2, 2 * BW2), dtype=live.dtype, device=live.device)
+    pad[:BH, :BW] = live
+    occupied = torch.arange(M, device=bits_c.device)[None, :] < counts_c[:, None]
+    total = 0.0
+    for i in range(2):
+        for j in range(2):
+            rays_g = pad[i::2, j::2].reshape(-1).repeat(nb // (BH2 * BW2))
+            rows_g = ((((bits_c >> (2 * i + j)) & 1) > 0) & occupied).sum(1).double()
+            total += (rays_g * rows_g).sum().item()
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device visible; the port's checks run only on a GPU")
@@ -276,12 +425,14 @@ def main():
     from voge_tpu_torch import _build
     from voge_tpu_torch.ops import coarse, fine
     from voge_tpu_torch.ops.cuda_attr import (
-        attr_merge, attr_merge_bwd, attr_merge_bwd_plain, attr_merge_plain,
+        attr_dw, attr_dw_plain, attr_merge, attr_merge_bwd, attr_merge_bwd_plain,
+        attr_merge_plain, attr_scatter, attr_scatter_plain,
     )
     from voge_tpu_torch.ops.cuda_coarse import emit_keys, emit_keys_plain
     from voge_tpu_torch.aggregation import expend_sigma
     from voge_tpu_torch.ops.cuda_fine import (
-        fine_select, fine_select_global, fine_select_global_plain, fine_select_plain,
+        fine_select, fine_select_bins, fine_select_bins_plain, fine_select_global,
+        fine_select_global_plain, fine_select_plain,
     )
     from voge_tpu_torch.ops.cuda_fine_bwd import (
         fine_bwd, fine_bwd_global, fine_bwd_global_plain, fine_bwd_plain, fold_weights,
@@ -298,7 +449,8 @@ def main():
                  "attr_merge": attr_merge, "fold_weights": fold_weights,
                  "fine_bwd": fine_bwd, "attr_merge_bwd": attr_merge_bwd,
                  "fine_select_global": fine_select_global,
-                 "fine_bwd_global": fine_bwd_global}
+                 "fine_bwd_global": fine_bwd_global, "attr_scatter": attr_scatter,
+                 "attr_dw": attr_dw, "fine_select_bins": fine_select_bins}
 
     def zero_counts():
         for fn in launchers.values():
@@ -329,6 +481,11 @@ def main():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
     details["build_s"] = build_s
+    k2_ptxas = _build.build_info["fine_select"][1].splitlines()
+    at = next(i for i, line in enumerate(k2_ptxas) if "fine_select_kernelILi128E" in line)
+    bucket = " ".join(x.strip() for x in k2_ptxas[at + 1:at + 3])
+    print(f"ptxas K2 128 bucket (the texture path's K = 80): {bucket}")
+    details["ptxas_k2_128"] = bucket
 
     # ---- 2. kernels against their plain versions ----------------------
     err = {k: 0.0 for k in KERNELS}
@@ -440,6 +597,81 @@ def main():
             err["fine_bwd_global"] = max(err["fine_bwd_global"], e)
     head["k3g"] = (rays_sf, table_sf, *sel_sf, None, None, None, g_sf[3], 1.0, False)
     print(f"K3 global shapefit: max_err/max|plain| {err['fine_bwd_global']:.3e}")
+    torch.cuda.synchronize()
+
+    # 2c. the two halves of K4b alone and K2's compacted entry at the texture
+    # shapes, and K2's per-bin-list entry on the headline's lists
+    verts_tx, isig_tx, cams_tx, image_tx = texture_scene(dev)
+    N_tx = verts_tx.shape[0]
+    ctx_tx = vt.precompute_camera_ctx(*cams_tx, TEX_HW, N_tx, max_assign=TEX_K)
+    frag_tx = vt.render_pipeline(verts_tx, isig_tx, *cams_tx, image_size=TEX_HW,
+                                 max_assign=TEX_K, cam_ctx=ctx_tx)
+    idx_tx, w_tx = frag_tx.vert_index, frag_tx.vert_weight
+    aug_tx = torch.cat([image_tx, torch.ones_like(image_tx[..., :1])], dim=-1).contiguous()
+    head["scatter"] = (idx_tx, w_tx, aug_tx, N_tx)
+    e = grad_err(attr_scatter(*head["scatter"]), attr_scatter_plain(*head["scatter"]),
+                 "attr_scatter texture")
+    err["attr_scatter"] = e
+    g_aug = seeded((N_tx, 4), dev, 60)
+    head["dw"] = (idx_tx, g_aug, aug_tx)
+    err["attr_dw"] = grad_err(attr_dw(*head["dw"]), attr_dw_plain(*head["dw"]), "attr_dw texture")
+    print(f"attr_scatter / attr_dw texture: {idx_tx.numel()} slots, {int((idx_tx >= 0).sum())} "
+          f"valid on {int((attr_scatter(*head['scatter'])[:, -1] > 0).sum())} of {N_tx} Gaussians, "
+          f"max_err/max|plain| {err['attr_scatter']:.3e} / {err['attr_dw']:.3e}")
+    for d in (8, 11):   # wider rows: one and two channel passes of the scatter
+        g_d = seeded(idx_tx.shape[:3] + (d,), dev, 61)
+        a_d = seeded((N_tx, d), dev, 62)
+        err["attr_scatter"] = max(err["attr_scatter"], grad_err(
+            attr_scatter(idx_tx, w_tx, g_d, N_tx), attr_scatter_plain(idx_tx, w_tx, g_d, N_tx),
+            f"attr_scatter d={d}"))
+        err["attr_dw"] = max(err["attr_dw"], grad_err(
+            attr_dw(idx_tx, a_d, g_d), attr_dw_plain(idx_tx, a_d, g_d), f"attr_dw d={d}"))
+
+    # K2's compacted entry on the texture render's own inputs: K = 80, the
+    # 128 bucket, 44 supertiles of 64 x 64 rays
+    rays_tx, origins_tx = camera_rays(*cams_tx, TEX_HW)
+    points_tx = verts_tx[None] - origins_tx[:, None, :]
+    isg_tx = 2.0 * expend_sigma(isig_tx)[None]
+    c_tx = fine.compact_candidates(*cams_tx, points_tx, isg_tx, TEX_HW, 0.01, TEX_K)
+    need(int(c_tx.overflow_c.sum()) == 0, "texture coarse stage overflow")
+    tab_tx = fine.candidate_table(points_tx, isg_tx, c_tx.pos_c)
+    colors_tx = torch.rand((N_tx, 3), device=dev, generator=torch.Generator(dev).manual_seed(65))
+    for attrs in (None, colors_tx):
+        args = (rays_tx, tab_tx, c_tx.bits_c, c_tx.ids_c, c_tx.counts_c, c_tx.thr_act, TEX_K,
+                c_tx.bin_size, 1.0, attrs)
+        got, want = fine_select(*args), fine_select_plain(*args)
+        need(torch.equal(got[0], want[0]), f"K2 texture attrs={attrs is not None}: selections differ")
+        _, e = compare_select(got, want)
+        err["fine_select"] = max(err["fine_select"], e)
+        print(f"K2 texture: K={TEX_K} attrs={attrs is not None} supertiles={tab_tx.shape[0]} "
+              f"M={tab_tx.shape[1]} densest row {int(c_tx.counts_c.max())} selections equal, "
+              f"most per ray {int((got[0] >= 0).sum(-1).max())}, max_err(w,img)={e:.3e}")
+        if attrs is None:
+            need(torch.equal(got[0], idx_tx), "K2 texture: not the render's selections")
+            head["k2tx"] = args
+
+    g_h, cams_h, _ = head["scene"]
+    rays_h, points_h, isig_h = stage_inputs(g_h, cams_h, (256, 256))
+    bs_h, mppb_h = coarse.coarse_bin_config((256, 256), 20, head["P"])
+    bp_h, cnt_h = vt.ops.rasterize_coarse(*cams_h, points_h, isig_h, (256, 256), 0.01, bs_h,
+                                          mppb_h, return_counts=True)
+    densest_h = int(cnt_h.max())
+    if densest_h > mppb_h:      # raise the cap so that no bin truncates
+        mppb_h = densest_h
+        bp_h = vt.ops.rasterize_coarse(*cams_h, points_h, isig_h, (256, 256), 0.01, bs_h, mppb_h)
+    table_h = fine.feature_table(points_h, isig_h)
+    for K in (5, 20, 80):
+        args = (rays_h, table_h, bp_h, thr_act, K, bs_h)
+        got, want = fine_select_bins(*args), fine_select_bins_plain(*args)
+        need(torch.equal(got[0], want[0]), f"K2 bins K={K}: selections differ")
+        for a, b in zip(got[1:], want[1:]):
+            torch.testing.assert_close(a, b, rtol=LAD_TOL, atol=LAD_TOL)
+            err["fine_select_bins"] = max(err["fine_select_bins"], (a - b).abs().max().item())
+        if K == 20:
+            head["k2b"] = args
+    print(f"K2 bins headline: {bp_h.shape[1]}x{bp_h.shape[2]} bins of {bs_h} px, lists of "
+          f"{bp_h.shape[3]} (densest bin {densest_h}, memberships {int(cnt_h.sum())}), "
+          f"selections equal at K = 5, 20, 80, max_err(len, act, dsd)={err['fine_select_bins']:.3e}")
     torch.cuda.synchronize()
 
     # ---- 3. the main paths --------------------------------------------
@@ -609,6 +841,109 @@ def main():
           + ", ".join(f"{k} {v:.3e}" for k, v in e.items() if k.startswith("fit")))
     details["golden_shapefit"] = dict(e, valid_slots=valid_sf)
 
+    # 3e. texture extraction at full width (slice 4)
+    gold = np.load(GOLDEN_TEX)
+    zero_counts()
+    with no_plain_version():
+        frag_t, wsum_t, tex_t, img_t = texture_chain(verts_tx, isig_tx, cams_tx, image_tx, ctx_tx)
+    counts = read_counts("texture extraction",
+                         ("emit_keys", "fine_select", "attr_scatter", "attr_merge"))
+    add(counts)
+    need(vt.get_overflow_points(frag_t) == 0, "texture overflow_points != 0")
+    need(img_t.shape == (1,) + TEX_HW + (3,) and bool(torch.isfinite(img_t).all())
+         and bool(torch.isfinite(tex_t).all()), "texture image / texture not finite")
+    same = (frag_t.valid_num[0].cpu().numpy() == gold["valid_num"])
+    stride = TEX_HW[0] // gold["image"].shape[0]
+    e = {"valid_num_flips": float(1.0 - same.mean()),
+         "wsum": float(np.abs(wsum_t.cpu().numpy() - gold["wsum"]).max() / gold["wsum"].max()),
+         "texture": float(np.abs(tex_t.cpu().numpy() - gold["texture"]).max()),
+         "image": float(np.abs(img_t[0, ::stride, ::stride].cpu().numpy()
+                               - gold["image"])[same[::stride, ::stride]].max(initial=0.0)),
+         "weight_sum": float(np.abs(
+             frag_t.vert_weight.sum(-1)[0, ::stride, ::stride].cpu().numpy()
+             - gold["weight_sum"])[same[::stride, ::stride]].max(initial=0.0))}
+    need(e["valid_num_flips"] < FLIP_MAX, f"texture selections: {e['valid_num_flips']} flipped")
+    for k in ("wsum", "texture", "image", "weight_sum"):
+        need(e[k] <= W_TOL, f"texture {k} vs voge_tpu golden: {e[k]:.3e}")
+    valid_t = int((frag_t.vert_index >= 0).sum())
+    print(f"texture extraction vs voge_tpu golden: N={N_tx} {TEX_HW[0]}x{TEX_HW[1]} K={TEX_K} "
+          f"overflow 0, valid slots {valid_t} (golden {int(gold['valid_num'].sum())}), "
+          f"most per pixel {int(frag_t.valid_num.max())}, "
+          + ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
+    details["golden_texture"] = dict(e, valid_slots=valid_t)
+
+    # one backward through the sampler alone: weights and image as leaves
+    cf, cw = seeded((N_tx, 3), dev, 63), seeded((N_tx,), dev, 64)
+
+    def sampler_grads():
+        w = frag_t.vert_weight.detach().clone().requires_grad_(True)
+        img = image_tx.clone().requires_grad_(True)
+        fr = vt.Fragments(w, frag_t.vert_index, frag_t.valid_num, frag_t.vert_hit_length)
+        feat, wsum = vt.sample_features(fr, img, n_vert=N_tx)
+        loss = (feat * cf).sum() + (wsum * cw).sum()
+        first = torch.autograd.grad(loss, (w, img), retain_graph=True)
+        return first, torch.autograd.grad(loss, (w, img))
+
+    zero_counts()
+    with no_plain_version():
+        sg, sg2 = sampler_grads()
+    add(read_counts("sampler backward", ("attr_scatter", "attr_dw", "attr_merge")))
+    with plain_path():
+        sp, _ = sampler_grads()
+    samp_err = {}
+    for name, a, b, c in zip(("weights", "image"), sg, sg2, sp):
+        need(torch.equal(a, b), f"sampler {name} gradient differs between two backward runs")
+        samp_err[name] = grad_err(a, c, f"sampler grad {name}")
+    print(f"sampler backward, kernel vs plain path: {samp_err}, two runs equal to the bit")
+    details["sampler_grad_err"] = samp_err
+
+    # 3f. the two-stage tracer at full width on the headline scene (slice 4)
+    mus_h, isg_h = points_h.reshape(-1, 3), isig_h.reshape(-1, 3, 3)
+    cots_h = [seeded(rays_h.shape[:3] + (20,), dev, 80 + q) for q in range(3)]
+
+    def two_stage(points, want_grads=True):
+        """``rasterize_coarse`` -> ``ray_tracing_fine`` -> a seeded linear
+        loss on (len, act, dsd) -> gradients of mus, isigmas and rays."""
+        bp = vt.ops.rasterize_coarse(*cams_h, points, isig_h, (256, 256), 0.01, bs_h, mppb_h)
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (points.reshape(-1, 3), isg_h, rays_h)]
+        sel = vt.ops.ray_tracing_fine(*leaves, bp, 0.01, bs_h, 20)
+        if not want_grads:
+            return sel, None
+        v = sel[1] * cots_h[0] + sel[2] * cots_h[1] + sel[3] * cots_h[2]
+        loss = torch.where(sel[0] >= 0, v, torch.zeros_like(v)).sum()
+        return sel, torch.autograd.grad(loss, leaves)
+
+    zero_counts()
+    with no_plain_version():
+        sel_2, gr_2 = two_stage(points_h)
+        _, gr_2b = two_stage(points_h)
+    counts = read_counts("two-stage tracer", ("fine_select_bins", "fine_bwd_global"))
+    need(all(counts[k] == 0 for k in ("emit_keys", "fine_select", "fine_select_global")),
+         "two-stage tracer: another path's select ran")
+    add(counts)
+    need(int(cnt_h.max()) <= mppb_h, "two-stage tracer: a bin was truncated")
+    sel_r, ovf_r = fine.ray_tracing(cams_h, points_h, isig_h, rays_h, (256, 256), 0.01, 20)
+    need(int(ovf_r) == 0, "headline render overflow")
+    agree = (sel_2[0] == sel_r[0]).all(-1)
+    flips = 1.0 - agree.float().mean().item()
+    need(flips < FLIP_MAX, f"two-stage vs render path: {flips} of the pixels differ")
+    for a, b in zip(sel_2[1:], sel_r[1:4]):
+        torch.testing.assert_close(a[agree], b[agree], rtol=LAD_TOL, atol=LAD_TOL)
+    with plain_path():
+        sel_p, gr_p = two_stage(points_h)
+    need(torch.equal(sel_2[0], sel_p[0]), "two-stage: kernel and plain selections differ")
+    two_err = {}
+    for name, a, b, c in zip(("mus", "isigmas", "rays"), gr_2, gr_2b, gr_p):
+        need(bool(torch.isfinite(a).all()), f"two-stage: non-finite {name} gradient")
+        need(torch.equal(a, b), f"two-stage {name} gradient differs between two backward runs")
+        two_err[name] = grad_err(a, c, f"two-stage grad {name}")
+    print(f"two-stage tracer headline: lists of {mppb_h}, densest bin {densest_h}, no bin "
+          f"truncated; vs the render path flips={flips:.2e}; fwd+bwd kernel vs plain path "
+          f"{two_err}, two runs equal to the bit")
+    details["two_stage"] = dict(flips=flips, grad_err=two_err, densest_bin=densest_h,
+                                list_length=mppb_h)
+
     # ---- 4. timings -----------------------------------------------------
     inputs = [g.verts.detach() * (1.0 + 1e-5 * i) for i in range(24)]
     sig = g.sigmas.detach()
@@ -636,15 +971,15 @@ def main():
             out.append(a.elapsed_time(b))
         return out
 
-    for label, fn in (("forward", forward), ("fwd+bwd", fwd_bwd)):
+    def in_turns(label, fn, batches):
+        """Time ``fn`` on the plain, kernel, kernel and plain path, one batch
+        of inputs each, after a warm-up of both; the stats by path."""
         runs = {"kernel": [], "plain": []}
-        for v in inputs[:2]:
-            fn(v)
+        fn(batches[1][0])
         with plain_path():
-            fn(inputs[0])
+            fn(batches[0][0])
         torch.cuda.synchronize()
-        for order, path in enumerate(("plain", "kernel", "kernel", "plain")):
-            part = inputs[4 + 10 * (order % 2): 14 + 10 * (order % 2)]
+        for path, part in zip(("plain", "kernel", "kernel", "plain"), batches):
             if path == "plain":
                 with plain_path():
                     runs[path] += timed(fn, part)
@@ -655,9 +990,13 @@ def main():
             med = statistics.median(ts)
             stats[path] = dict(median_ms=med, min_ms=min(ts), max_ms=max(ts),
                                spread=(max(ts) - min(ts)) / med, n=len(ts))
-            print(f"headline {label} {path} path: median {med:.3f} ms, "
+            print(f"{label} {path} path: median {med:.3f} ms, "
                   f"min {min(ts):.3f}, max {max(ts):.3f}, n={len(ts)}")
-        details[label] = stats
+        return stats
+
+    halves = [inputs[4:14], inputs[14:24], inputs[4:14], inputs[14:24]]
+    for label, fn in (("forward", forward), ("fwd+bwd", fwd_bwd)):
+        details[label] = in_turns(f"headline {label}", fn, halves)
     step_ms = details["fwd+bwd"]["kernel"]["median_ms"]
 
     # the ShapeFitting step, ShapeFitter.step on 5 views: each step moves the
@@ -667,24 +1006,65 @@ def main():
     def sf_step(_):
         return sf_fitter.step(cams_sf[0], cams_sf[1], *targets_sf)
 
-    runs = {"kernel": [], "plain": []}
-    sf_step(0)
-    with plain_path():
-        sf_step(0)
-    for path in ("plain", "kernel", "kernel", "plain"):
-        if path == "plain":
-            with plain_path():
-                runs[path] += timed(sf_step, range(10))
-        else:
-            runs[path] += timed(sf_step, range(10))
-    stats = {}
-    for path, ts in runs.items():
-        med = statistics.median(ts)
-        stats[path] = dict(median_ms=med, min_ms=min(ts), max_ms=max(ts),
-                           spread=(max(ts) - min(ts)) / med, n=len(ts))
-        print(f"shapefit step {path} path: median {med:.3f} ms, "
-              f"min {min(ts):.3f}, max {max(ts):.3f}, n={len(ts)}")
-    details["shapefit_step"] = stats
+    details["shapefit_step"] = in_turns("shapefit step", sf_step, [range(10)] * 4)
+
+    # texture extraction: the whole chain, then its three stages (kernel path)
+    tex_inputs = [verts_tx * (1.0 + 1e-4 * i) for i in range(24)]
+
+    def tex_chain(v):
+        return texture_chain(v, isig_tx, cams_tx, image_tx, ctx_tx)[3]
+
+    tex_halves = [tex_inputs[4:14], tex_inputs[14:24], tex_inputs[4:14], tex_inputs[14:24]]
+    details["texture"] = in_turns("texture extraction", tex_chain, tex_halves)
+    stage_ms = {"render": [], "sample": [], "re-render": []}
+    for v in tex_inputs[4:24]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        fr = vt.render_pipeline(v, isig_tx, *cams_tx, image_size=TEX_HW, max_assign=TEX_K,
+                                cam_ctx=ctx_tx)
+        ev[1].record()
+        feat, wsum = vt.sample_features(fr, image_tx, n_vert=N_tx)
+        ev[2].record()
+        vt.to_white_background(fr, feat / (1e-8 + wsum[:, None]))
+        ev[3].record()
+        torch.cuda.synchronize()
+        for q, k in enumerate(stage_ms):
+            stage_ms[k].append(ev[q].elapsed_time(ev[q + 1]))
+    details["texture_stages"] = {k: dict(median_ms=statistics.median(ts), min_ms=min(ts),
+                                         max_ms=max(ts), n=len(ts))
+                                 for k, ts in stage_ms.items()}
+    print("texture extraction stages, kernel path: " + ", ".join(
+        f"{k} median {v['median_ms']:.3f} ms (min {v['min_ms']:.3f}, max {v['max_ms']:.3f})"
+        for k, v in details["texture_stages"].items()))
+
+    # K2 at the texture shapes by K bucket: the compacted entry (with the
+    # erf weights) and the per-bin-list entry on 32-px lists (without)
+    table_tx = fine.feature_table(points_tx, isg_tx)
+    bp_tx = vt.ops.rasterize_coarse(*cams_tx, points_tx, isg_tx, TEX_HW, 0.01, 32, 64)
+    sweep = {}
+    for K in (20, 32, 64, 80, 128):
+        c = fine.compact_candidates(*cams_tx, points_tx, isg_tx, TEX_HW, 0.01, K)
+        tab_c = fine.candidate_table(points_tx, isg_tx, c.pos_c)
+        sweep[K] = dict(
+            compacted_ms=cuda_ms(lambda: fine_select(
+                rays_tx, tab_c, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K, c.bin_size,
+                1.0, None), 5),
+            bins_ms=cuda_ms(lambda: fine_select_bins(rays_tx, table_tx, bp_tx, c.thr_act, K, 32),
+                            5))
+    print("K2 at the texture shapes by K (compacted entry with weights / per-bin-list entry "
+          "without): " + ", ".join(f"K={K} {v['compacted_ms']:.3f} / {v['bins_ms']:.3f} ms"
+                                   for K, v in sweep.items()))
+    details["k2_texture_by_k"] = sweep
+
+    # the two-stage tracer, forward + backward, both stages
+    two_inputs = [points_h * (1.0 + 1e-5 * i) for i in range(24)]
+    two_halves = [two_inputs[4:14], two_inputs[14:24], two_inputs[4:14], two_inputs[14:24]]
+    details["two_stage_step"] = in_turns("two-stage fwd+bwd", two_stage, two_halves)
+    fwd2 = [t for t in timed(lambda pts: two_stage(pts, False), two_inputs[4:24])]
+    details["two_stage_forward_ms"] = dict(median_ms=statistics.median(fwd2), min_ms=min(fwd2),
+                                           max_ms=max(fwd2), n=len(fwd2))
+    print(f"two-stage forward kernel path: median {statistics.median(fwd2):.3f} ms, "
+          f"min {min(fwd2):.3f}, max {max(fwd2):.3f}, n={len(fwd2)}")
 
     k2, k3 = head["k2"], head["k3"]
     per = {
@@ -700,17 +1080,124 @@ def main():
                                lambda: fine_select_global_plain(*head["k2g"])),
         "fine_bwd_global": (lambda: fine_bwd_global(*head["k3g"]),
                             lambda: fine_bwd_global_plain(*head["k3g"])),
+        "attr_scatter": (lambda: attr_scatter(*head["scatter"]),
+                         lambda: attr_scatter_plain(*head["scatter"])),
+        "attr_dw": (lambda: attr_dw(*head["dw"]), lambda: attr_dw_plain(*head["dw"])),
+        "fine_select_bins": (lambda: fine_select_bins(*head["k2b"]),
+                             lambda: fine_select_bins_plain(*head["k2b"])),
     }
+
+    # Bounds: bytes each input is read once and each output written once
+    # (of candidate tables only the occupied rows), operations as counted
+    # from this run's selections (see the constants at the top).
+    def select_bound(rays, n_rows_read, idx, pairs, extra_in=0, outs=5, d=0):
+        valid, valid_sq = slot_counts(idx)
+        n_pix, K = idx.numel() // idx.shape[-1], idx.shape[-1]
+        by = nbytes(rays) + n_rows_read + extra_in + outs * n_pix * K * 4 + n_pix * d * 4
+        weights = valid_sq * WEIGHT_FLOPS if outs == 5 else 0.0
+        return bound_ms(by, pairs * PAIR_FLOPS + weights + valid * 2 * d)
+
+    def bwd_bound(rays, n_rows_read, sel, cots, rows_out, want_rays, attrs=None, g_img=None):
+        valid, valid_sq = slot_counts(sel[0])
+        d = 0 if attrs is None else attrs.shape[1]
+        by = (nbytes(rays, *sel, *cots, attrs, g_img) + n_rows_read + rows_out * (12 + d) * 4
+              + (nbytes(rays) if want_rays else 0))
+        return bound_ms(by, valid_sq * FOLD_FLOPS + valid * (SLOT_BWD_FLOPS + 4 * d))
+
+    k1 = head["k1"]
+    P1, win1 = k1[4].shape[1], k1[-1]
+    sel_h = fine_select(*k2)
+    occupied = int(k2[4].sum())
+    k3b, k3g, k2g, k2b = head["k3b"], head["k3g"], head["k2g"], head["k2b"]
+    n_sf = k2g[0].numel() // 3
+    lists = k2b[2]
+    listed = ((lists >= 0).sum(-1).double() * tile_rays(256, 256, k2b[5], k2b[5], dev)[None])
+    sc_valid, _ = slot_counts(head["scatter"][0])
+    idx4, w4, attrs4, g4 = head["k4b"]
+    v4, v4_sq = slot_counts(idx4)
+    bounds = {
+        "emit_keys": bound_ms(nbytes(k1[0], k1[2], k1[3], k1[4], k1[5])
+                              + P1 * (win1 * win1 * 8 + 24),
+                              P1 * (EMIT_FLOPS + 10 * win1 + 10 * win1 * win1)),
+        "fine_select": select_bound(
+            k2[0], occupied * 72 + nbytes(k2[4], k2[9]), sel_h[0],
+            compacted_pairs(k2[2], k2[4], 256, 256, k2[7]), d=k2[9].shape[1]),
+        "attr_merge": bound_ms(nbytes(*k3) + k3[0].numel() // k3[0].shape[-1] * k3[2].shape[1] * 4,
+                               slot_counts(k3[0])[0] * 2 * k3[2].shape[1]),
+        "fold_weights": bound_ms(8 * nbytes(head["fold"][0]),
+                                 slot_counts(sel_h[0])[1] * FOLD_FLOPS),
+        "fine_bwd": bwd_bound(k3b[0], occupied * 68 + nbytes(k3b[3]), k3b[4:9], k3b[9:13],
+                              k3b[1].shape[0] * k3b[1].shape[1], k3b[17], k3b[15], k3b[16]),
+        "attr_merge_bwd": bound_ms(nbytes(idx4, w4, attrs4, g4) + nbytes(w4, attrs4),
+                                   v4 * 4 * attrs4.shape[1]),
+        "fine_select_global": select_bound(
+            k2g[0], nbytes(k2g[1]), sel_sf[0], float(n_sf) * P_sf),
+        "fine_bwd_global": bwd_bound(k3g[0], nbytes(k3g[1]), k3g[2:7],
+                                     [c for c in k3g[7:11] if c is not None],
+                                     k3g[1].shape[0], k3g[12]),
+        "attr_scatter": bound_ms(nbytes(*head["scatter"][:3]) + N_tx * 4 * 4, sc_valid * 2 * 4),
+        "attr_dw": bound_ms(nbytes(*head["dw"]) + nbytes(head["scatter"][1]), sc_valid * 2 * 4),
+        "fine_select_bins": select_bound(
+            k2b[0], nbytes(k2b[1], lists), fine_select_bins(*k2b)[0], listed.sum().item(),
+            outs=4),
+    }
+
+    # one PyTorch call that computes the same function, where there is one,
+    # on inputs prepared outside the timed call; the port never calls them
+    idx_s, w_s, g_s, _ = head["scatter"]
+    ok_s = idx_s >= 0
+    seg_s = torch.where(ok_s, idx_s, N_tx).long().reshape(-1)
+    vals_s = (torch.where(ok_s, w_s, 0.0)[..., None] * g_s[..., None, :]).reshape(-1, 4)
+    acc_s = torch.zeros((N_tx + 1, 4), device=dev)
+    bag_idx = torch.where(k3[0] >= 0, k3[0], k3[2].shape[0]).long().reshape(-1, k3[0].shape[-1])
+    bag_w = k3[1].reshape(bag_idx.shape)
+    bag_rows = torch.cat([k3[2], torch.zeros_like(k3[2][:1])])
+    library = {
+        "attr_scatter": lambda: acc_s.zero_().index_add_(0, seg_s, vals_s),
+        "attr_merge": lambda: torch.nn.functional.embedding_bag(
+            bag_idx, bag_rows, per_sample_weights=bag_w, mode="sum",
+            padding_idx=k3[2].shape[0]),
+    }
+    e = (library["attr_scatter"]()[:N_tx] - attr_scatter(*head["scatter"])).abs().max().item()
+    need(e <= GRAD_TOL * acc_s.abs().max().item(), f"index_add_ vs attr_scatter {e}")
+    e = (library["attr_merge"]().reshape(k3[0].shape[:-1] + (-1,)) - attr_merge(*k3)).abs().max().item()
+    need(e <= 1e-5, f"embedding_bag vs attr_merge {e}")
+    from voge_tpu_torch.ops.cuda_attr import _slot_runs
+
+    sort_ms = cuda_ms(lambda: _slot_runs(idx_s, N_tx), 20)
+    print(f"attr_scatter glue: the stable sort of {idx_s.numel()} slot ids and the searchsorted "
+          f"take {sort_ms:.4f} ms of the wrapper's time")
+    details["attr_scatter_sort_ms"] = sort_ms
+
     kern = []
     for name, (kfn, pfn) in per.items():
         ms = cuda_ms(kfn, 50)
         plain_ms = cuda_ms(pfn, 5 if name.startswith(("fine_select", "fine_bwd")) else 20)
-        print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        lib_ms = cuda_ms(library[name], 20) if name in library else None
+        b_ms, b_by = bounds[name]
+        print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by "
+              f"{b_by} (share {b_ms / ms:.4f}), library "
+              + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+              + f", launches on the main paths {launches[name]}")
         _, src, rep = KERNELS[name]
         kern.append(dict(name=name, route="cuda", source=src, replaces=rep,
                          launches=launches[name], max_abs_err=err[name],
-                         ms=ms, plain_ms=plain_ms))
+                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib_ms))
     details["kernels"] = kern
+
+    # K2's compacted entry once more, at the texture render's shapes (the
+    # line above holds it at the headline's): 74% of that path's device time
+    k2tx = head["k2tx"]
+    tx = dict(ms=cuda_ms(lambda: fine_select(*k2tx), 20),
+              plain_ms=cuda_ms(lambda: fine_select_plain(*k2tx), 3))
+    tx["bound_ms"], tx["bound_by"] = select_bound(
+        k2tx[0], int(k2tx[4].sum()) * 72 + nbytes(k2tx[4]), idx_tx,
+        compacted_pairs(k2tx[2], k2tx[4], *TEX_HW, k2tx[7]))
+    print(f"kernel fine_select at the texture shapes (K = {TEX_K}, the 128 bucket): "
+          f"{tx['ms']:.4f} ms, plain {tx['plain_ms']:.4f} ms, bound {tx['bound_ms']:.5f} ms by "
+          f"{tx['bound_by']} (share {tx['bound_ms'] / tx['ms']:.4f}), library none")
+    details["fine_select_texture"] = tx
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -742,6 +1229,12 @@ def main():
     details["profile_shapefit"] = profiled(
         "shapefit step", sf_step, range(5), details["shapefit_step"]["kernel"]["median_ms"],
         "profile_shapefit.txt")
+    details["profile_texture"] = profiled(
+        "texture extraction", tex_chain, tex_inputs[:5],
+        details["texture"]["kernel"]["median_ms"], "profile_texture.txt")
+    details["profile_two_stage"] = profiled(
+        "two-stage fwd+bwd", two_stage, two_inputs[:5],
+        details["two_stage_step"]["kernel"]["median_ms"], "profile_two_stage.txt")
 
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     print(f"nvidia-smi: {smi_line()}")

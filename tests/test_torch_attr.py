@@ -126,3 +126,56 @@ def test_attr_merge_autograd_uses_its_backward(case):
     AttrMerge.apply(w, attrs, sel).backward(g)
     d_w, d_attr = attr_merge_bwd_plain(sel, w0, attrs.detach(), g)
     assert torch.equal(w.grad, d_w) and torch.equal(attrs.grad, d_attr)
+
+
+@pytest.mark.parametrize("K_sel", [6, 40])
+def test_plain_halves_match_the_split_pallas_kernels(K_sel):
+    """``attr_scatter_plain`` / ``attr_dw_plain`` against
+    ``attr_merge_bwd_attr_pallas`` / ``attr_merge_bwd_w_pallas`` in interpret
+    mode, driven as ``tests/test_pallas_attr.py`` drives them (K below and
+    above the kernels' unroll limit of 32, selections with -1 slots), to
+    1e-5; and against the two halves of ``attr_merge_bwd_plain``, exactly."""
+    from test_pallas_attr import _scene
+    from voge_tpu.ops.pallas_attr import attr_merge_bwd_attr_pallas, attr_merge_bwd_w_pallas
+    from voge_tpu_torch.ops.cuda_attr import (
+        attr_dw, attr_dw_plain, attr_scatter, attr_scatter_plain,
+    )
+
+    rng = np.random.RandomState(21)
+    sel_k, w_k, mask_flat, ids_p, planes, _attr, geom = _scene(rng, K=K_sel)
+    g = rng.rand(*(w_k.shape[:2] + (8,))).astype(np.float32)
+    d_attr_j = np.asarray(attr_merge_bwd_attr_pallas(
+        planes, w_k, sel_k, mask_flat, ids_p, jnp.asarray(g), geom["bh_bw"],
+        geom["cand_chunk"], interpret=True))
+    d_w_j = np.asarray(attr_merge_bwd_w_pallas(
+        planes, sel_k, mask_flat, ids_p, jnp.asarray(g), w_k.shape[2], geom["bh_bw"],
+        geom["cand_chunk"], interpret=True))
+    # the Pallas kernels' candidate planes (B, Ca, P_pad) as rows by id
+    ids = np.asarray(ids_p)[:, 0, :]
+    pn = np.asarray(planes)
+    n_rows = int(ids.max()) + 1
+    attrs = np.zeros((n_rows, pn.shape[1]), np.float32)
+    attrs[ids[ids >= 0]] = np.swapaxes(pn, 1, 2)[ids >= 0]
+    want_attr = np.zeros_like(attrs)
+    want_attr[ids[ids >= 0]] = np.swapaxes(d_attr_j, 1, 2)[ids >= 0]
+
+    t = torch.as_tensor
+    sel, w = t(np.asarray(sel_k)), t(np.asarray(w_k))
+    assert (sel < 0).any() and (sel >= 0).any()
+    d_w = attr_dw_plain(sel, t(attrs), t(g))
+    d_attr = attr_scatter_plain(sel, w, t(g), n_rows)
+    assert np.abs(d_w_j).max() > 0.1 and np.abs(want_attr).max() > 0.1
+    np.testing.assert_allclose(d_w.numpy(), d_w_j, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(d_attr.numpy(), want_attr, rtol=1e-5, atol=1e-5)
+    both = attr_merge_bwd_plain(sel, w, t(attrs), t(g))
+    assert torch.equal(d_w, both[0]) and torch.equal(d_attr, both[1])
+    # on CPU tensors the wrappers run these plain versions and launch nothing
+    before = attr_dw.launches, attr_scatter.launches
+    assert torch.equal(attr_dw(sel, t(attrs), t(g)), d_w)
+    assert torch.equal(attr_scatter(sel, w, t(g), n_rows), d_attr)
+    assert (attr_dw.launches, attr_scatter.launches) == before
+    # ids beyond the table add nothing; rows no slot holds stay zero
+    wide = attr_scatter_plain(sel, w, t(g), n_rows + 5)
+    assert torch.equal(wide[:n_rows], d_attr) and not wide[n_rows:].any()
+    short = attr_scatter_plain(sel, w, t(g), n_rows - 3)
+    np.testing.assert_array_equal(short.numpy(), d_attr.numpy()[:n_rows - 3])

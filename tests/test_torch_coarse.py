@@ -131,3 +131,88 @@ def test_dst_matches_pallas_emission(case, B, M_max):
     gg = gather_back_rows(torch.as_tensor(rows), got[5])
     assert gg.shape == (B, P, 15)
     np.testing.assert_allclose(gg.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+
+
+def _bench_scene(name):
+    """Full-width scenes of ``bench.py`` through the port's own converters:
+    (cameras, camera-centred points, isigmas, image size, K)."""
+    import voge_tpu_torch as vt
+    from voge_tpu_torch.aggregation import expend_sigma
+    from voge_tpu_torch.rays import camera_rays as t_camera_rays
+
+    f32 = lambda x: torch.as_tensor(np.asarray(x, np.float32))
+    if name == "texture":       # bench.py:204-218
+        v, f = vt.ico_sphere(5)
+        verts, isig, _ = vt.naive_vertices_converter(v, f, percentage=0.5, max_sig_rate=2)
+        R, T = vt.look_at_view_transform(dist=3, elev=0.1, azim=0.6, degrees=False,
+                                         device="cpu")
+        cams = (R, T, f32([[1800.0, 1800.0]]), f32([[336.0, 128.0]]))
+        hw, K = (256, 672), 80
+    else:                       # bench.py:52-105 (headline) and the golden 1K scene
+        n, hw, focal = {"headline": (10000, (256, 256), 300.0),
+                        "1k": (1000, (128, 128), 150.0)}[name]
+        verts, isig = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), n,
+                                                       percentage=0.6)
+        R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70, device="cpu")
+        cams = (R, T, f32([[focal, focal]]), f32([[hw[1] / 2, hw[0] / 2]]))
+        K = 20
+    _, origins = t_camera_rays(*cams, hw)
+    points = f32(verts)[None] - origins[:, None, :]
+    return cams, points, 2.0 * expend_sigma(f32(isig))[None], hw, K
+
+
+@pytest.mark.parametrize("name,win,densest", [("texture", 3, 80), ("headline", 2, 767),
+                                              ("1k", 3, None)])
+def test_full_width_coarse_stage_drops_nothing(name, win, densest):
+    """The coarse stage of a render keeps every membership ``voge_tpu``'s
+    ``rasterize_coarse`` finds, at full width.  The texture scene (10,242
+    Gaussians, 256x672, K = 80, 32-px bins) starts with a 2x2 window that
+    1,174 Gaussians in view outgrow (pixel radii up to 47 against 64-px
+    supertiles), more than the 64 global members: the emission must run
+    again with a 3x3 window instead of dropping them.  The headline keeps its
+    2x2 window and the 1K scene its 3x3."""
+    from voge_tpu_torch.ops import fine as tfine
+
+    cams, points, isig, hw, K = _bench_scene(name)
+    P = points.shape[1]
+    c = tfine.compact_candidates(*cams, points, isig, hw, 0.01, K)
+    assert int(c.overflow_c.sum()) == 0
+    assert c.dst[0].shape[-1] == win * win
+    if densest is not None:
+        assert int(c.counts_c.max()) == densest
+    bs = c.bin_size
+    ref, cnt = jcoarse.rasterize_coarse(
+        *[jnp.asarray(x.numpy()) for x in cams], jnp.asarray(points.numpy()),
+        jnp.asarray(isig.numpy()), hw, 0.01, bs, P, return_counts=True)
+    ref = np.asarray(ref)
+    _, BH, BW, _ = ref.shape
+    BW2 = (BW + 1) // 2
+    ids, bits, counts = c.ids_c.numpy(), c.bits_c.numpy(), c.counts_c.numpy()
+    missing = 0
+    for by in range(BH):
+        for bx in range(BW):
+            s, g = (by // 2) * BW2 + bx // 2, 2 * (by % 2) + bx % 2
+            row = ids[s, :counts[s]]
+            mine = set(row[((bits[s, :counts[s]] >> g) & 1) > 0].tolist())
+            missing += len(set(ref[0, by, bx][ref[0, by, bx] >= 0].tolist()) - mine)
+    assert int(np.asarray(cnt).sum()) > 1000 and missing == 0
+
+
+def test_excess_oversize_gaussians_widen_the_window():
+    """Two Gaussians outgrow the 3x3 window (pixel radii 35 and 27 against
+    20-px supertiles) and the global list holds one.  With fixed rows the
+    second is dropped and counted; a render's exact rows (``row_align``) emit
+    once more with the 5x5 window the two need, and nothing is dropped."""
+    cams, pts, isig, hw = _inputs("plain")
+    isig = isig.copy()
+    isig[0, 3] = isig[0, 7] = np.eye(3, dtype=np.float32) * 0.7
+    args = ([torch.as_tensor(c) for c in cams]
+            + [torch.as_tensor(pts.copy()), torch.as_tensor(isig), hw, 0.01, 10, 64])
+    fixed = tcoarse.emit_supertile_candidates(*args, n_globals=1, return_dst=True)
+    assert int(fixed[4].sum()) == 1 and fixed[5][0].shape[-1] == 9
+    assert (fixed[2] == 3).sum() == 6 and (fixed[2] == 7).sum() == 0
+    exact = tcoarse.emit_supertile_candidates(*args, n_globals=1, row_align=8,
+                                              return_dst=True)
+    assert int(exact[4].sum()) == 0 and exact[5][0].shape[-1] == 25
+    assert (exact[2] == 3).sum() == 6 and (exact[2] == 7).sum() == 6
+    assert not exact[5][3].any()        # no global member is left

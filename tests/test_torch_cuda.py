@@ -91,7 +91,7 @@ def test_emit_kernel_equals_plain(stage):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("K", [5, 20, 40])
+@pytest.mark.parametrize("K", [5, 20, 40, 80])   # the 8, 32, 64 and 128 buckets
 @pytest.mark.parametrize("with_attrs", [False, True])
 def test_select_kernel_matches_plain(stage, K, with_attrs):
     cams, hw, rays, points, isig, colors = stage
@@ -367,3 +367,222 @@ def test_shape_fitter_kernel_path_matches_plain_path(dev):
         x0 = torch.as_tensor(verts if k == "verts" else np.full_like(verts, 0.5), device=dev)
         moved_k, moved_p = pk[k] - x0, pp[k] - x0
         assert (moved_k - moved_p).norm() <= 1e-4 * moved_p.norm(), k
+
+
+def _slots(dev, K, d, n_rows=300, n_pix=(2, 33, 41), seed=5):
+    """Random selections (a third of the slots empty, some ids beyond the
+    table), weights, per-pixel rows and per-id rows."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    idx = torch.randint(-n_rows // 2, n_rows + 4, n_pix + (K,), device=dev, generator=gen,
+                        dtype=torch.int32).clamp(min=-1)
+    w = torch.rand(n_pix + (K,), device=dev, generator=gen)
+    g = torch.randn(n_pix + (d,), device=dev, generator=gen)
+    attrs = torch.randn((n_rows, d), device=dev, generator=gen)
+    return idx, w, g, attrs
+
+
+@pytest.mark.parametrize("K", [5, 20, 40, 80])
+@pytest.mark.parametrize("d", [4, 8, 11])
+def test_attr_halves_match_plain(dev, K, d):
+    """``attr_scatter`` and ``attr_dw`` alone against their plain versions
+    (max |kernel - plain| <= 1e-4 max |plain|), two runs equal to the bit,
+    and K4b's two halves equal to the halves alone (one device code)."""
+    from voge_tpu_torch.ops.cuda_attr import (
+        attr_dw, attr_dw_plain, attr_scatter, attr_scatter_plain,
+    )
+
+    idx, w, g, attrs = _slots(dev, K, d)
+    n_rows = attrs.shape[0]
+    before = attr_scatter.launches, attr_dw.launches
+    out, out2 = attr_scatter(idx, w, g, n_rows), attr_scatter(idx, w, g, n_rows)
+    d_w, d_w2 = attr_dw(idx, attrs, g), attr_dw(idx, attrs, g)
+    torch.cuda.synchronize()
+    assert (attr_scatter.launches, attr_dw.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(out, out2) and torch.equal(d_w, d_w2)
+    want, want_w = attr_scatter_plain(idx, w, g, n_rows), attr_dw_plain(idx, attrs, g)
+    assert (out - want).abs().max() <= 1e-4 * want.abs().max()
+    assert (d_w - want_w).abs().max() <= 1e-4 * want_w.abs().max()
+    assert not d_w[(idx < 0) | (idx >= n_rows)].any()
+    both = attr_merge_bwd(idx, w, attrs, g)
+    assert torch.equal(both[0], d_w) and torch.equal(both[1], out)
+    only_w = attr_merge_bwd(idx, w, attrs, g, need_attr=False)
+    only_a = attr_merge_bwd(idx, w, attrs, g, need_w=False)
+    assert only_w[1] is None and only_a[0] is None
+    assert torch.equal(only_w[0], d_w) and torch.equal(only_a[1], out)
+
+
+def test_attr_scatter_long_runs(dev):
+    """Runs of tens of thousands of slots on a few ids (the texture shapes'
+    regime) and ids no slot holds."""
+    from voge_tpu_torch.ops.cuda_attr import attr_scatter, attr_scatter_plain
+
+    gen = torch.Generator(dev).manual_seed(9)
+    idx = torch.randint(0, 6, (1, 64, 96, 80), device=dev, generator=gen, dtype=torch.int32) * 50
+    w = torch.rand(idx.shape, device=dev, generator=gen)
+    g = torch.rand(idx.shape[:3] + (4,), device=dev, generator=gen)
+    out = attr_scatter(idx, w, g, 400)
+    want = attr_scatter_plain(idx, w, g, 400)
+    torch.cuda.synchronize()
+    assert (out - want).abs().max() <= 1e-4 * want.abs().max()
+    assert not out[1:50].any() and out[50].abs().sum() > 0
+    assert torch.equal(out, attr_scatter(idx, w, g, 400))
+
+
+def test_sampler_kernel_path_matches_plain(dev):
+    """``sample_features`` forward and backward on the card (attr_scatter,
+    attr_dw, K3f) against the plain path, two backward runs equal to the bit."""
+    from voge_tpu_torch.ops.cuda_attr import attr_dw, attr_merge, attr_scatter
+
+    idx, w, g, _ = _slots(dev, 20, 3, n_rows=500, seed=6)
+    idx = torch.where(idx < 500, idx, -1)
+    cf = torch.randn((500, 3), device=dev, generator=torch.Generator(dev).manual_seed(1))
+    cw = torch.randn((500,), device=dev, generator=torch.Generator(dev).manual_seed(2))
+
+    def run():
+        wl, gl = w.clone().requires_grad_(True), g.clone().requires_grad_(True)
+        frag = vt.Fragments(wl, idx, (idx >= 0).sum(-1), wl)
+        feat, sw = vt.sample_features(frag, gl, n_vert=500)
+        loss = (feat * cf).sum() + (sw * cw).sum()
+        return feat, sw, torch.autograd.grad(loss, (wl, gl))
+
+    before = attr_scatter.launches, attr_dw.launches, attr_merge.launches
+    feat, sw, grads = run()
+    _, _, grads2 = run()
+    torch.cuda.synchronize()
+    assert (attr_scatter.launches, attr_dw.launches, attr_merge.launches) == tuple(
+        b + 2 for b in before)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    with _plain_sampler():
+        feat_p, sw_p, grads_p = run()
+    for a, b in zip((feat, sw) + tuple(grads), (feat_p, sw_p) + tuple(grads_p)):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    got = vt.scatter_max_weight(vt.Fragments(w, idx, (idx >= 0).sum(-1), w), n_vert=500)
+    flat, wf = idx.reshape(-1).cpu().numpy(), w.reshape(-1).cpu().numpy()
+    want = np.zeros(500, np.float32)
+    np.maximum.at(want, flat[flat >= 0], wf[flat >= 0])
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def _plain_sampler():
+    from contextlib import contextmanager
+
+    from voge_tpu_torch import sampler
+
+    @contextmanager
+    def swap():
+        saved = sampler.attr_scatter, sampler.attr_dw, sampler.attr_merge
+        sampler.attr_scatter = cuda_attr.attr_scatter_plain
+        sampler.attr_dw = cuda_attr.attr_dw_plain
+        sampler.attr_merge = cuda_attr.attr_merge_plain
+        try:
+            yield
+        finally:
+            sampler.attr_scatter, sampler.attr_dw, sampler.attr_merge = saved
+
+    return swap()
+
+
+@pytest.mark.parametrize("K", [5, 20, 40, 80])
+@pytest.mark.parametrize("bin_size", [10, 7, (13, 20)])
+def test_select_bins_kernel_equals_plain(stage, K, bin_size):
+    """K2's per-bin-list entry against its plain version on lists from
+    ``rasterize_coarse`` (edge bins with dead rays; a cap that truncates):
+    selections and len / act / dsd equal, since both run the same arithmetic
+    in the same order."""
+    from voge_tpu_torch.ops.cuda_fine import fine_select_bins, fine_select_bins_plain
+
+    cams, hw, rays, points, isig, _ = stage
+    B, P = points.shape[:2]
+    table = fine.feature_table(points, isig)
+    bsh, bsw = (bin_size, bin_size) if isinstance(bin_size, int) else bin_size
+    if bsh == bsw:
+        bp = coarse.rasterize_coarse(*cams, points, isig, hw, 0.01, bsh, 96)
+    else:   # rectangular bins: every Gaussian of the image, some entries empty
+        BH, BW = (hw[0] - 1) // bsh + 1, (hw[1] - 1) // bsw + 1
+        ids = torch.arange(B * P, device=rays.device, dtype=torch.int32).reshape(B, 1, 1, P)
+        bp = ids.expand(B, BH, BW, P).clone()
+        bp[..., ::7] = -1
+    thr_act = -math.log(0.01 + 1e-10)
+    before = fine_select_bins.launches
+    got = fine_select_bins(rays, table, bp, thr_act, K, bin_size)
+    want = fine_select_bins_plain(rays, table, bp, thr_act, K, bin_size)
+    torch.cuda.synchronize()
+    assert fine_select_bins.launches == before + 1
+    assert (got[0] >= 0).any()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_two_stage_tracer_matches_plain_and_the_render_path(stage):
+    """``rasterize_coarse`` + ``ray_tracing_fine`` forward and backward on
+    the card (K2's per-bin-list entry, K3's global entry with the cotangents
+    of len, act and dsd and the ray gradient) against the plain path, two
+    backward runs equal to the bit, and the forward against the
+    emission-compacted ``ray_tracing``."""
+    from voge_tpu_torch.ops.cuda_fine import fine_select_bins
+
+    cams, hw, rays, points, isig, _ = stage
+    B, P = points.shape[:2]
+    K = 20
+    bp, cnt = vt.ops.rasterize_coarse(*cams, points, isig, hw, 0.01, 10, P, return_counts=True)
+    assert int(cnt.max()) <= P
+    cots = [torch.randn(rays.shape[:3] + (K,), device=rays.device,
+                        generator=torch.Generator(rays.device).manual_seed(70 + q))
+            for q in range(3)]
+
+    def run():
+        leaves = [x.detach().clone().requires_grad_(True)
+                  for x in (points.reshape(-1, 3), isig.reshape(-1, 3, 3), rays)]
+        sel = vt.ops.ray_tracing_fine(*leaves, bp, 0.01, 10, K)
+        v = sel[1] * cots[0] + sel[2] * cots[1] + sel[3] * cots[2]
+        loss = torch.where(sel[0] >= 0, v, torch.zeros_like(v)).sum()
+        return sel, torch.autograd.grad(loss, leaves)
+
+    before = fine_select_bins.launches, fine_bwd_global.launches
+    sel, grads = run()
+    _, grads2 = run()
+    torch.cuda.synchronize()
+    assert (fine_select_bins.launches, fine_bwd_global.launches) == (before[0] + 2, before[1] + 2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    from voge_tpu_torch.ops import cuda_fine, cuda_fine_bwd
+
+    saved = fine.fine_select_bins, fine.fine_bwd_global
+    fine.fine_select_bins = cuda_fine.fine_select_bins_plain
+    fine.fine_bwd_global = cuda_fine_bwd.fine_bwd_global_plain
+    try:
+        sel_p, grads_p = run()
+    finally:
+        fine.fine_select_bins, fine.fine_bwd_global = saved
+    for a, b in zip(sel, sel_p):
+        assert torch.equal(a, b)
+    for a, b in zip(grads, grads_p):
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max()
+    ref, overflow = vt.ops.ray_tracing(cams, points, isig, rays, hw, 0.01, K, bin_size=10)
+    assert int(overflow) == 0
+    for a, b in zip(sel, ref[:4]):
+        assert torch.equal(a, b)
+
+
+def test_texture_scale_coarse_stage_reemits(dev):
+    """More Gaussians in view outgrow the 2x2 window than the global list
+    holds: the emission runs again with a wider window (K1 at win 3) and
+    drops nothing; kernel and plain rows are equal."""
+    v, f = vt.ico_sphere(5)
+    verts, isig, _ = vt.naive_vertices_converter(v, f, percentage=0.5, max_sig_rate=2)
+    tt = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    R, T = vt.look_at_view_transform(dist=3, elev=0.1, azim=0.6, degrees=False, device=dev)
+    cams = (R, T, tt([[1800.0, 1800.0]]), tt([[336.0, 128.0]]))
+    hw = (256, 672)
+    _, origins = camera_rays(*cams, hw)
+    points = tt(verts)[None] - origins[:, None, :]
+    isg = 2.0 * expend_sigma(tt(isig))[None]
+    c = fine.compact_candidates(*cams, points, isg, hw, 0.01, 80)
+    assert int(c.overflow_c.sum()) == 0 and c.dst[0].shape[-1] == 9
+    saved = coarse.emit_keys
+    coarse.emit_keys = emit_keys_plain
+    try:
+        p = fine.compact_candidates(*cams, points, isg, hw, 0.01, 80)
+    finally:
+        coarse.emit_keys = saved
+    for a, b in zip(c[:5], p[:5]):
+        assert torch.equal(a, b)

@@ -1,6 +1,8 @@
 """Geometry of the port against ``voge_tpu`` on the same numpy inputs:
 cameras (atol 1e-6), rays (atol 1e-6), the cuboid scene (byte-identical),
-expend_sigma and the erf compositing (atol 1e-6)."""
+expend_sigma and the erf compositing (atol 1e-6), the index helpers of
+``utils`` (exactly; ``rotation_theta`` atol 1e-6), and the rule that what
+the port creates lies on the card unless the caller names the CPU."""
 import numpy as np
 import pytest
 import torch
@@ -30,7 +32,7 @@ def _cameras():
 
 def test_look_at_view_transform_matches():
     R, T = _cameras()[:2]
-    Rt, Tt = vt.look_at_view_transform(**VIEWS)
+    Rt, Tt = vt.look_at_view_transform(**VIEWS, device="cpu")
     np.testing.assert_allclose(Rt.numpy(), R, rtol=0, atol=1e-6)
     np.testing.assert_allclose(Tt.numpy(), T, rtol=0, atol=1e-6)
 
@@ -38,7 +40,7 @@ def test_look_at_view_transform_matches():
 def test_camera_centers_and_batched_params_match():
     R, T, focal, principal = _cameras()
     jc = jcam.PerspectiveCameras(focal_length=focal, principal_point=principal, R=R, T=T)
-    tc = vt.cameras_from_numpy(R, T, focal, principal, ((256, 256),))
+    tc = vt.cameras_from_numpy(R, T, focal, principal, ((256, 256),), device="cpu")
     for a, b in zip(jc.batched_params(3), tc.batched_params(3)):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     np.testing.assert_allclose(tc.get_camera_center().numpy(),
@@ -66,7 +68,8 @@ def test_cuboid_is_byte_identical(n):
     for a, b in ((vj, vt_), (sj, st_), (cj, ct_)):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
     gj = JCuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), n, percentage=0.6, as_obj=True)
-    gt = TCuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), n, percentage=0.6, as_obj=True)
+    gt = TCuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), n, percentage=0.6, as_obj=True,
+                              device="cpu")
     assert np.asarray(gj.verts).tobytes() == gt.verts.detach().numpy().tobytes()
     assert np.asarray(gj.sigmas).tobytes() == gt.sigmas.detach().numpy().tobytes()
     assert isinstance(gt, vt.GaussianMeshes) and gt.verts.requires_grad
@@ -98,3 +101,99 @@ def test_compositing_math_matches():
     got_m = tagg.merge_final(torch.as_tensor(attr), got, torch.as_tensor(idx),
                              torch.as_tensor(valid))
     np.testing.assert_allclose(got_m.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_index_helpers_match_voge_tpu():
+    """``ind_sel`` / ``ind_fill`` / ``inverse_cumsum`` / ``rotation_theta``
+    on the cases of ``tests/test_utils.py``."""
+    import voge_tpu.utils as jutils
+    import voge_tpu_torch.utils as tutils
+
+    rng = np.random.RandomState(0)
+    t, j = torch.as_tensor, jnp.asarray
+    for shape in ((1, 9, 4), (5, 9, 4, 2)):
+        target = rng.uniform(size=shape).astype(np.float32)
+        ind = rng.randint(0, 9, size=(5, 3)).astype(np.int64)
+        got = tutils.ind_sel(t(target), t(ind), dim=1).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jutils.ind_sel(j(target), j(ind), dim=1)))
+    target = np.zeros((4, 9, 3), np.float32)
+    # distinct indices per row: a scatter with duplicates keeps either value
+    ind = np.stack([rng.permutation(9)[:5] for _ in range(4)]).astype(np.int64)
+    src = rng.uniform(size=(4, 5, 3)).astype(np.float32)
+    got = tutils.ind_fill(t(target), t(ind), t(src), dim=1).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jutils.ind_fill(j(target), j(ind), j(src), dim=1)))
+    target = np.zeros((2, 7), np.float32)
+    ind = rng.randint(0, 7, size=(2, 3)).astype(np.int64)
+    got = tutils.ind_fill(t(target), t(ind), 1, dim=1).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jutils.ind_fill(j(target), j(ind), 1, dim=1)))
+    assert (target == 0).all()                      # the input is left as it was
+    x = rng.uniform(size=(3, 5, 4)).astype(np.float32)
+    for dim in (0, 1, 2):
+        np.testing.assert_allclose(tutils.inverse_cumsum(t(x), dim).numpy(),
+                                   np.asarray(jutils.inverse_cumsum(j(x), dim)),
+                                   rtol=0, atol=1e-6)
+    theta = rng.uniform(-np.pi, np.pi, size=(6,)).astype(np.float32)
+    want = np.asarray(jutils.rotation_theta(j(theta)))
+    for arg in (theta, theta.reshape(6, 1, 1)):
+        got = tutils.rotation_theta(arg, device="cpu")
+        assert got.shape == (6, 3, 3)
+        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    assert tutils.rotation_theta(0.5, device="cpu").shape == (1, 3, 3)
+    assert tutils.rotation_theta(torch.tensor([0.5])).device.type == "cpu"  # a tensor keeps its device
+
+
+def test_default_device_is_the_card():
+    """Every entry point that turns numpy arrays or lists into tensors
+    resolves ``device=None`` to ``cuda``: the rule's one helper says so, and
+    each entry point called without a device either returns CUDA tensors (on
+    a machine with a card) or fails with PyTorch's CUDA error (here).  A
+    tensor argument keeps its device."""
+    import voge_tpu_torch.utils as tutils
+    from voge_tpu_torch._device import DEFAULT_DEVICE, resolve_device
+
+    assert DEFAULT_DEVICE == torch.device("cuda")
+    assert resolve_device() == torch.device("cuda")
+    assert resolve_device(None, np.zeros(3), [1.0]) == torch.device("cuda")
+    assert resolve_device("cpu", np.zeros(3)) == torch.device("cpu")
+    assert resolve_device(None, np.zeros(3), torch.zeros(3)) == torch.device("cpu")
+
+    verts = np.zeros((4, 3), np.float32)
+    sig = np.ones((4,), np.float32)
+    R, T, focal, principal = _cameras()
+    calls = {
+        "PerspectiveCameras": lambda: vt.PerspectiveCameras(focal_length=30.0).R,
+        "look_at_view_transform": lambda: vt.look_at_view_transform(dist=3.0)[0],
+        "look_at_rotation": lambda: vt.cameras.look_at_rotation(((0.0, 0.0, 3.0),)),
+        "camera_position_from_spherical_angles":
+            lambda: vt.cameras.camera_position_from_spherical_angles(3.0, 10.0, 20.0),
+        "GaussianMeshes": lambda: vt.GaussianMeshes(verts, sig).verts,
+        "GaussianMeshesNaive": lambda: vt.GaussianMeshesNaive(verts, sig).verts,
+        "cuboid_gauss": lambda: TCuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 50,
+                                                     as_obj=True).verts,
+        "scene_from_numpy": lambda: vt.scene_from_numpy(verts, sig)[0].verts,
+        "cameras_from_numpy": lambda: vt.cameras_from_numpy(R, T, focal, principal,
+                                                            ((8, 8),)).R,
+        "ShapeFitter": lambda: vt.ShapeFitter({"verts": verts}, {"sigmas": sig},
+                                              image_size=(8, 8), focal=focal[0],
+                                              principal=principal[0]).params["verts"],
+        "fitter_from_numpy": lambda: vt.fitter_from_numpy(
+            {"verts": verts}, {"sigmas": sig}, image_size=(8, 8), focal=focal[0],
+            principal=principal[0]).params["verts"],
+        "precompute_camera_ctx": lambda: vt.precompute_camera_ctx(R, T, focal, principal,
+                                                                  (8, 8)).rays,
+        "rotation_theta": lambda: tutils.rotation_theta(0.5),
+    }
+    for name, call in calls.items():
+        try:
+            out = call()
+        except (AssertionError, RuntimeError) as e:
+            assert "CUDA" in str(e) or "cuda" in str(e), (name, e)
+        else:
+            assert out.device.type == "cuda", name
+    # a tensor argument keeps its device
+    assert vt.PerspectiveCameras(R=torch.as_tensor(R)).device.type == "cpu"
+    assert vt.GaussianMeshes(torch.as_tensor(verts), torch.as_tensor(sig)).verts.device.type == "cpu"
+    assert vt.look_at_view_transform(dist=torch.tensor([3.0]))[0].device.type == "cpu"
+    f = vt.ShapeFitter({"verts": torch.as_tensor(verts)}, {"sigmas": sig}, image_size=(8, 8),
+                       focal=focal[0], principal=principal[0])
+    assert f.device.type == "cpu" and f.fixed["sigmas"].device.type == "cpu"

@@ -14,6 +14,12 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_import_leaves_jax_and_voge_tpu_out():
     code = (
         "import sys, voge_tpu_torch, voge_tpu_torch.ops.fine\n"
+        "import voge_tpu_torch.sampler, voge_tpu_torch.ops.coarse\n"
+        "from voge_tpu_torch import sample_features, scatter_max_weight\n"
+        "from voge_tpu_torch.ops import rasterize_coarse, ray_tracing_fine\n"
+        "from voge_tpu_torch.ops.coarse import overlap_mask, compact_mask, convert_to_box\n"
+        "from voge_tpu_torch.ops.cuda_attr import attr_scatter, attr_dw\n"
+        "from voge_tpu_torch.ops.cuda_fine import fine_select_bins\n"
         "from voge_tpu_torch import _build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'voge_tpu' or m.startswith('voge_tpu.')]\n"

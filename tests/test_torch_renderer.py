@@ -54,8 +54,10 @@ def quickstart():
     cam_j = JCameras(focal_length=300, image_size=((256, 256),), principal_point=((128, 128),))
     frag_j = jr.GaussianRenderer(cam_j, jr.GaussianRenderSettings(**rs))(gj, R=R, T=T)
     colors = (np.asarray(gj.verts) + 1) / 3
-    g, colors_t = vt.scene_from_numpy(np.asarray(gj.verts), np.asarray(gj.sigmas), colors)
-    cam_t = vt.cameras_from_numpy(np.array(R), np.array(T), focal, principal, ((256, 256),))
+    g, colors_t = vt.scene_from_numpy(np.asarray(gj.verts), np.asarray(gj.sigmas), colors,
+                                       device="cpu")
+    cam_t = vt.cameras_from_numpy(np.array(R), np.array(T), focal, principal, ((256, 256),),
+                                 device="cpu")
     frag_t = vt.GaussianRenderer(cam_t, vt.GaussianRenderSettings(**rs))(g)
     return frag_t, frag_j, colors_t, jnp.asarray(colors)
 
@@ -182,9 +184,9 @@ def test_white_background_gradients_through_gaussian_renderer():
 
     grads_ref = jax.grad(loss_j, argnums=(0, 1, 2))(
         *[jnp.asarray(x) for x in (verts, sigmas, colors)])
-    g, colors_t = vt.scene_from_numpy(verts, sigmas, colors)
+    g, colors_t = vt.scene_from_numpy(verts, sigmas, colors, device="cpu")
     colors_t.requires_grad_(True)
-    cam = vt.cameras_from_numpy(R, T, focal, principal, ((64, 64),))
+    cam = vt.cameras_from_numpy(R, T, focal, principal, ((64, 64),), device="cpu")
     renderer = vt.GaussianRenderer(cam, dict(image_size=64, max_point_per_bin=1000,
                                              batch_size=-1))
     for step in range(2):  # the second call reuses the cached camera context
@@ -261,8 +263,8 @@ def test_backward_repeats_to_the_bit():
 
 def test_paths_not_ported_raise():
     g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 100,
-                                         percentage=0.6, as_obj=True)
-    R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70)
+                                         percentage=0.6, as_obj=True, device="cpu")
+    R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70, device="cpu")
     args = (g.verts, g.sigmas, R, T, torch.tensor([[30.0, 30.0]]), torch.tensor([[16.0, 16.0]]))
     for mppb in (None, -1):
         with pytest.raises(NotImplementedError, match="item 15"):
@@ -309,8 +311,8 @@ def test_golden_grad_files_are_voge_tpu_output(name):
     if n > 1000:
         return  # the headline: the chip run holds the port to it
     g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), n, percentage=0.6,
-                                         as_obj=True)
-    R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70)
+                                         as_obj=True, device="cpu")
+    R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70, device="cpu")
     f, pp = torch.tensor([[focal, focal]]), torch.tensor([[hw[1] / 2, hw[0] / 2]])
     colors = ((g.verts.detach() + 1) / 3).requires_grad_(True)
     ctx = vt.precompute_camera_ctx(R, T, f, pp, hw, g.verts.shape[0], max_assign=20)

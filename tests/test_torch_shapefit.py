@@ -96,8 +96,8 @@ def test_gaussian_renderer_passes_no_coarse_through():
     """``GaussianRenderSettings(max_point_per_bin=-1)`` through
     ``GaussianRenderer`` renders what ``render_pipeline`` renders."""
     verts, isig, colors, R, T, focal, principal = _scene()[:7]
-    g, _ = vt.scene_from_numpy(verts, isig, colors)
-    cam = vt.cameras_from_numpy(R, T, focal, principal, (HW,) * B)
+    g, _ = vt.scene_from_numpy(verts, isig, colors, device="cpu")
+    cam = vt.cameras_from_numpy(R, T, focal, principal, (HW,) * B, device="cpu")
     rs = vt.GaussianRenderSettings(image_size=HW, max_assign=25, max_point_per_bin=-1)
     frag = vt.GaussianRenderer(cam, rs)(g)
     want = vt.render_pipeline(_t(verts), _t(isig), _t(R), _t(T), _t(focal), _t(principal),
@@ -156,7 +156,7 @@ def _fitters():
     kw = dict(image_size=HW, focal=focal[0], principal=principal[0], max_assign=25)
     jf = JShapeFitter({"verts": jnp.asarray(verts), "colors": jnp.asarray(colors)},
                       {"sigmas": jnp.asarray(isig)}, **kw)
-    return jf, kw
+    return jf, dict(kw, device="cpu")
 
 
 def _numpy_state(jf):
@@ -241,7 +241,7 @@ def test_shape_fitter_refuses_a_mesh():
     verts, isig, colors, _, _, focal, principal = _scene()[:7]
     with pytest.raises(NotImplementedError, match="item 12"):
         vt.ShapeFitter({"verts": verts}, {"sigmas": isig, "colors": colors}, image_size=HW,
-                       focal=focal[0], principal=principal[0], mesh=object())
+                       focal=focal[0], principal=principal[0], mesh=object(), device="cpu")
 
 
 def test_golden_shapefit_file_is_voge_tpu_output():

@@ -7,9 +7,14 @@ its backward run hand-written CUDA kernels (``csrc/``): K1 coarse emission,
 K2 streaming top-K select with fused weights and attribute image (over
 emission-compacted rows, or over every Gaussian on the no-coarse path), K3
 the fine backward with the weight fold and the attribute VJP (both spaces),
-K3f attribute merge and K4b its backward.  ``models.ShapeFitter`` fits a
-scene with ``torch.optim`` on top of the renderer.  On CPU tensors each
-kernel's plain PyTorch version runs instead.  Importing builds nothing; a
+K3f attribute merge and K4b its backward.  ``sampler.sample_features``
+pulls an image back onto the Gaussians through the two halves of K4b on
+their own; ``ops.rasterize_coarse`` + ``ops.ray_tracing_fine`` are the
+public two-stage tracer over per-bin candidate lists (K2's per-bin-list
+entry).  ``models.ShapeFitter`` fits a scene with ``torch.optim`` on top of
+the renderer.  What the port creates lies on the card unless the caller
+passes ``device="cpu"`` (``_device.py``); on CPU tensors each kernel's plain
+PyTorch version runs instead.  Importing builds nothing; a
 kernel is compiled by ``nvcc`` at its first launch.  The port imports
 neither JAX nor ``voge_tpu``.
 """
@@ -17,7 +22,7 @@ neither JAX nor ``voge_tpu``.
 __version__ = "0.1.0"
 
 from voge_tpu_torch import aggregation, cameras, converter, interop, meshes, models, ops
-from voge_tpu_torch import rays, renderer, utils
+from voge_tpu_torch import rays, renderer, sampler, utils
 from voge_tpu_torch.cameras import PerspectiveCameras, look_at_view_transform
 from voge_tpu_torch.converter import (
     get_vert_edge_length,
@@ -40,3 +45,4 @@ from voge_tpu_torch.renderer import (
     to_colored_background,
     to_white_background,
 )
+from voge_tpu_torch.sampler import sample_features, scatter_max_weight

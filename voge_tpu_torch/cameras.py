@@ -13,6 +13,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
+from voge_tpu_torch._device import resolve_device
 from voge_tpu_torch.utils import inv3x3
 
 
@@ -35,7 +36,9 @@ def camera_position_from_spherical_angles(
     at=((0.0, 0.0, 0.0),), dtype=torch.float32, device=None,
 ) -> torch.Tensor:
     """Camera centres ``x = d cos(e) sin(a), y = d sin(e), z = d cos(e) cos(a)``
-    (+ ``at``)."""
+    (+ ``at``).  ``device=None``: a tensor argument's device, else the card
+    (``_device.resolve_device``)."""
+    device = resolve_device(device, distance, elevation, azimuth, at)
     vals = [torch.as_tensor(v, dtype=dtype, device=device).reshape(-1)
             for v in (distance, elevation, azimuth)]
     n = max(v.shape[0] for v in vals)
@@ -54,7 +57,9 @@ def look_at_rotation(camera_position, at=((0.0, 0.0, 0.0),),
                      up=((0.0, 1.0, 0.0),), dtype=torch.float32,
                      device=None) -> torch.Tensor:
     """Rotation R (N, 3, 3) with ``x_view = x_world @ R`` pointing the camera
-    at ``at`` (PyTorch3D ``look_at_rotation``)."""
+    at ``at`` (PyTorch3D ``look_at_rotation``).  ``device=None``: a tensor
+    argument's device, else the card (``_device.resolve_device``)."""
+    device = resolve_device(device, camera_position, at, up)
     C = torch.as_tensor(camera_position, dtype=dtype, device=device)
     C = C.reshape(-1, 3)
     at = torch.as_tensor(at, dtype=dtype, device=device).expand(C.shape)
@@ -82,7 +87,10 @@ def look_at_view_transform(
     eye: Optional[Sequence] = None, at=((0.0, 0.0, 0.0),),
     up=((0.0, 1.0, 0.0),), dtype=torch.float32, device=None,
 ):
-    """(R, T) for cameras looking at ``at`` (PyTorch3D-compatible)."""
+    """(R, T) for cameras looking at ``at`` (PyTorch3D-compatible).
+    ``device=None``: a tensor argument's device, else the card
+    (``_device.resolve_device``); pass ``device="cpu"`` for the CPU."""
+    device = resolve_device(device, eye, dist, elev, azim, at, up)
     if eye is not None:
         C = torch.as_tensor(eye, dtype=dtype, device=device).reshape(-1, 3)
     else:
@@ -99,7 +107,10 @@ class PerspectiveCameras:
     """Batch of screen-space pinhole cameras (the subset of
     ``pytorch3d.renderer.PerspectiveCameras`` the renderer uses).  ``R``,
     ``T``, ``focal`` and ``principal`` are plain tensors and may be
-    reassigned, as the renderer does from its call kwargs."""
+    reassigned, as the renderer does from its call kwargs.  ``device=None``:
+    the device of a tensor among ``R``, ``T``, ``focal_length``,
+    ``principal_point``, else the card (``_device.resolve_device``); pass
+    ``device="cpu"`` for the CPU."""
 
     def __init__(
         self,
@@ -114,7 +125,7 @@ class PerspectiveCameras:
     ):
         self._in_ndc = bool(in_ndc)
         self.dtype = dtype
-        self.device = torch.device("cpu") if device is None else torch.device(device)
+        self.device = resolve_device(device, R, T, focal_length, principal_point)
         self.focal_length = _as_batched(focal_length, 2, dtype, self.device)
         self.principal_point = _as_batched(principal_point, 2, dtype, self.device)
         if isinstance(image_size, int):

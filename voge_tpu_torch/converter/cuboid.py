@@ -39,8 +39,9 @@ def cuboid_gauss(x_range, y_range, z_range, number_vertices,
     vertical edge column so the seams are covered once.
 
     :return: (verts (N, 3), isigma (N,) [, colors (N, 3)]) as numpy arrays,
-        or a :class:`GaussianMeshes` (float32, on ``device``) in place of the
-        first two when ``as_obj=True``.
+        or a :class:`GaussianMeshes` (float32, on ``device``; None: the
+        card, ``_device.resolve_device``) in place of the first two when
+        ``as_obj=True``.
     """
     xs, ys, zs, edge_length = _grid_samples(x_range, y_range, z_range,
                                             number_vertices)

@@ -7,14 +7,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from voge_tpu_torch._device import resolve_device
 from voge_tpu_torch.cameras import PerspectiveCameras
 from voge_tpu_torch.meshes import GaussianMeshes
 from voge_tpu_torch.models.fitting import ShapeFitter
 
 
-def scene_from_numpy(verts, sigmas, colors=None, device="cpu"):
+def scene_from_numpy(verts, sigmas, colors=None, device=None):
     """(GaussianMeshes with float32 verts / sigmas on ``device``, colours as a
-    float32 tensor or None)."""
+    float32 tensor or None).  ``device=None`` is the card
+    (``_device.resolve_device``); pass ``device="cpu"`` for the CPU."""
+    device = resolve_device(device)
     g = GaussianMeshes(np.array(verts, np.float32),
                        np.array(sigmas, np.float32), device=device)
     if colors is not None:
@@ -22,8 +25,8 @@ def scene_from_numpy(verts, sigmas, colors=None, device="cpu"):
     return g, colors
 
 
-def cameras_from_numpy(R, T, focal, principal, image_size, device="cpu"):
-    """Screen-space ``PerspectiveCameras`` on ``device``."""
+def cameras_from_numpy(R, T, focal, principal, image_size, device=None):
+    """Screen-space ``PerspectiveCameras`` on ``device`` (None: the card)."""
     return PerspectiveCameras(
         focal_length=np.asarray(focal, np.float32),
         principal_point=np.asarray(principal, np.float32),
@@ -43,7 +46,8 @@ def fitter_from_numpy(params, fixed=None, opt_trace=None, **kwargs) -> ShapeFitt
         of each parameter in ``torch.optim.SGD``'s state, whose next update
         is then ``optax``'s
     :param kwargs: ``ShapeFitter``'s keyword arguments (``image_size``,
-        ``focal``, ``principal``, ``device``, ...)
+        ``focal``, ``principal``, ``device``, ...); ``device=None`` is the
+        card, as for ``ShapeFitter``
     """
     f = ShapeFitter({k: np.array(v, np.float32) for k, v in params.items()},
                     {k: np.array(v, np.float32) for k, v in (fixed or {}).items()},

@@ -4,7 +4,9 @@
 A scene is N kernels with centres ``verts`` (N, 3), inverse covariances
 ``sigmas`` of shape (N,), (N, 3) or (N, 3, 3), and an optional ``radians``
 field that the renderer carries but ignores.  Calling a scene returns
-``(verts, sigmas, radians)``.
+``(verts, sigmas, radians)``.  ``device=None`` places the fields on the
+device of a tensor among them, else on the card
+(``_device.resolve_device``); pass ``device="cpu"`` for the CPU.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ from typing import Optional, Sequence
 
 import torch
 from torch import nn
+
+from voge_tpu_torch._device import resolve_device
 
 _FIELDS = ("verts", "sigmas", "radians")
 
@@ -27,6 +31,7 @@ class GaussianMeshesNaive(nn.Module):
 
     def __init__(self, verts, sigmas, radians=None, device=None):
         super().__init__()
+        device = resolve_device(device, verts, sigmas, radians)
         for name, val in zip(_FIELDS, (verts, sigmas, radians)):
             self.register_buffer(name, _tensor(val, device))
 
@@ -53,6 +58,7 @@ class GaussianMeshes(GaussianMeshesNaive):
         if radians is None:
             flags[2] = False
         self.gradianted_args = flags
+        device = resolve_device(device, verts, sigmas, radians)
         for name, val, train in zip(_FIELDS, (verts, sigmas, radians), flags):
             t = _tensor(val, device)
             if train:

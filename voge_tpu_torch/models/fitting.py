@@ -8,6 +8,7 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
+from voge_tpu_torch._device import resolve_device
 from voge_tpu_torch.renderer import get_silhouette, interpolate_attr, render_pipeline
 
 
@@ -30,7 +31,8 @@ class ShapeFitter:
     :param mesh: not ported (sharded renders wait for ROADMAP queue 1, item
         12); anything but None raises
     :param device: where the parameters and renders live (default: the
-        device of the first tensor in ``params``, else the CPU)
+        device of the first tensor in ``params``, else the card,
+        ``_device.resolve_device``; pass ``device="cpu"`` for the CPU)
     """
 
     def __init__(
@@ -53,10 +55,7 @@ class ShapeFitter:
             raise NotImplementedError(
                 "ShapeFitter(mesh=...) (sharded renders) is not ported yet: "
                 "ROADMAP queue 1, item 12")
-        if device is None:
-            first = next((v for v in params.values() if isinstance(v, torch.Tensor)), None)
-            device = first.device if first is not None else "cpu"
-        self.device = torch.device(device)
+        self.device = resolve_device(device, *params.values())
         as_f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self.device)
         self.params = {k: as_f32(v).detach().clone().requires_grad_(True)
                        for k, v in params.items()}

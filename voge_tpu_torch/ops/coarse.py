@@ -1,15 +1,26 @@
-"""Coarse stage: emission-compacted per-supertile candidate rows
-(counterpart of ``voge_tpu/ops/coarse.py``).
+"""Coarse stage (counterpart of ``voge_tpu/ops/coarse.py``): the
+emission-compacted per-supertile candidate rows of the render path, and the
+per-bin candidate lists of the two-stage public tracer.
 
-Every Gaussian emits up to win x win sort keys, one per supertile (2x2 bins)
-of the window covering its pixel-space ellipse bound, with the four sub-bin
-membership bits in the key's low 4 bits (kernel K1, ``ops/cuda_coarse.py``).
-One flat sort groups the keys by supertile in ascending Gaussian index, and
-each supertile's contiguous run becomes one candidate row.  Gaussians whose
-bound spans more than the window are "global": the first ``n_globals`` (by
-index) emit one key per supertile they overlap, the rest are dropped and
-counted.  The sort, ``searchsorted`` and row slicing are PyTorch ops.  Keys
-are int64 on every device.
+Emission.  Every Gaussian emits up to win x win sort keys, one per supertile
+(2x2 bins) of the window covering its pixel-space ellipse bound, with the
+four sub-bin membership bits in the key's low 4 bits (kernel K1,
+``ops/cuda_coarse.py``).  One flat sort groups the keys by supertile in
+ascending Gaussian index, and each supertile's contiguous run becomes one
+candidate row.  Gaussians whose bound spans more than the window are
+"global": the first ``n_globals`` of them (by index) emit one key per
+supertile they overlap, the rest are dropped and counted.  A render asks for
+exact rows (``row_align``): the rows grow to the densest supertile, and when
+more Gaussians than ``n_globals`` outgrow the window, the emission runs once
+more with the window those Gaussians need, so that only bounds wider than
+K1's largest window can be dropped.  The sort, ``searchsorted`` and row
+slicing are PyTorch ops.  Keys are int64 on every device.
+
+Lists.  :func:`rasterize_coarse` tests every (bin, Gaussian) pair
+(:func:`overlap_mask`) and compacts each bin's members into an ascending,
+-1-padded list (:func:`compact_mask`); plain PyTorch ops, as they are XLA ops
+in ``voge_tpu``.  Both share the projection and the pixel radii with K1's
+plain version (``cuda_coarse._camera_planes`` / ``_pixel_radii_planes``).
 """
 from __future__ import annotations
 
@@ -22,7 +33,10 @@ from voge_tpu_torch.ops.cuda_coarse import (  # noqa: F401  (re-exported)
     _camera_planes,
     _pixel_radii_planes,
     emit_keys,
+    supertile_window,
 )
+
+MAX_WIN = 8     # the widest emission window K1 is built for
 
 
 def coarse_bin_config(image_size, n_assign: int, n_points: int,
@@ -59,9 +73,10 @@ def supertile_grid(H: int, W: int, bin_size: int):
 
 def emission_geometry(P: int, image_size, bin_size: int):
     """(nst, BH2, BW2, S, win): supertiles per image and their grid, the
-    per-image index range of the sort key, and the emission window (2x2
-    supertiles for dense scenes, 3x3 for sparse ones, grown when the bins
-    are smaller than the reference heuristic's)."""
+    per-image index range of the sort key, and the emission window a scene
+    starts with (2x2 supertiles for dense scenes, 3x3 for sparse ones, grown
+    when the bins are smaller than the reference heuristic's).
+    :func:`emit_supertile_candidates` widens it when the radii ask for more."""
     H, W = int(image_size[0]), int(image_size[1])
     b = int(bin_size)
     BH2, BW2 = supertile_grid(H, W, b)
@@ -69,7 +84,7 @@ def emission_geometry(P: int, image_size, bin_size: int):
     win = 3 if P <= 4096 else 2
     ref_b = max(int(2 ** math.ceil(math.log2(max(H, W)) - 5)), 10)
     if b < ref_b:
-        win = max(win, min(8, int(math.ceil((3 * ref_b + b) / (2 * b)))))
+        win = max(win, min(MAX_WIN, int(math.ceil((3 * ref_b + b) / (2 * b)))))
     return BH2 * BW2, BH2, BW2, S, win
 
 
@@ -81,9 +96,12 @@ def emit_supertile_candidates(R, T, focal, principal, points, isigmas,
 
     :param points: (B, P, 3) camera-centred means; :param isigmas: (B, P, 3, 3)
     :param M_max: row capacity; members beyond it are dropped and counted
-    :param row_align: when > 0, ``M_max`` is only a floor: the rows grow to
-        hold the densest supertile, rounded up to a multiple of ``row_align``
-        (costs one host read), so nothing but excess globals is dropped
+    :param row_align: when > 0 the rows are exact, at the cost of one host
+        read: ``M_max`` is only a floor and the rows grow to hold the densest
+        supertile, rounded up to a multiple of ``row_align``; and when more
+        than ``n_globals`` Gaussians outgrow the emission window, the
+        emission runs again with the window they need (up to ``MAX_WIN``).
+        Then only excess globals wider than that are dropped
     :param return_dst: also return the inverse emission map (below)
     :return: (pos_c (nb, M) int32 per-image Gaussian index, bits_c (nb, M)
         int32 sub-bin bits, ids_c (nb, M) int32 flattened ``b * P + p`` ids
@@ -97,11 +115,21 @@ def emit_supertile_candidates(R, T, focal, principal, points, isigmas,
         indices and validity.  The backward gathers every Gaussian's
         gradient rows through it (``ops.fine.gather_back_rows``).
     """
+    win = emission_geometry(points.shape[1], image_size, bin_size)[-1]
+    return _emit_candidates(R, T, focal, principal, points, isigmas, image_size,
+                            thr, bin_size, M_max, n_globals, row_align,
+                            return_dst, win)
+
+
+def _emit_candidates(R, T, focal, principal, points, isigmas, image_size,
+                     thr, bin_size, M_max, n_globals, row_align, return_dst,
+                     win: int):
+    """:func:`emit_supertile_candidates` with the emission window ``win``."""
     B, P = points.shape[0], points.shape[1]
     H, W = int(image_size[0]), int(image_size[1])
     fb = float(bin_size)
     st = 2.0 * fb
-    nst, BH2, BW2, S, win = emission_geometry(P, (H, W), bin_size)
+    nst, BH2, BW2, S, _ = emission_geometry(P, (H, W), bin_size)
     nb = B * nst
     dev = points.device
     i64 = torch.int64
@@ -133,8 +161,20 @@ def emit_supertile_candidates(R, T, focal, principal, points, isigmas,
     edges = torch.arange(nb + 1, device=dev, dtype=i64) * (S * 16)
     starts = torch.searchsorted(flat, edges)
     counts_full = starts[1:] - starts[:-1]
-    if row_align > 0:
-        densest = int(counts_full.max()) if nb else 0
+    if row_align > 0 and nb:
+        densest, dropped = torch.stack([counts_full.max(), g_over.max()]).tolist()
+        if dropped and win < MAX_WIN:
+            # more Gaussians outgrow the window than the global list holds:
+            # emit once more with the window the finite ones need
+            st_t = torch.tensor(st, dtype=torch.float32, device=dev)
+            _, wx, finx = supertile_window(u, rx, fb, st_t)
+            _, wy, finy = supertile_window(v, ry, fb, st_t)
+            fits = oversize & finx & finy & (wx <= MAX_WIN) & (wy <= MAX_WIN)
+            wider = int(torch.where(fits, torch.maximum(wx, wy), 0).max())
+            if wider > win:
+                return _emit_candidates(
+                    R, T, focal, principal, points, isigmas, image_size, thr,
+                    bin_size, M_max, n_globals, row_align, return_dst, wider)
         M_max = max(int(M_max), -(-densest // row_align) * row_align)
     counts_c = counts_full.clamp(max=M_max)
     row = torch.arange(nb, device=dev, dtype=i64)
@@ -168,3 +208,99 @@ def emit_supertile_candidates(R, T, focal, principal, points, isigmas,
     dst_l = dst_e[:n_loc].reshape(keys.shape)
     dst_g = dst_e[n_loc:].reshape(key_g.shape)
     return out + ((dst_l, dst_g, gpos.to(i32), g_valid),)
+
+
+def overlap_mask(R, T, focal, principal, points, isigmas, image_size,
+                 thr: float, bin_size: int):
+    """(B, BH, BW, P) bool: the thr-level ellipse bound of Gaussian p
+    overlaps bin (by, bx), and p lies in front of the camera
+    (``voge_tpu.ops.coarse.overlap_mask``)."""
+    H, W = int(image_size[0]), int(image_size[1])
+    BH = (H - 1) // bin_size + 1
+    BW = (W - 1) // bin_size + 1
+    u, v, z = _camera_planes(R, T, focal, principal, points)
+    rx, ry = _pixel_radii_planes(R, focal, isigmas, thr, z)
+    keep = ~(z < 0)
+    bx = torch.arange(BW, dtype=points.dtype, device=points.device)[None, :, None] * bin_size
+    by = torch.arange(BH, dtype=points.dtype, device=points.device)[None, :, None] * bin_size
+    xo = ((u - rx)[:, None, :] <= bx + bin_size) & (bx < (u + rx)[:, None, :])
+    yo = ((v - ry)[:, None, :] <= by + bin_size) & (by < (v + ry)[:, None, :])
+    return yo[:, :, None, :] & xo[:, None, :, :] & keep[:, None, None, :]
+
+
+def compact_mask(mask: torch.Tensor, M: int,
+                 base_offset: Optional[torch.Tensor] = None):
+    """Rows of set-bit indices, ascending, -1 padded, capped at ``M``.
+
+    :param mask: (nb, P) bool; :param base_offset: optional (nb,) added to
+        the emitted indices
+    :return: (bin_points (nb, M) int32, counts (nb,) int32, exact: a count
+        above ``M`` tells of a truncated row)
+    """
+    nb, P = mask.shape
+    pos = torch.cumsum(mask.to(torch.int32), dim=-1) - 1
+    counts = (pos[:, -1] + 1).to(torch.int32)
+    ids = torch.arange(P, dtype=torch.int32, device=mask.device).expand(nb, P)
+    if base_offset is not None:
+        ids = ids + base_offset[:, None].to(torch.int32)
+    # members beyond the cap and non-members land in a dump column; every
+    # kept member has a column of its own
+    pos_write = torch.where(mask & (pos < M), pos, M).long()
+    bin_points = torch.full((nb, M + 1), -1, dtype=torch.int32, device=mask.device)
+    bin_points.scatter_(1, pos_write, ids)
+    return bin_points[:, :M].contiguous(), counts
+
+
+def rasterize_coarse(R, T, focal, principal, points, isigmas, image_size,
+                     thr: float, bin_size: int, max_points_per_bin: int,
+                     return_counts: bool = False):
+    """Per-bin candidate lists (``voge_tpu.ops.coarse.rasterize_coarse``,
+    reference ``RayTracing.py:60-72``).
+
+    :param R, T, focal, principal: (B, 3, 3), (B, 3), (B, 2), (B, 2) cameras
+    :param points: (B, P, 3) camera-centred means; :param isigmas: (B, P, 3, 3)
+    :return: bin_points (B, BH, BW, M) int32 flattened ids ``b * P + p``,
+        ascending, -1 padded, the lowest ``M`` kept; with ``return_counts``
+        also the exact member counts (B, BH, BW) int32 (a count above ``M``:
+        the bin was truncated)
+    """
+    B, P = points.shape[0], points.shape[1]
+    H, W = int(image_size[0]), int(image_size[1])
+    BH = (H - 1) // bin_size + 1
+    BW = (W - 1) // bin_size + 1
+    M = int(max_points_per_bin)
+    mask = overlap_mask(R, T, focal, principal, points, isigmas, (H, W), thr,
+                        bin_size).reshape(B * BH * BW, P)
+    base = torch.arange(B, dtype=torch.int32,
+                        device=points.device).repeat_interleave(BH * BW) * P
+    bin_points, counts = compact_mask(mask, M, base_offset=base)
+    bin_points = bin_points.reshape(B, BH, BW, M)
+    if return_counts:
+        return bin_points, counts.reshape(B, BH, BW)
+    return bin_points
+
+
+def convert_to_box(isigmas: torch.Tensor, thr: float, z: torch.Tensor,
+                   matrix: torch.Tensor) -> torch.Tensor:
+    """NDC-space box half-extents (reference ``RayTracing.py:33-39``).
+
+    :param isigmas: (B, N, 3, 3) camera-rotated Lambda; :param z: (B, N)
+        multiplier (the renderer passes 1 / z_view); :param matrix: (B, 4, 4)
+        projection matrix (only ``[:2, :2]`` is read)
+    :return: (B, N, 2)
+    """
+    a, b = isigmas[..., 0, 0], isigmas[..., 0, 1]
+    c, d = isigmas[..., 1, 0], isigmas[..., 1, 1]
+    det = a * d - b * c
+    inv = [[d / det, -b / det], [-c / det, a / det]]
+    m = [[matrix[:, i, j][:, None] for j in range(2)] for i in range(2)]
+    nlt = -math.log(thr)
+    boxes = []
+    for col in range(2):
+        acc = 0.0
+        for i in range(2):
+            for k in range(2):
+                for j in range(2):
+                    acc = acc + m[i][k] * inv[k][j] * m[j][col]
+        boxes.append(torch.sqrt(nlt * acc) * z)
+    return torch.stack(boxes, dim=-1)

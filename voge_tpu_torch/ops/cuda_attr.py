@@ -1,19 +1,32 @@
-"""K3f: attribute merge forward (``csrc/attr_merge.cu``) and its plain
-PyTorch version: ``img[..., :] = sum_k w[..., k] * attrs[idx[..., k], :]``
-over slots with ``idx >= 0``.
+"""The attribute merge and its backward: K3f (``csrc/attr_merge.cu``), K4b
+and its two halves on their own (``csrc/attr_merge_bwd.cu``), each beside its
+plain PyTorch version.
 
-Replaces ``voge_tpu/ops/pallas_attr.py::_fwd_kernel`` (``attr_merge_compact``
-/ ``attr_merge_fwd_pallas``), which id-matches candidate chunks and contracts
-them on the MXU because gathers are slow on a TPU.  On Hopper it is a direct
-gather-and-reduce, one thread per (pixel, channel), sharing its device
-function with K2's fused attribute image.  Bound on the H100: memory (a few
-MB at the headline), in practice launch latency.
+- :func:`attr_merge` (K3f): ``img[..., :] = sum_k w[..., k] * attrs[idx[...,
+  k], :]`` over slots with ``idx >= 0``.  Replaces
+  ``voge_tpu/ops/pallas_attr.py::_fwd_kernel`` (``attr_merge_compact`` /
+  ``attr_merge_fwd_pallas``), which id-matches candidate chunks and contracts
+  them on the MXU because gathers are slow on a TPU.  On Hopper it is a direct
+  gather-and-reduce, one thread per (pixel, channel), sharing its device
+  function with K2's fused attribute image.
+- :func:`attr_dw`: ``d_w[..., k] = attrs[idx[..., k]] . g`` (replaces
+  ``_bwd_w_kernel``), a gather, one thread per slot.
+- :func:`attr_scatter`: ``out[j]`` = the sum of ``w * g`` over the slots
+  holding ``j`` (replaces ``_bwd_attr_kernel``).  One stable sort of the slot
+  ids (PyTorch glue) groups each row's slots into a run in slot order; a block
+  per row sums its run in a fixed order, without float atomics.  It is the
+  d_attr half of the merge's VJP and, with an image as ``g``, the texture
+  sampler's forward (``voge_tpu_torch.sampler``).
+- :func:`attr_merge_bwd` (K4b, replaces ``_bwd_unified_kernel``): both halves
+  in one call over the same device kernels; asked for one half it hands over
+  to that half's entry.
 
-:class:`AttrMerge` wraps it as an autograd node whose backward is K4b
-(``csrc/attr_merge_bwd.cu``, replacing ``pallas_attr.py::_bwd_unified_kernel``):
-``d_w[..., k] = attrs[idx[..., k]] . g`` and ``d_attr[j]`` = the sum of
-``w * g`` over the slots holding ``j``, in ascending slot order, without
-float atomics.
+Bound on the H100: memory (a few MB at the 10K-Gaussian headline, where
+launch latency dominates; ~110 MB of slots at the texture shapes, where the
+sort of the slot ids costs more than the kernel).
+
+:class:`AttrMerge` wraps K3f as an autograd node whose backward is
+:func:`attr_merge_bwd`.
 """
 from __future__ import annotations
 
@@ -77,10 +90,117 @@ def attr_merge_bwd_plain(idx, w, attrs, g, need_w: bool = True,
         rows = attrs[torch.where(valid, idx, 0).long()]         # (..., K, d)
         d_w = torch.where(valid, (rows * g[..., None, :]).sum(-1), 0.0)
     if need_attr:
-        vals = (torch.where(valid, w, 0.0)[..., None] * g[..., None, :]).reshape(-1, d)
-        seg = torch.where(valid, idx, n_rows).long().reshape(-1)
-        d_attr = attrs.new_zeros((n_rows + 1, d)).index_add_(0, seg, vals)[:n_rows]
+        d_attr = attr_scatter_plain(idx, w, g, n_rows)
     return d_w, d_attr
+
+
+def attr_dw_plain(idx, attrs, g):
+    """Plain version of :func:`attr_dw`."""
+    return attr_merge_bwd_plain(idx, None, attrs, g, need_attr=False)[0]
+
+
+def attr_scatter_plain(idx, w, g, n_rows: int):
+    """Plain version of :func:`attr_scatter` (``index_add_``)."""
+    d = g.shape[-1]
+    valid = (idx >= 0) & (idx < n_rows)
+    vals = (torch.where(valid, w, 0.0)[..., None] * g[..., None, :]).reshape(-1, d)
+    seg = torch.where(valid, idx, n_rows).long().reshape(-1)
+    return g.new_zeros((n_rows + 1, d)).index_add_(0, seg, vals)[:n_rows]
+
+
+def _check_slots(idx, g, w=None):
+    check(idx, "idx", torch.int32)
+    if idx.ndim < 1 or idx.numel() == 0:
+        raise ValueError(f"idx: expected (..., K) with elements, got {tuple(idx.shape)}")
+    if g.ndim < 1:
+        raise ValueError(f"g: expected (..., d), got {tuple(g.shape)}")
+    check(g, "g", torch.float32, idx.shape[:-1] + (g.shape[-1],))
+    if w is not None:
+        check(w, "w", torch.float32, idx.shape)
+    return idx.numel() // idx.shape[-1], idx.shape[-1], g.shape[-1]
+
+
+def _check_attrs(attrs, d: int):
+    check(attrs, "attrs", torch.float32)
+    if attrs.ndim != 2 or attrs.shape[1] != d:
+        raise ValueError(f"attrs: expected (rows, {d}), got {tuple(attrs.shape)}")
+    return attrs.shape[0]
+
+
+def _slot_runs(idx, n_rows: int):
+    """(order, starts): a stable sort of the flattened slot ids groups each
+    row's slots into a run ``order[starts[j]:starts[j + 1]]`` in slot order;
+    empty and out-of-range slots sort behind the last run."""
+    flat = idx.reshape(-1)
+    key = torch.where((flat >= 0) & (flat < n_rows), flat, n_rows)
+    key_s, order = torch.sort(key, stable=True)
+    starts = torch.searchsorted(
+        key_s, torch.arange(n_rows + 1, dtype=key_s.dtype, device=idx.device))
+    return order, starts
+
+
+def _dw_kernel():
+    fn = load("attr_merge_bwd").voge_attr_dw
+    fn.argtypes = [VOIDP] * 4 + [LONG, INT, INT, LONG, VOIDP]
+    fn.restype = INT
+    return fn
+
+
+def attr_dw(idx: torch.Tensor, attrs: torch.Tensor, g: torch.Tensor):
+    """The weight half of the merge's backward, on its own.
+
+    :param idx: (..., K) int32 ids, -1 for empty slots
+    :param attrs: (rows, d) float32; :param g: (..., d) float32
+    :return: d_w (..., K) float32, ``attrs[idx] . g``, 0 on empty slots
+    """
+    if not on_cuda(idx, attrs, g):
+        return attr_dw_plain(idx, attrs, g)
+    n_pix, K, d = _check_slots(idx, g)
+    n_rows = _check_attrs(attrs, d)
+    d_w = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
+    err = _dw_kernel()(ptr(idx), ptr(g), ptr(attrs), ptr(d_w), n_pix, K, d,
+                       n_rows, stream(idx.device))
+    raise_on_error(err, "attr_dw")
+    attr_dw.launches += 1
+    return d_w
+
+
+attr_dw.launches = 0
+
+
+def _scatter_kernel():
+    fn = load("attr_merge_bwd").voge_attr_scatter
+    fn.argtypes = [VOIDP] * 5 + [LONG, INT, INT, LONG, VOIDP]
+    fn.restype = INT
+    return fn
+
+
+def attr_scatter(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                 n_rows: int):
+    """The attribute half of the merge's backward, on its own: scatter
+    per-pixel rows onto the ids their slots hold.
+
+    :param idx: (..., K) int32 ids, -1 for empty slots
+    :param w: (..., K) float32 weights; :param g: (..., d) float32
+    :param n_rows: rows of the result; ids outside ``[0, n_rows)`` add nothing
+    :return: (n_rows, d) float32, ``out[j] = sum over slots with idx == j of
+        w[slot] * g[pixel(slot)]`` in ascending slot order
+    """
+    if not on_cuda(idx, w, g):
+        return attr_scatter_plain(idx, w, g, n_rows)
+    n_pix, K, d = _check_slots(idx, g, w)
+    if n_rows <= 0:
+        raise ValueError(f"n_rows: expected a positive count, got {n_rows}")
+    order, starts = _slot_runs(idx, n_rows)
+    out = torch.empty((n_rows, d), dtype=torch.float32, device=idx.device)
+    err = _scatter_kernel()(ptr(order), ptr(starts), ptr(w), ptr(g), ptr(out),
+                            n_pix, K, d, n_rows, stream(idx.device))
+    raise_on_error(err, "attr_scatter")
+    attr_scatter.launches += 1
+    return out
+
+
+attr_scatter.launches = 0
 
 
 def _bwd_kernel():
@@ -92,7 +212,8 @@ def _bwd_kernel():
 
 def attr_merge_bwd(idx: torch.Tensor, w: torch.Tensor, attrs: torch.Tensor,
                    g: torch.Tensor, need_w: bool = True, need_attr: bool = True):
-    """Backward of :func:`attr_merge`.
+    """Backward of :func:`attr_merge`: both halves in one call (K4b); one
+    half alone goes to :func:`attr_dw` / :func:`attr_scatter`.
 
     :param idx, w, attrs: as for :func:`attr_merge`
     :param g: (..., d) float32 cotangent of the attribute map
@@ -100,28 +221,18 @@ def attr_merge_bwd(idx: torch.Tensor, w: torch.Tensor, attrs: torch.Tensor,
     """
     if not on_cuda(idx, w, attrs, g):
         return attr_merge_bwd_plain(idx, w, attrs, g, need_w, need_attr)
-    K = idx.shape[-1]
-    check(idx, "idx", torch.int32)
-    check(w, "w", torch.float32, idx.shape)
-    check(attrs, "attrs", torch.float32)
-    if attrs.ndim != 2:
-        raise ValueError(f"attrs: expected (rows, d), got {tuple(attrs.shape)}")
-    n_rows, d = attrs.shape
-    check(g, "g", torch.float32, idx.shape[:-1] + (d,))
+    if not (need_w and need_attr):
+        return (attr_dw(idx, attrs, g) if need_w else None,
+                attr_scatter(idx, w, g, attrs.shape[0]) if need_attr else None)
+    n_pix, K, d = _check_slots(idx, g, w)
+    n_rows = _check_attrs(attrs, d)
     dev = idx.device
-    d_w = torch.empty_like(w) if need_w else None
-    order = starts = d_attr = None
-    if need_attr:
-        # one stable sort groups each row's slots into a run in slot order
-        flat = idx.reshape(-1)
-        key = torch.where((flat >= 0) & (flat < n_rows), flat, n_rows)
-        key_s, order = torch.sort(key, stable=True)
-        starts = torch.searchsorted(
-            key_s, torch.arange(n_rows + 1, dtype=key_s.dtype, device=dev))
-        d_attr = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    order, starts = _slot_runs(idx, n_rows)
+    d_w = torch.empty_like(w)
+    d_attr = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
     err = _bwd_kernel()(ptr(idx), ptr(w), ptr(attrs), ptr(g), ptr(order),
-                        ptr(starts), ptr(d_w), ptr(d_attr), idx.numel() // K,
-                        K, d, n_rows, stream(dev))
+                        ptr(starts), ptr(d_w), ptr(d_attr), n_pix, K, d,
+                        n_rows, stream(dev))
     raise_on_error(err, "attr_merge_bwd")
     attr_merge_bwd.launches += 1
     return d_w, d_attr

@@ -59,6 +59,21 @@ def _pixel_radii_planes(R, focal, isigmas, thr: float, z):
     return torch.sqrt(nlt * col_x) / z, torch.sqrt(nlt * col_y) / z
 
 
+def supertile_window(c, r, fb: float, st):
+    """Along one axis, the supertiles a Gaussian's bound ``c +- r`` (pixels)
+    may be a member of: (first supertile (int32), their number (int32),
+    finite (bool)).  ``fb`` is the bin size, ``st`` the supertile size as a
+    tensor (a division by a tensor, see the module note)."""
+    lo = (c - r - fb) / st
+    hi = (c + r) / st
+    fin = torch.isfinite(lo) & torch.isfinite(hi)
+    f0 = torch.where(fin, torch.floor(torch.where(fin, lo, 0.0)), 0.0)
+    f1 = torch.where(fin, torch.floor(torch.where(fin, hi, 0.0)), -2.0)
+    f0i = torch.clip(f0, -2.0 ** 30, 2.0 ** 30).to(torch.int32)
+    w = torch.clip(f1, -2.0 ** 30, 2.0 ** 30).to(torch.int32) - f0i + 1
+    return f0i, w, fin
+
+
 def emit_keys_plain(R, T, focal, principal, points, isigmas, thr: float,
                     bin_size: int, image_size, nst: int, BH2: int, BW2: int,
                     S: int, win: int):
@@ -72,18 +87,8 @@ def emit_keys_plain(R, T, focal, principal, points, isigmas, thr: float,
     rx, ry = _pixel_radii_planes(R, focal, isigmas, thr, z)
     keep = ~(z < 0)
 
-    def window(c, r):
-        lo = (c - r - fb) / st
-        hi = (c + r) / st
-        fin = torch.isfinite(lo) & torch.isfinite(hi)
-        f0 = torch.where(fin, torch.floor(torch.where(fin, lo, 0.0)), 0.0)
-        f1 = torch.where(fin, torch.floor(torch.where(fin, hi, 0.0)), -2.0)
-        f0i = torch.clip(f0, -2.0 ** 30, 2.0 ** 30).to(torch.int32)
-        w = torch.clip(f1, -2.0 ** 30, 2.0 ** 30).to(torch.int32) - f0i + 1
-        return f0i, w, fin
-
-    fx0, wx, finx = window(u, rx)
-    fy0, wy, finy = window(v, ry)
+    fx0, wx, finx = supertile_window(u, rx, fb, st)
+    fy0, wy, finy = supertile_window(v, ry, fb, st)
     oversize = keep & (~finx | ~finy | (wx > win) | (wy > win))
 
     lo_u, hi_u = u - rx, u + rx

@@ -4,7 +4,11 @@ image (``csrc/fine_select.cu``), and its plain PyTorch version.
 Replaces ``voge_tpu/ops/pallas_fine2.py::_kernel_tc`` through both of its
 entries: :func:`fine_select` is the compacted entry
 (``fine_select_compact_pallas``), :func:`fine_select_global` the global one
-(``fine_select_mask_pallas``, the no-coarse path).  For every pixel it keeps
+(``fine_select_mask_pallas``, the no-coarse path); and, through a third entry
+of the same kernel, ``voge_tpu/ops/pallas_fine.py::_kernel``
+(``fine_select_pallas``): :func:`fine_select_bins` selects over per-bin
+candidate lists for the public two-stage tracer, without weights or image
+(``ops.fine.ray_tracing_fine``).  For every pixel it keeps
 the K nearest candidates of its supertile that pass ``act < thr_act`` and
 whose sub-bin bit is set, by ascending hit length with earlier candidates
 winning ties, then composites their erf weights and, given attributes, the
@@ -45,25 +49,34 @@ _E_HALF = 1.6487212707001282
 _PLAIN_CHUNK = 1 << 24
 
 
-def _supertile(x, bin_size: int, fill=0):
-    """(B, H, W, C) image layout -> (nb, st*st, C) supertile layout, rays
-    row-major in the supertile, ``fill`` outside the image."""
+def _tiles(x, th: int, tw: int, fill=0):
+    """(B, H, W, C) image layout -> (n_tiles, th*tw, C): tiles of ``th`` x
+    ``tw`` pixels in row-major order, rays row-major in the tile, ``fill``
+    outside the image."""
     B, H, W, C = x.shape
-    st = 2 * bin_size
-    BH2, BW2 = supertile_grid(H, W, bin_size)
-    pad = x.new_full((B, BH2 * st, BW2 * st, C), fill)
+    TH, TW = (H - 1) // th + 1, (W - 1) // tw + 1
+    pad = x.new_full((B, TH * th, TW * tw, C), fill)
     pad[:, :H, :W] = x
-    pad = pad.reshape(B, BH2, st, BW2, st, C).permute(0, 1, 3, 2, 4, 5)
-    return pad.reshape(B * BH2 * BW2, st * st, C)
+    pad = pad.reshape(B, TH, th, TW, tw, C).permute(0, 1, 3, 2, 4, 5)
+    return pad.reshape(B * TH * TW, th * tw, C)
+
+
+def _untile(x, B: int, H: int, W: int, th: int, tw: int):
+    """(n_tiles, th*tw, C) tile layout -> (B, H, W, C)."""
+    TH, TW = (H - 1) // th + 1, (W - 1) // tw + 1
+    C = x.shape[-1]
+    x = x.reshape(B, TH, TW, th, tw, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, TH * th, TW * tw, C)[:, :H, :W]
+
+
+def _supertile(x, bin_size: int, fill=0):
+    """(B, H, W, C) -> (nb, st*st, C) supertile layout (2x2 bins a tile)."""
+    return _tiles(x, 2 * bin_size, 2 * bin_size, fill)
 
 
 def _to_image(x, B: int, H: int, W: int, bin_size: int):
     """(nb, st*st, C) supertile layout -> (B, H, W, C)."""
-    st = 2 * bin_size
-    BH2, BW2 = supertile_grid(H, W, bin_size)
-    C = x.shape[-1]
-    x = x.reshape(B, BH2, BW2, st, st, C).permute(0, 1, 3, 2, 4, 5)
-    return x.reshape(B, BH2 * st, BW2 * st, C)[:, :H, :W]
+    return _untile(x, B, H, W, 2 * bin_size, 2 * bin_size)
 
 
 def _check_args(rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs):
@@ -86,22 +99,21 @@ def _check_args(rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs):
     return B, H, W, BH2, BW2, nb, M
 
 
-def fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
-                      K: int, bin_size: int, agg_ow: float,
-                      attrs: Optional[torch.Tensor] = None):
-    """Plain version of K2: a dense (supertile, ray, candidate) evaluation,
-    a stable sort along the candidates and the K-step weight loop, in the
-    kernel's operation order.  Same contract as :func:`fine_select`."""
-    B, H, W, BH2, BW2, nb, M = _check_args(
-        rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs)
-    dev = rays.device
-    st = 2 * bin_size
-    R = st * st
-    r_all = _supertile(rays, bin_size)                         # (nb, R, 3)
-    lr = torch.arange(R, device=dev) // st
-    lc = torch.arange(R, device=dev) % st
-    g = (2 * (lr // bin_size) + lc // bin_size)[None, :, None]  # sub-bin
-    slots = torch.arange(M, device=dev)
+def _select_tiles_plain(r_all, table_c, ids_c, member, thr_act: float, K: int):
+    """The dense select of the plain versions: for every tile (supertile or
+    bin) the hit test of each of its rays against each of its candidate
+    rows, a stable sort along the candidates and the first K, in the
+    kernel's operation order.
+
+    :param r_all: (nb, R, 3) rays of each tile; :param table_c: (nb, M, 16)
+    :param ids_c: (nb, M) ids the outputs report
+    :param member: ``member(s0, s1)`` -> bool, broadcastable to (s1 - s0, R,
+        M): which candidates count for which rays of tiles s0..s1
+    :return: (idx (of ``ids_c``'s dtype), len, act, dsd), each (nb, R, K), with
+        the fill values idx -1, len / act 1e10, dsd 0
+    """
+    nb, R, _ = r_all.shape
+    M = table_c.shape[1]
     kk = min(K, M)
     outs = []
     step = max(1, _PLAIN_CHUNK // max(R * M, 1))
@@ -121,9 +133,7 @@ def fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
         e = [(d[0] * f[..., 4 + j] + d[1] * f[..., 7 + j]) + d[2] * f[..., 10 + j]
              for j in range(3)]
         act = (e[0] * d[0] + e[1] * d[1]) + e[2] * d[2]
-        member = (bits_c[s0:s1, None, :].to(torch.int64) >> g) & 1
-        live = slots[None, None, :] < counts_c[s0:s1, None, None]
-        ok = (act < thr_act) & (member > 0) & live
+        ok = (act < thr_act) & member(s0, s1)
         lm = torch.where(ok, length, _INF)
         vals, order = torch.sort(lm, dim=-1, stable=True)
         vals, order = vals[..., :kk], order[..., :kk]
@@ -139,6 +149,31 @@ def fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
     if kk < K:
         pad = lambda x, v: torch.nn.functional.pad(x, (0, K - kk), value=v)
         idx, sl, sa, sd = pad(idx, -1), pad(sl, _INF), pad(sa, _INF), pad(sd, 0.0)
+    return idx, sl, sa, sd
+
+
+def fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
+                      K: int, bin_size: int, agg_ow: float,
+                      attrs: Optional[torch.Tensor] = None):
+    """Plain version of K2: a dense (supertile, ray, candidate) evaluation,
+    a stable sort along the candidates and the K-step weight loop, in the
+    kernel's operation order.  Same contract as :func:`fine_select`."""
+    B, H, W, BH2, BW2, nb, M = _check_args(
+        rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs)
+    dev = rays.device
+    st = 2 * bin_size
+    R = st * st
+    lr = torch.arange(R, device=dev) // st
+    lc = torch.arange(R, device=dev) % st
+    g = (2 * (lr // bin_size) + lc // bin_size)[None, :, None]  # sub-bin
+    slots = torch.arange(M, device=dev)
+
+    def member(s0, s1):
+        bit = (bits_c[s0:s1, None, :].to(torch.int64) >> g) & 1
+        return (bit > 0) & (slots[None, None, :] < counts_c[s0:s1, None, None])
+
+    idx, sl, sa, sd = _select_tiles_plain(_supertile(rays, bin_size), table_c,
+                                          ids_c, member, thr_act, K)
 
     # fused erf weights (pallas_fine2.py:386-406), k ascending
     ea = torch.exp(-sa)
@@ -202,7 +237,6 @@ def fine_select(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
 
 
 fine_select.launches = 0
-
 
 
 def _check_global(rays, table, bits, K, bin_size):
@@ -284,3 +318,82 @@ def fine_select_global(rays, table, bits, thr_act: float, K: int,
 
 
 fine_select_global.launches = 0
+
+
+def _check_bins(rays, table, bin_points, K, bin_size):
+    B, H, W, _ = rays.shape
+    bsh, bsw = (bin_size, bin_size) if isinstance(bin_size, int) else bin_size
+    BH, BW = (H - 1) // bsh + 1, (W - 1) // bsw + 1
+    if not 0 < K <= MAX_K:
+        raise NotImplementedError(
+            f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
+            "waits for the dense path (ROADMAP queue 1, item 15)")
+    check(rays, "rays", torch.float32, (B, H, W, 3))
+    if table.ndim != 2 or table.shape[0] == 0:
+        raise ValueError(f"table: expected (rows, {FEAT}), got {tuple(table.shape)}")
+    check(table, "table", torch.float32, (table.shape[0], FEAT))
+    if bin_points.ndim != 4 or bin_points.shape[3] == 0:
+        raise ValueError(f"bin_points: expected (B, BH, BW, M), got {tuple(bin_points.shape)}")
+    check(bin_points, "bin_points", torch.int32, (B, BH, BW, bin_points.shape[3]))
+    return B, H, W, int(bsh), int(bsw), BH, BW, bin_points.shape[3]
+
+
+def fine_select_bins_plain(rays, table, bin_points, thr_act: float, K: int,
+                           bin_size):
+    """Plain version of K2's per-bin-list entry: every bin's candidate rows
+    are the table rows its list names (a zero row, never a member, for an
+    empty entry), evaluated densely over the bin's rays by the select the
+    other plain versions share.  Same contract as :func:`fine_select_bins`."""
+    B, H, W, bsh, bsw, BH, BW, M = _check_bins(rays, table, bin_points, K, bin_size)
+    n_tab = table.shape[0]
+    lists = bin_points.reshape(-1, M)
+    listed = (lists >= 0) & (lists < n_tab)
+    rows = torch.cat([table, table.new_zeros((1, FEAT))])[
+        torch.where(listed, lists, n_tab).long()]               # (nb, M, 16)
+    member = lambda s0, s1: listed[s0:s1, None, :]
+    sel = _select_tiles_plain(_tiles(rays, bsh, bsw), rows, lists, member,
+                              thr_act, K)
+    idx, sl, sa, sd = (_untile(x, B, H, W, bsh, bsw).contiguous() for x in sel)
+    return idx.to(torch.int32), sl, sa, sd
+
+
+def _kernel_bins():
+    fn = load("fine_select").voge_fine_select_bins
+    fn.argtypes = [VOIDP] * 7 + [INT] * 8 + [LONG, INT, FLOAT, VOIDP]
+    fn.restype = INT
+    return fn
+
+
+def fine_select_bins(rays, table, bin_points, thr_act: float, K: int,
+                     bin_size):
+    """Select the K nearest passing candidates of every pixel from its bin's
+    candidate list (``voge_tpu``'s ``fine_select_pallas``; the public
+    two-stage tracer).  Earlier list positions win ties.
+
+    :param rays: (B, H, W, 3) float32 unit world directions
+    :param table: (rows, 16) float32 feature rows
+        (``ops.fine.feature_table``), indexed by the lists' ids
+    :param bin_points: (B, BH, BW, M) int32 ids of each bin's candidates, -1
+        where empty
+    :param bin_size: pixels a bin spans, an int or (height, width)
+    :return: (idx (B,H,W,K) int32 ids from the lists, len, act, dsd (B,H,W,K)
+        float32); empty slots hold idx -1, len / act 1e10, dsd 0
+    """
+    if not on_cuda(rays, table, bin_points):
+        return fine_select_bins_plain(rays, table, bin_points, thr_act, K, bin_size)
+    B, H, W, bsh, bsw, BH, BW, M = _check_bins(rays, table, bin_points, K, bin_size)
+    dev = rays.device
+    idx = torch.empty((B, H, W, K), dtype=torch.int32, device=dev)
+    sl, sa, sd = (torch.empty((B, H, W, K), dtype=torch.float32, device=dev)
+                  for _ in range(3))
+    err = _kernel_bins()(
+        ptr(rays), ptr(table), ptr(bin_points), ptr(idx), ptr(sl), ptr(sa),
+        ptr(sd), B * BH * BW, H, W, bsh, bsw, BW, BH * BW, M, table.shape[0],
+        K, thr_act, stream(dev),
+    )
+    raise_on_error(err, "fine_select_bins")
+    fine_select_bins.launches += 1
+    return idx, sl, sa, sd
+
+
+fine_select_bins.launches = 0

@@ -289,8 +289,8 @@ def _check_global(rays, table, idx, length, act, dsd, w, grads):
     if not 0 < K <= MAX_K:
         raise NotImplementedError(f"K={K}: the backward kernel takes 1 <= K <= {MAX_K}")
     check(rays, "rays", torch.float32, (B, H, W, 3))
-    if table.ndim != 2 or table.shape[0] % B or table.shape[0] == 0:
-        raise ValueError(f"table: expected (B * P, {FEAT}) with B={B}, got {tuple(table.shape)}")
+    if table.ndim != 2 or table.shape[0] == 0:
+        raise ValueError(f"table: expected (rows, {FEAT}), got {tuple(table.shape)}")
     check(table, "table", torch.float32, (table.shape[0], FEAT))
     check(idx, "idx", torch.int32)
     for t, name in ((length, "len"), (act, "act"), (dsd, "dsd"), (w, "w")):

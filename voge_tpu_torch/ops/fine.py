@@ -1,5 +1,6 @@
 """Fine stage: the ray tracing and its backward, counterpart of
-``voge_tpu.ops.fine.ray_tracing`` on two paths.
+``voge_tpu.ops.fine``: :func:`ray_tracing` on two paths, and the public
+two-stage tracer's second stage :func:`ray_tracing_fine`.
 
 - Emission-compacted (every ``max_points_per_bin`` but -1; the compacted
   branch, ``fine.py:1366-1455``, and the ``_rt_fine_kern_c`` custom VJP,
@@ -22,13 +23,22 @@
   attribute merge (K3f / K4b).  Rays are tiled in the same supertiles;
   nothing is culled and ``overflow_points`` is 0.
 
-Both backward paths are free of float atomics, so gradients repeat to the
+- Two-stage (``ops.coarse.rasterize_coarse`` then :func:`ray_tracing_fine`,
+  reference ``RayTracing.py:76-95``; ``fine.py:1158-1182``, the chain
+  ``voge_tpu.ops.fine.ray_tracing`` itself takes off the TPU): the caller
+  brings per-bin candidate lists, K2's per-bin-list entry selects from them
+  (no weights: the function returns idx, len, act, dsd), and the backward is
+  K3's global entry, since the selected ids are rows of the flat feature
+  table (``voge_tpu``'s is an XLA ``segment_sum``, a float atomic scatter on
+  CUDA).
+
+All backward paths are free of float atomics, so gradients repeat to the
 bit.  K above 128 is not ported yet and raises.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -38,7 +48,9 @@ from voge_tpu_torch.ops.coarse import (
     supertile_grid,
 )
 from voge_tpu_torch.ops.cuda_attr import AttrMerge
-from voge_tpu_torch.ops.cuda_fine import FEAT, MAX_K, fine_select, fine_select_global
+from voge_tpu_torch.ops.cuda_fine import (
+    FEAT, MAX_K, fine_select, fine_select_bins, fine_select_global,
+)
 from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd, fine_bwd_global
 
 
@@ -271,6 +283,69 @@ class FineSelectGlobal(torch.autograd.Function):
         rows = rows.reshape(B, -1, 12)
         return (rows[..., 0:3], rows[..., 3:12].reshape(B, -1, 3, 3), g_rays,
                 None, None, None, None, None)
+
+
+class RayTraceFine(torch.autograd.Function):
+    """K2's per-bin-list entry as an autograd node, counterpart of
+    ``voge_tpu``'s ``_ray_trace_fine`` custom VJP.  Differentiable inputs:
+    ``mus`` (P, 3), ``isigmas`` (P, 3, 3), both flattened over the batch, and
+    ``rays`` (B, H, W, 3).  The forward builds the (P, 16) feature table
+    under no autograd and selects from the bins' lists; the backward runs
+    K3's global entry on the cotangents of len, act and dsd (there are no
+    weights here: their cotangent is absent and the saved weights are
+    zeros), whose per-Gaussian rows are the gradients."""
+
+    @staticmethod
+    def forward(ctx, mus, isigmas, rays, bin_points, thr_act, bin_size, K):
+        table = feature_table(mus[None], isigmas[None])
+        out = fine_select_bins(rays, table, bin_points, thr_act, K, bin_size)
+        ctx.mark_non_differentiable(out[0])
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(rays, table, *out)
+        return out
+
+    @staticmethod
+    def backward(ctx, _g_idx, g_len, g_act, g_dsd):
+        rays, table, idx, length, act, dsd = ctx.saved_tensors
+        cont = lambda g: None if g is None else g.contiguous()
+        rows, g_rays = fine_bwd_global(
+            rays, table, idx, length, act, dsd, torch.zeros_like(length),
+            cont(g_len), cont(g_act), cont(g_dsd), None, 1.0,
+            ctx.needs_input_grad[2])
+        return (rows[:, 0:3], rows[:, 3:12].reshape(-1, 3, 3), g_rays,
+                None, None, None, None)
+
+
+def ray_tracing_fine(mus: torch.Tensor, isigmas: torch.Tensor,
+                     rays: torch.Tensor, bin_points: torch.Tensor, thr: float,
+                     bin_size: Union[int, Tuple[int, int]], n_assign: int,
+                     inf: float = 1e10):
+    """Binned fine ray tracing (reference ``RayTracing.py:76-95``), the
+    second stage after ``ops.coarse.rasterize_coarse``; differentiable in
+    ``mus``, ``isigmas`` and ``rays``.  All tensors share one device.
+
+    :param mus: (P, 3) camera-centred means, flattened over the batch
+    :param isigmas: (P, 3, 3)
+    :param rays: (B, H, W, 3) unit world directions
+    :param bin_points: (B, BH, BW, M) int32 candidate indices into the
+        flattened Gaussian axis, -1 padded; earlier entries win ties
+    :param thr: activation threshold (``thr_act = -log(thr + 1/inf)``)
+    :param bin_size: pixels a bin spans, an int or (height, width)
+    :return: (sel_idx int32, sel_len, sel_act, sel_dsd), each (B, H, W, K);
+        empty slots hold idx -1, len / act 1e10, dsd 0
+    """
+    assert isigmas.ndim == 3 and mus.ndim == 2
+    assert rays.ndim == 4 and bin_points.ndim == 4
+    assert mus.shape[0] == isigmas.shape[0] and mus.shape[1] == 3
+    _check_k(n_assign)
+    thr_act = -math.log(thr + 1.0 / inf)
+    if isinstance(bin_size, int):
+        bin_size = (bin_size, bin_size)
+    f32 = torch.float32
+    return RayTraceFine.apply(
+        mus.to(f32), isigmas.to(f32), rays.to(f32).contiguous(),
+        bin_points.to(torch.int32).contiguous(), float(thr_act),
+        (int(bin_size[0]), int(bin_size[1])), int(n_assign))
 
 
 def ray_tracing(cameras_or_params, points: torch.Tensor, isigmas: torch.Tensor,

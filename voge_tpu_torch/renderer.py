@@ -18,6 +18,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from voge_tpu_torch._device import resolve_device
 from voge_tpu_torch.aggregation import expend_sigma
 from voge_tpu_torch.cameras import PerspectiveCameras
 from voge_tpu_torch.ops.cuda_attr import AttrMerge
@@ -131,10 +132,11 @@ def precompute_camera_ctx(R, T, focal, principal, image_size,
     ``max_assign``, ``bin_size`` and ``max_point_per_bin`` fix the bin
     geometry of ``voge_tpu``'s cached ray-feature planes; the port's select
     reads the rays directly and keeps no such planes, so they change
-    nothing here.  ``device`` (default: the cameras') is where the tensors
-    are placed."""
+    nothing here.  ``device`` is where the tensors are placed (None: the
+    device of a tensor among the cameras, else the card,
+    ``_device.resolve_device``)."""
     with torch.no_grad():
-        dev = torch.device(device) if device is not None else None
+        dev = resolve_device(device, R, T, focal, principal)
         R, T, focal, principal = (torch.as_tensor(x, dtype=torch.float32, device=dev)
                                   for x in (R, T, focal, principal))
         return CameraCtx(*camera_rays(R, T, focal, principal, image_size))
