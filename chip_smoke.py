@@ -1,6 +1,8 @@
 """Drive the voge_tpu_torch render, its fitting step, the no-coarse
-ShapeFitting trainer, texture extraction and the two-stage public tracer on
-one NVIDIA GPU and check them.
+ShapeFitting trainer, texture extraction, the two-stage public tracer, the
+point-cloud renders (100,000 points forward; 300,000 points forward +
+backward on the split global backward) and pose scoring / refinement on one
+NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -22,6 +24,14 @@ Run from the root of a checkout.  Phases:
      the texture render's rows (the 128 bucket, with and without attributes,
      selections exact; timed and bounded there too); at the headline K2's
      per-bin-list entry on ``rasterize_coarse``'s lists (selections exact);
+     the two halves of the split global backward (``fine_bwd_gauss``,
+     ``fine_bwd_rays``) at the ShapeFitting shapes and on the 300,000-point
+     cloud (320x320, K = 20) with seeded cotangents: each half against its
+     plain version, the fold's entry + the pair against K3's unified global
+     entry on the same inputs, two runs equal to the bit; K2's global entry
+     there against its plain version on a 32x32 crop of the rays and against
+     the coarse path's selections on the whole image; K1 at 100,000 points
+     exact;
   3. the main paths, each with every launch counter set to 0 just before it
      and read just after:
      - the forward at the headline, through ``render_pipeline(attrs=)`` and
@@ -54,11 +64,34 @@ Run from the root of a checkout.  Phases:
        the ray gradient): no bin truncated, selections against the render
        path's, forward + backward of a seeded linear loss against the plain
        path, two backward runs equal to the bit;
+     - the published-size point-cloud forward (``bench.py:108-137``: 100,000
+       fixed-radius Gaussians, 320x320, K = 20, default coarse stage; K1,
+       the key sort, K2's compacted entry, no plain version): overflow 0,
+       selections against K2's global entry;
+     - the 300,000-point step, past ``voge_tpu``'s branch point of 262,144
+       (``render_pipeline(max_point_per_bin=-1)`` -> ``interpolate_attr`` ->
+       ``bench.py``'s loss -> gradients of verts, sigmas, R and T; K2
+       global, K3f, K4b's d_w half, the fold's own entry, the two halves; K3's
+       unified entry not launched): gradients against the unified entry's on
+       the same inputs, two backward runs equal to the bit;
+     - a frozen-scene step on the same cloud (``ray_tracing`` on constant
+       points, only the cameras need a gradient): the fold and the per-ray
+       half, no per-Gaussian half and no sort of the slot ids;
+     - pose estimation on ``bench.py:324-361``'s batched shape (the 10K
+       cuboid, 8 cameras, 256x256, K = 20, features = colours):
+       ``PoseHypothesisScorer.score`` of 8 hypotheses in one chunk and three
+       ``refine_pose`` steps (K1, K2, K3 with the ray gradient, K3f, K4b's d_w half),
+       kernel path against plain path;
      then the 1K forward against its golden file and the quickstart bounds;
   4. CUDA-event timings of the headline forward and fitting step, of the
      ShapeFitting step, of the texture chain (and its three stages, and K2
      there by K bucket) and of the two-stage forward + backward on the
-     kernel path and on the plain path, in turns, and of each kernel against its plain version and, where
+     kernel path and on the plain path, in turns (no earlier path's depth
+     was cut to make room), of the point-cloud forward
+     and the 300,000-point step (kernel path only: the plain global select
+     is dense over rays x Gaussians and cannot exist at that size), of the
+     fold + pair against the unified entry on the same cotangents, of pose
+     scoring and a refinement step, and of each kernel against its plain version and, where
      one PyTorch call computes the same function, that call; each kernel's
      bound (the larger of its bytes over the card's memory rate and its
      operations over the card's FP32 rate, counted from this run's inputs);
@@ -93,6 +126,8 @@ GOLDEN_SF = DATA / "voge_tpu_golden_shapefit_128.npz"
 GOLDEN_TEX = DATA / "voge_tpu_golden_texture_256x672.npz"
 SF_B, SF_HW, SF_K = 5, (128, 128), 25   # the ShapeFitting step (bench.py:234-290)
 TEX_HW, TEX_K = (256, 672), 80          # texture extraction (bench.py:189-231)
+CLOUD_HW, CLOUD_K = (320, 320), 20      # the point-cloud render (bench.py:108-137)
+POSE_B, POSE_HW = 8, (256, 256)         # batched pose hypotheses (bench.py:324-361)
 OUT_DIR = ROOT / "chiprun_out"
 KERNELS = {  # name -> (library, source, replaced TPU kernel)
     "emit_keys": ("emit", "voge_tpu_torch/csrc/emit.cu",
@@ -117,6 +152,10 @@ KERNELS = {  # name -> (library, source, replaced TPU kernel)
                 "voge_tpu/ops/pallas_attr.py:190"),
     "fine_select_bins": ("fine_select", "voge_tpu_torch/csrc/fine_select.cu",
                          "voge_tpu/ops/pallas_fine.py:64"),
+    "fine_bwd_gauss": ("fine_bwd_split", "voge_tpu_torch/csrc/fine_bwd_split.cu",
+                       "voge_tpu/ops/pallas_bwd.py:162"),
+    "fine_bwd_rays": ("fine_bwd_split", "voge_tpu_torch/csrc/fine_bwd_split.cu",
+                      "voge_tpu/ops/pallas_bwd.py:213"),
 }
 # The card's published peaks (H100 SXM): device memory 3.35 TB/s, FP32
 # outside the tensor cores 67 TFLOP/s.  A kernel's bound is the larger of its
@@ -130,8 +169,10 @@ PAIR_FLOPS = 49
 WEIGHT_FLOPS = 6
 # one (j, k) term of the weight fold (erf, exp and ~16 multiply-adds);
 FOLD_FLOPS = 18
-# a slot's chain rule in K3 (g_mu, g_Lambda and g_ray around the residual);
+# a slot's chain rule in K3 (g_mu, g_Lambda and g_ray around the residual),
+# and its two sides alone (the split backward's halves);
 SLOT_BWD_FLOPS = 150
+SLOT_GAUSS_FLOPS, SLOT_RAY_FLOPS = 110, 40
 # K1, per Gaussian: projection 15, the rotated 2x2 block 108, radii and
 # window 40, plus ~5 per bin-axis test and ~10 per key.
 EMIT_FLOPS = 163
@@ -146,6 +187,11 @@ FLIP_MAX, LAD_TOL, W_TOL = 1e-3, 1e-5, 1e-4
 # gradient and the loss to a relative 1e-5 (XLA's sum order, its erf
 # against erff, knife-edge pixels).
 GRAD_TOL, GOLD_GRAD_TOL, GOLD_LOSS_TOL = 1e-4, 1e-3, 1e-5
+# The fold's entry + the split pair against the unified global entry on the
+# same inputs: normwise 1e-5 (one arithmetic, the folded cotangents rounded
+# once more).  Pose: scores within 1e-5 and parameters after three Adam steps
+# within 1e-4 of the plain path's.
+PAIR_TOL, SCORE_TOL, POSE_TOL = 1e-5, 1e-5, 1e-4
 # ShapeFitter steps against the golden file: each loss to a relative 1e-5,
 # and the parameters' displacement from the start to a normwise relative
 # 1e-3 (each update is lr x the momentum trace of gradients held to 1e-3).
@@ -218,6 +264,9 @@ def plain_path():
              (fine, "fine_bwd", cuda_fine_bwd.fine_bwd_plain),
              (fine, "fine_select_global", cuda_fine.fine_select_global_plain),
              (fine, "fine_bwd_global", cuda_fine_bwd.fine_bwd_global_plain),
+             (fine, "fold_weights", cuda_fine_bwd.fold_weights_plain),
+             (fine, "fine_bwd_gauss", cuda_fine_bwd.fine_bwd_gauss_plain),
+             (fine, "fine_bwd_rays", cuda_fine_bwd.fine_bwd_rays_plain),
              (cuda_attr, "attr_merge", cuda_attr.attr_merge_plain),
              (cuda_attr, "attr_merge_bwd", cuda_attr.attr_merge_bwd_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
@@ -281,6 +330,11 @@ def grad_err(got, want, what):
 def rel(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def rel_t(got, want):
+    """Normwise relative error of two tensors, in float64 on their device."""
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
 
 
 def seeded(shape, dev, seed):
@@ -374,6 +428,35 @@ def texture_chain(verts, isig, cams, image, ctx):
     return frag, wsum, texture, vt.to_white_background(frag, texture)
 
 
+def cloud_scene(n, dev):
+    """``bench.py:117-123``'s point-cloud scene at ``n`` points:
+    ``RandomState(0).uniform(-1, 1, (n, 3))`` through
+    ``fixed_pointcloud_converter(radius=0.01)``, one view at ``dist=4,
+    elev=20, azim=30``, focal 400, principal (160, 160).
+    :return: (verts (n, 3), inverse sigmas (n,), (R, T, focal, principal))"""
+    import voge_tpu_torch as vt
+
+    pts = np.random.RandomState(0).uniform(-1, 1, size=(n, 3)).astype(np.float32)
+    verts, isig, _ = vt.fixed_pointcloud_converter(pts, radius=0.01)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    R, T = vt.look_at_view_transform(dist=4, elev=20, azim=30, device=dev)
+    return t(verts), t(isig), (R, T, t([[400.0, 400.0]]), t([[160.0, 160.0]]))
+
+
+def cloud_step(verts, isig, cams, colors):
+    """The no-coarse point-cloud step: ``render_pipeline(max_point_per_bin=
+    -1)`` -> ``interpolate_attr`` -> ``bench.py``'s loss, with verts, sigmas,
+    R and T as leaves; (fragments, loss, leaves)."""
+    import voge_tpu_torch as vt
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in (verts, isig, cams[0], cams[1])]
+    frag = vt.render_pipeline(leaves[0], leaves[1], leaves[2], leaves[3], cams[2], cams[3],
+                              image_size=CLOUD_HW, max_assign=CLOUD_K, max_point_per_bin=-1)
+    img = vt.interpolate_attr(frag, colors)
+    loss = ((img - 0.5) ** 2).mean() + (vt.get_silhouette(frag) ** 2).mean()
+    return frag, loss, leaves
+
+
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
@@ -434,9 +517,10 @@ def main():
         fine_select, fine_select_bins, fine_select_bins_plain, fine_select_global,
         fine_select_global_plain, fine_select_plain,
     )
+    from voge_tpu_torch.ops import cuda_fine_bwd
     from voge_tpu_torch.ops.cuda_fine_bwd import (
-        fine_bwd, fine_bwd_global, fine_bwd_global_plain, fine_bwd_plain, fold_weights,
-        fold_weights_plain,
+        fine_bwd, fine_bwd_gauss, fine_bwd_gauss_plain, fine_bwd_global, fine_bwd_global_plain,
+        fine_bwd_plain, fine_bwd_rays, fine_bwd_rays_plain, fold_weights, fold_weights_plain,
     )
     from voge_tpu_torch.rays import camera_rays
 
@@ -450,7 +534,8 @@ def main():
                  "fine_bwd": fine_bwd, "attr_merge_bwd": attr_merge_bwd,
                  "fine_select_global": fine_select_global,
                  "fine_bwd_global": fine_bwd_global, "attr_scatter": attr_scatter,
-                 "attr_dw": attr_dw, "fine_select_bins": fine_select_bins}
+                 "attr_dw": attr_dw, "fine_select_bins": fine_select_bins,
+                 "fine_bwd_gauss": fine_bwd_gauss, "fine_bwd_rays": fine_bwd_rays}
 
     def zero_counts():
         for fn in launchers.values():
@@ -672,6 +757,80 @@ def main():
     print(f"K2 bins headline: {bp_h.shape[1]}x{bp_h.shape[2]} bins of {bs_h} px, lists of "
           f"{bp_h.shape[3]} (densest bin {densest_h}, memberships {int(cnt_h.sum())}), "
           f"selections equal at K = 5, 20, 80, max_err(len, act, dsd)={err['fine_select_bins']:.3e}")
+    torch.cuda.synchronize()
+
+
+    # 2d. the two halves of the split global backward at the ShapeFitting
+    # shapes and on the 300,000-point cloud; K2's global entry there
+    def hold_halves(tag, rays, table, sel, cots):
+        """Each half against its plain version, the fold's entry + the pair
+        against the unified entry, two runs equal to the bit; the halves'
+        inputs with only g_w set (what a render's loss gives them)."""
+        idx, length, act, dsd, w = sel
+        kept, pair = None, 0.0
+        for kind, (gl, ga, gd, gw) in (("all", cots), ("no g_w", (*cots[:3], None)),
+                                       ("only g_w", (None, None, None, cots[3]))):
+            u_rows, u_rays = fine_bwd_global(rays, table, *sel, gl, ga, gd, gw, 1.0, True)
+            g3 = [gl, ga, gd]
+            if gw is not None:
+                folded = fold_weights(length, act, dsd, w, gw, 1.0)
+                g3 = [d if g is None else g + d for g, d in zip(g3, folded)]
+            kept = (rays, table, idx, length, dsd, *g3)
+            rows, g_rays = fine_bwd_gauss(*kept), fine_bwd_rays(*kept)
+            need(torch.equal(rows, fine_bwd_gauss(*kept)) and torch.equal(g_rays, fine_bwd_rays(*kept)),
+                 f"split halves {tag} {kind}: two runs differ")
+            err["fine_bwd_gauss"] = max(err["fine_bwd_gauss"], grad_err(
+                rows, fine_bwd_gauss_plain(*kept), f"fine_bwd_gauss {tag} {kind}"))
+            err["fine_bwd_rays"] = max(err["fine_bwd_rays"], grad_err(
+                g_rays, fine_bwd_rays_plain(*kept), f"fine_bwd_rays {tag} {kind}"))
+            e = max(rel_t(rows, u_rows), rel_t(g_rays, u_rays))
+            need(e <= PAIR_TOL, f"fold + pair vs unified entry {tag} {kind}: {e:.3e}")
+            pair = max(pair, e)
+        ok = (idx >= 0) & (idx < table.shape[0])
+        print(f"split halves {tag}: {int(ok.sum())} valid slots of {idx.numel()} on "
+              f"{torch.unique(idx[ok]).numel()} of {table.shape[0]} Gaussians; max_err/max|plain| "
+              f"gauss {err['fine_bwd_gauss']:.3e} rays {err['fine_bwd_rays']:.3e}; fold + pair vs "
+              f"the unified entry (normwise) {pair:.3e}; two runs equal to the bit")
+        return kept, pair
+
+    _, pair_sf = hold_halves("shapefit", rays_sf, table_sf, sel_sf, g_sf)
+    verts_c, isig_c, cams_c = cloud_scene(300_000, dev)
+    P_c = verts_c.shape[0]
+    rays_c, origins_c = camera_rays(*cams_c, CLOUD_HW)
+    points_c = verts_c[None] - origins_c[:, None, :]
+    isg_c = (2.0 * expend_sigma(isig_c))[None]
+    table_cl = fine.feature_table(points_c, isg_c)
+    bs_c, mppb_c = fine.production_bin_geometry(CLOUD_HW, CLOUD_K, P_c, None, -1)
+    need(mppb_c == -1, "the 300K geometry has a coarse stage")
+    head["k2c"] = (rays_c, table_cl, None, thr_act, CLOUD_K, bs_c, 1.0)
+    sel_c = fine_select_global(*head["k2c"])
+    y0 = x0 = 160   # a 32x32 window of the rays against all 300,000 Gaussians
+    crop = rays_c[:, y0:y0 + 32, x0:x0 + 32].contiguous()
+    got = fine_select_global(crop, table_cl, None, thr_act, CLOUD_K, bs_c, 1.0)
+    need(all(torch.equal(a, b[:, y0:y0 + 32, x0:x0 + 32]) for a, b in zip(got, sel_c)),
+         "K2 global 300K: the crop's selections are not the whole image's")
+    # the plain version in 8x8 tiles (its dense arrays are rays x Gaussians);
+    # with every Gaussian a member everywhere the tiling changes no result
+    want = fine_select_global_plain(crop, table_cl, None, thr_act, CLOUD_K, 4, 1.0)
+    need(torch.equal(got[0], want[0]), "K2 global 300K crop: selections differ from the plain version")
+    _, e = compare_select(got, want)
+    err["fine_select_global"] = max(err["fine_select_global"], e)
+    sel_r, ovf_c = fine.ray_tracing(cams_c, points_c, isg_c, rays_c, CLOUD_HW, 0.01, CLOUD_K)
+    need(int(ovf_c) == 0, "300K coarse path overflow")
+    agree = (sel_r[0] == sel_c[0]).all(-1)
+    flips_c = 1.0 - agree.float().mean().item()
+    need(flips_c < FLIP_MAX, f"K2 global 300K vs the coarse path: {flips_c} of the pixels differ")
+    for a, b in zip(sel_c[1:4], sel_r[1:4]):
+        torch.testing.assert_close(a[agree], b[agree], rtol=LAD_TOL, atol=LAD_TOL)
+    print(f"K2 global 300K: P={P_c} bs={bs_c} valid slots {int((sel_c[0] >= 0).sum())} of "
+          f"{sel_c[0].numel()}; 32x32 crop equal to the plain version (max_err(w)={e:.3e}); "
+          f"vs the coarse path (K1, sort, K2 compacted; overflow 0) flips={flips_c:.2e}")
+    g_c = [seeded(sel_c[1].shape, dev, 90 + q) for q in range(4)]
+    head["halves"], pair_c = hold_halves("cloud 300K", rays_c, table_cl, sel_c, g_c)
+    head["k3c"] = (rays_c, table_cl, *sel_c, None, None, None, g_c[3], 1.0, True)
+    details["split_pair_vs_unified"] = dict(shapefit=pair_sf, cloud_300k=pair_c)
+    details["cloud_300k"] = dict(flips_vs_coarse=flips_c, valid_slots=int((sel_c[0] >= 0).sum()))
+    del want, got, sel_r
     torch.cuda.synchronize()
 
     # ---- 3. the main paths --------------------------------------------
@@ -944,6 +1103,165 @@ def main():
     details["two_stage"] = dict(flips=flips, grad_err=two_err, densest_bin=densest_h,
                                 list_length=mppb_h)
 
+
+    # 3g. the published-size point-cloud forward (slice 5): 100,000 points
+    verts_p, isig_p, cams_p = cloud_scene(100_000, dev)
+    P_p = verts_p.shape[0]
+    ctx_p = vt.precompute_camera_ctx(*cams_p, CLOUD_HW, P_p, max_assign=CLOUD_K)
+
+    def cloud_forward(v):
+        return vt.render_pipeline(v, isig_p, *cams_p, image_size=CLOUD_HW, max_assign=CLOUD_K,
+                                  cam_ctx=ctx_p)
+
+    zero_counts()
+    with no_plain_version():
+        frag_p = cloud_forward(verts_p)
+    counts = read_counts("point cloud 100K forward", ("emit_keys", "fine_select"))
+    need(counts["fine_select_global"] == 0, "point cloud forward: the global select ran")
+    add(counts)
+    need(vt.get_overflow_points(frag_p) == 0, "point cloud 100K overflow_points != 0")
+    need(frag_p.vert_weight.shape == (1,) + CLOUD_HW + (CLOUD_K,)
+         and bool(torch.isfinite(frag_p.vert_weight).all()), "point cloud 100K weights")
+    points_p = verts_p[None] - ctx_p.origins[:, None, :]
+    isg_p = (2.0 * expend_sigma(isig_p))[None]
+    bs_p, _ = fine.production_bin_geometry(CLOUD_HW, CLOUD_K, P_p, None, None)
+    k1p = (*cams_p, points_p, isg_p, 0.01, bs_p, CLOUD_HW,
+           *coarse.emission_geometry(P_p, CLOUD_HW, bs_p))
+    for a, b in zip(emit_keys(*k1p), emit_keys_plain(*k1p)):
+        need(torch.equal(a, b), "K1 100K: kernel and plain differ")
+    sel_g = fine_select_global(ctx_p.rays, fine.feature_table(points_p, isg_p), None, thr_act,
+                               CLOUD_K, bs_p, 1.0)
+    agree = (frag_p.vert_index == sel_g[0]).all(-1)
+    flips_p = 1.0 - agree.float().mean().item()
+    need(flips_p < FLIP_MAX, f"point cloud 100K vs the global select: {flips_p} flipped")
+    e = (frag_p.vert_weight[agree] - sel_g[4][agree]).abs().max().item()
+    need(e <= W_TOL, f"point cloud 100K weights vs the global select: {e}")
+    c_p = fine.compact_candidates(*cams_p, points_p, isg_p, CLOUD_HW, 0.01, CLOUD_K)
+    print(f"point cloud 100K forward: overflow 0, valid px "
+          f"{(frag_p.valid_num > 0).float().mean().item():.4f}, valid slots "
+          f"{int((frag_p.vert_index >= 0).sum())}, rows of {c_p.pos_c.shape[1]} in "
+          f"{c_p.pos_c.shape[0]} supertiles (densest {int(c_p.counts_c.max())}, memberships "
+          f"{int(c_p.counts_c.sum())}); K1 exact; vs K2 global flips={flips_p:.2e} "
+          f"max_err(w)={e:.3e}")
+    details["cloud_100k"] = dict(flips_vs_global=flips_p, weight_err=e,
+                                 row_width=c_p.pos_c.shape[1], densest=int(c_p.counts_c.max()),
+                                 memberships=int(c_p.counts_c.sum()))
+    del sel_g, c_p
+
+    # 3h. the 300,000-point step (slice 5): past the branch point, the fold's
+    # entry and the two halves
+    colors_c = ((verts_c + 1) / 2).contiguous()
+    # (the colours are constants, so the merge's backward is its d_w half alone)
+    split_path = ("fine_select_global", "attr_merge", "attr_dw", "fold_weights",
+                  "fine_bwd_gauss", "fine_bwd_rays")
+    zero_counts()
+    with no_plain_version():
+        frag_c, loss_c, leaves_c = cloud_step(verts_c, isig_c, cams_c, colors_c)
+        gr = torch.autograd.grad(loss_c, leaves_c, retain_graph=True)
+        gr2 = torch.autograd.grad(loss_c, leaves_c)
+    counts = read_counts("point cloud 300K step", split_path)
+    need(counts["fine_bwd_global"] == 0, "300K step: the unified entry ran past the branch point")
+    compacted_unused(counts, "point cloud 300K step")
+    add(counts)
+    need(vt.get_overflow_points(frag_c) == 0, "300K step overflow_points != 0")
+    need(torch.equal(frag_c.vert_index, sel_c[0]), "300K step: not the selections held above")
+    threshold = fine._SPLIT_MIN_GAUSS
+    fine._SPLIT_MIN_GAUSS = 1 << 40           # the same step on the unified entry
+    try:
+        before = fine_bwd_global.launches
+        _, loss_u, leaves_u = cloud_step(verts_c, isig_c, cams_c, colors_c)
+        gu = torch.autograd.grad(loss_u, leaves_u)
+        need(fine_bwd_global.launches == before + 1, "the unified entry did not run")
+    finally:
+        fine._SPLIT_MIN_GAUSS = threshold
+    cloud_err = {}
+    for name, a, b, c in zip(("verts", "sigmas", "R", "T"), gr, gr2, gu):
+        need(bool(torch.isfinite(a).all()), f"300K step: non-finite {name} gradient")
+        need(torch.equal(a, b), f"300K step: {name} gradient differs between two backward runs")
+        cloud_err[name] = rel_t(a, c)
+        need(cloud_err[name] <= PAIR_TOL, f"300K step grad {name} vs the unified entry "
+                                          f"{cloud_err[name]:.3e}")
+    print(f"point cloud 300K step: loss {loss_c.item():.8f}, gradients on "
+          f"{int((gr[0].abs().sum(-1) > 0).sum())} of {P_c} Gaussians, vs the unified entry "
+          f"(normwise) {cloud_err}, two runs equal to the bit")
+    details["cloud_300k"].update(loss=loss_c.item(), grad_vs_unified=cloud_err)
+
+    # 3i. a frozen scene on the same cloud: only the cameras need a gradient
+    cw_c = seeded(sel_c[4].shape, dev, 95)
+    sorts = {"n": 0}
+    real_runs = cuda_fine_bwd._slot_runs
+
+    def counted_runs(*a, **k):
+        sorts["n"] += 1
+        return real_runs(*a, **k)
+
+    def frozen_step(frozen):
+        Rl, Tl = (x.detach().clone().requires_grad_(True) for x in cams_c[:2])
+        r, o = camera_rays(Rl, Tl, cams_c[2], cams_c[3], CLOUD_HW)
+        pts = (verts_c[None] - o[:, None, :]).detach().requires_grad_(not frozen)
+        sel, _ = fine.ray_tracing((Rl, Tl, cams_c[2], cams_c[3]), pts, isg_c, r, CLOUD_HW, 0.01,
+                                  CLOUD_K, max_points_per_bin=-1)
+        loss = (sel[4].sum(-1).clamp(max=1.0) ** 2).mean() + (sel[4] * cw_c).mean()
+        return torch.autograd.grad(loss, (Rl, r))     # (T moves the origins, not the rays)
+
+    zero_counts()
+    cuda_fine_bwd._slot_runs = counted_runs
+    try:
+        with no_plain_version():
+            fz = frozen_step(True)
+        counts = read_counts("frozen scene", ("fine_select_global", "fold_weights",
+                                              "fine_bwd_rays"))
+        need(counts["fine_bwd_gauss"] == 0 and counts["fine_bwd_global"] == 0
+             and sorts["n"] == 0, f"frozen scene: a per-Gaussian pass or a sort ran ({sorts})")
+        add(counts)
+        full = frozen_step(False)
+        need(sorts["n"] == 1, "the per-Gaussian half did not sort")
+    finally:
+        cuda_fine_bwd._slot_runs = real_runs
+    need(all(bool(torch.isfinite(x).all()) for x in fz), "frozen scene: non-finite gradient")
+    need(torch.equal(fz[1], full[1]), "frozen scene: the ray gradient is not the full step's")
+    print(f"frozen scene 300K: fold + per-ray half alone, no sort; |g_R| {fz[0].norm().item():.4e} "
+          f"|g_rays| {fz[1].norm().item():.4e}; ray gradient equal to the full backward's")
+
+    # 3j. pose scoring and refinement on the batched shape (slice 5)
+    Rh, Th = vt.look_at_view_transform(dist=[6.0] * POSE_B, elev=list(np.linspace(5, 25, POSE_B)),
+                                       azim=list(np.linspace(50, 90, POSE_B)), device=dev)
+    scorer = vt.PoseHypothesisScorer(g.verts.detach(), g.sigmas.detach(), colors, focal=300.0,
+                                     principal=(128.0, 128.0), image_size=POSE_HW, max_assign=20,
+                                     chunk=POSE_B, device=dev)
+    with torch.no_grad():
+        target_pose = scorer.render_features(Rh[3:4], Th[3:4])[0][0]
+        frag_h = vt.render_pipeline(scorer.verts, scorer.sigmas, Rh, Th,
+                                    scorer.focal.expand(POSE_B, 2),
+                                    scorer.principal.expand(POSE_B, 2), image_size=POSE_HW,
+                                    max_assign=20)
+    need(vt.get_overflow_points(frag_h) == 0, "pose batch overflow_points != 0")
+    init_pose = (6.0, math.radians(12.0), math.radians(64.0), 0.0)
+
+    def pose_run():
+        scores = scorer.score(Rh, Th, target_pose)
+        params, sim = vt.refine_pose(scorer, target_pose, init_pose, steps=3, lr=0.01)
+        return scores, torch.stack([params[k] for k in ("dist", "elev", "azim", "theta")]), sim
+
+    zero_counts()
+    with no_plain_version():
+        sc_k, pose_k, sim_k = pose_run()
+    # (the features are constants, so the merge's backward is its d_w half alone)
+    add(read_counts("pose", ("emit_keys", "fine_select", "fine_bwd", "attr_merge", "attr_dw")))
+    with plain_path():
+        sc_p, pose_p, sim_p = pose_run()
+    e_sc = (sc_k - sc_p).abs().max().item()
+    e_po = (pose_k - pose_p).abs().max().item()
+    need(sc_k.shape == (POSE_B,) and int(sc_k.argmax()) == 3, f"pose scores {sc_k.tolist()}")
+    need(e_sc <= SCORE_TOL, f"pose scores kernel vs plain path {e_sc:.3e}")
+    need(e_po <= POSE_TOL and abs(sim_k - sim_p) <= SCORE_TOL,
+         f"pose refinement kernel vs plain path {e_po:.3e}")
+    print(f"pose B={POSE_B}: overflow 0, scores {[round(x, 5) for x in sc_k.tolist()]} (true "
+          f"hypothesis 3), kernel vs plain path scores {e_sc:.3e}, parameters after 3 steps "
+          f"{e_po:.3e} ({[round(x, 5) for x in pose_k.tolist()]}), similarity {sim_k:.6f}")
+    details["pose"] = dict(scores=sc_k.tolist(), score_err=e_sc, pose_err=e_po,
+                           pose=pose_k.tolist(), similarity=sim_k)
+
     # ---- 4. timings -----------------------------------------------------
     inputs = [g.verts.detach() * (1.0 + 1e-5 * i) for i in range(24)]
     sig = g.sigmas.detach()
@@ -1066,6 +1384,90 @@ def main():
     print(f"two-stage forward kernel path: median {statistics.median(fwd2):.3f} ms, "
           f"min {min(fwd2):.3f}, max {max(fwd2):.3f}, n={len(fwd2)}")
 
+
+    # the point-cloud forward (inputs as bench.py perturbs them) and the
+    # 300,000-point step, kernel path only: the plain global select is dense
+    # over rays x Gaussians and cannot exist at 3.1e10 pairs
+    def stats(ts):
+        return dict(median_ms=statistics.median(ts), min_ms=min(ts), max_ms=max(ts), n=len(ts))
+
+    def cloud300(i, backward=True):
+        frag, loss, leaves = cloud_step(verts_c * (1.0 + 1e-5 * i), isig_c, cams_c, colors_c)
+        return torch.autograd.grad(loss, leaves) if backward else frag
+
+    cloud_forward(verts_p)
+    cloud300(0)
+    torch.cuda.synchronize()
+    details["cloud_100k_forward"] = stats(timed(cloud_forward,
+                                                [verts_p * (1.0 + 1e-4 * i) for i in range(10)]))
+    details["cloud_300k_step"] = stats(timed(cloud300, range(1, 6)))
+    details["cloud_300k_forward"] = stats(timed(lambda i: cloud300(i, False), range(1, 6)))
+    for k in ("cloud_100k_forward", "cloud_300k_forward", "cloud_300k_step"):
+        v = details[k]
+        print(f"{k} kernel path: median {v['median_ms']:.3f} ms, min {v['min_ms']:.3f}, "
+              f"max {v['max_ms']:.3f}, n={v['n']}")
+
+    # the fold's entry + the pair against the unified entry on the same
+    # 300,000-Gaussian cotangents (the step's: only g_w set, ray gradient
+    # wanted), in turns; and the per-Gaussian half when every run is empty
+    k3c = head["k3c"]
+
+    def split_pair(k3):
+        """The fold's entry (where there is a g_w) and the halves, on the
+        unified entry's argument tuple."""
+        g3 = k3[7:10]
+        if k3[10] is not None:
+            g3 = fold_weights(*k3[3:7], k3[10], k3[11])
+        halves = (*k3[:4], k3[5], *g3)
+        return fine_bwd_gauss(*halves), (fine_bwd_rays(*halves) if k3[12] else None)
+
+    def pair_vs_unified(k3, n):
+        ts = [cuda_ms(fn, n) for fn in (lambda: split_pair(k3), lambda: fine_bwd_global(*k3),
+                                        lambda: fine_bwd_global(*k3), lambda: split_pair(k3))]
+        return dict(pair=[ts[0], ts[3]], unified=ts[1:3])
+
+    turns = pair_vs_unified(k3c, 10)
+    # the same question below the branch point: the ShapeFitting step's
+    # backward (only g_w, no ray gradient) and the two-stage tracer's (g_len,
+    # g_act, g_dsd, the ray gradient, no weights)
+    sel_two = [x.detach() for x in sel_2]
+    k3two = (rays_h, table_h, *sel_two, torch.zeros_like(sel_two[1]), *cots_h, None, 1.0, True)
+    below = {"shapefit": pair_vs_unified(head["k3g"], 20),
+             "two_stage": pair_vs_unified(k3two, 20)}
+    for tag, k3 in (("shapefit", head["k3g"]), ("two_stage", k3two)):
+        for a, b in zip(split_pair(k3), fine_bwd_global(*k3)):
+            need((a is None and b is None) or rel_t(a, b) <= PAIR_TOL,
+                 f"fold + pair vs the unified entry at the {tag} shapes")
+    halves_c = head["halves"]
+    empty_idx = torch.full_like(halves_c[2], -1)
+    gauss_ms = dict(real=cuda_ms(lambda: fine_bwd_gauss(*halves_c), 20),
+                    all_empty=cuda_ms(lambda: fine_bwd_gauss(*halves_c[:2], empty_idx,
+                                                             *halves_c[3:]), 20),
+                    sort=cuda_ms(lambda: cuda_fine_bwd._slot_runs(halves_c[2], P_c), 20))
+    details["split_vs_unified_300k_ms"] = dict(turns, fold=cuda_ms(lambda: fold_weights(
+        *k3c[3:7], k3c[10], 1.0), 20), **gauss_ms)
+    details["split_vs_unified_below_ms"] = below
+    for tag, v in below.items():
+        print(f"{tag} backward on the same cotangents: fold + pair {v['pair'][0]:.4f} / "
+              f"{v['pair'][1]:.4f} ms, unified entry {v['unified'][0]:.4f} / "
+              f"{v['unified'][1]:.4f} ms")
+    print(f"300K backward on the same cotangents: fold + pair {turns['pair'][0]:.4f} / "
+          f"{turns['pair'][1]:.4f} ms, unified entry {turns['unified'][0]:.4f} / "
+          f"{turns['unified'][1]:.4f} ms; fold alone "
+          f"{details['split_vs_unified_300k_ms']['fold']:.4f} ms; fine_bwd_gauss "
+          f"{gauss_ms['real']:.4f} ms on the render's slots, {gauss_ms['all_empty']:.4f} ms with "
+          f"all {P_c} runs empty, of which the sort + searchsorted {gauss_ms['sort']:.4f} ms")
+
+    # pose: scoring 8 hypotheses in one chunk, and one refinement step
+    def pose_score(_):
+        return scorer.score(Rh, Th, target_pose)
+
+    def pose_refine(_):
+        return vt.refine_pose(scorer, target_pose, init_pose, steps=1, lr=0.01)
+
+    details["pose_score"] = in_turns("pose score B=8", pose_score, [range(5)] * 4)
+    details["pose_refine_step"] = in_turns("pose refine step", pose_refine, [range(5)] * 4)
+
     k2, k3 = head["k2"], head["k3"]
     per = {
         "emit_keys": (lambda: emit_keys(*head["k1"]), lambda: emit_keys_plain(*head["k1"])),
@@ -1085,6 +1487,10 @@ def main():
         "attr_dw": (lambda: attr_dw(*head["dw"]), lambda: attr_dw_plain(*head["dw"])),
         "fine_select_bins": (lambda: fine_select_bins(*head["k2b"]),
                              lambda: fine_select_bins_plain(*head["k2b"])),
+        "fine_bwd_gauss": (lambda: fine_bwd_gauss(*halves_c),
+                           lambda: fine_bwd_gauss_plain(*halves_c)),
+        "fine_bwd_rays": (lambda: fine_bwd_rays(*halves_c),
+                          lambda: fine_bwd_rays_plain(*halves_c)),
     }
 
     # Bounds: bytes each input is read once and each output written once
@@ -1103,6 +1509,15 @@ def main():
         by = (nbytes(rays, *sel, *cots, attrs, g_img) + n_rows_read + rows_out * (12 + d) * 4
               + (nbytes(rays) if want_rays else 0))
         return bound_ms(by, valid_sq * FOLD_FLOPS + valid * (SLOT_BWD_FLOPS + 4 * d))
+
+    def half_bound(halves, gauss):
+        """The split backward's halves: every slot array read once, the
+        feature rows of the Gaussians that hold a slot, the dense output."""
+        rays, table, idx, *slots = halves
+        ok = (idx >= 0) & (idx < table.shape[0])
+        by = (nbytes(rays, idx, *slots) + torch.unique(idx[ok]).numel() * 64
+              + (table.shape[0] * 48 if gauss else nbytes(rays)))
+        return bound_ms(by, ok.sum().item() * (SLOT_GAUSS_FLOPS if gauss else SLOT_RAY_FLOPS))
 
     k1 = head["k1"]
     P1, win1 = k1[4].shape[1], k1[-1]
@@ -1140,6 +1555,8 @@ def main():
         "fine_select_bins": select_bound(
             k2b[0], nbytes(k2b[1], lists), fine_select_bins(*k2b)[0], listed.sum().item(),
             outs=4),
+        "fine_bwd_gauss": half_bound(halves_c, True),
+        "fine_bwd_rays": half_bound(halves_c, False),
     }
 
     # one PyTorch call that computes the same function, where there is one,
@@ -1185,6 +1602,23 @@ def main():
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
     details["kernels"] = kern
+    need(len(kern) == len(KERNELS) == 13, "the kernels line lists every entry")
+
+    # K2's global entry and the unified backward once more, at the 300K
+    # shapes (the lines above hold them at the ShapeFitting shapes)
+    k2c = head["k2c"]
+    c3 = dict(select_ms=cuda_ms(lambda: fine_select_global(*k2c), 3),
+              unified_bwd_ms=statistics.median(turns["unified"]))
+    c3["select_bound_ms"], c3["select_bound_by"] = select_bound(
+        k2c[0], nbytes(k2c[1]), sel_c[0], float(rays_c.numel() // 3) * P_c)
+    c3["unified_bound_ms"], c3["unified_bound_by"] = bwd_bound(
+        k3c[0], nbytes(k3c[1]), k3c[2:7], [k3c[10]], P_c, True)
+    print(f"kernel fine_select_global at the 300K shapes: {c3['select_ms']:.3f} ms, bound "
+          f"{c3['select_bound_ms']:.4f} ms by {c3['select_bound_by']} (share "
+          f"{c3['select_bound_ms'] / c3['select_ms']:.4f}); fine_bwd_global there: "
+          f"{c3['unified_bwd_ms']:.4f} ms, bound {c3['unified_bound_ms']:.5f} ms by "
+          f"{c3['unified_bound_by']}")
+    details["kernels_300k"] = c3
 
     # K2's compacted entry once more, at the texture render's shapes (the
     # line above holds it at the headline's): 74% of that path's device time
@@ -1235,6 +1669,16 @@ def main():
     details["profile_two_stage"] = profiled(
         "two-stage fwd+bwd", two_stage, two_inputs[:5],
         details["two_stage_step"]["kernel"]["median_ms"], "profile_two_stage.txt")
+    details["profile_cloud_100k"] = profiled(
+        "point cloud 100K forward", cloud_forward,
+        [verts_p * (1.0 + 1e-4 * i) for i in range(10, 15)],
+        details["cloud_100k_forward"]["median_ms"], "profile_cloud_100k.txt")
+    details["profile_cloud_300k"] = profiled(
+        "point cloud 300K step", cloud300, range(6, 11),
+        details["cloud_300k_step"]["median_ms"], "profile_cloud_300k.txt")
+    details["profile_pose_refine"] = profiled(
+        "pose refine step", pose_refine, range(5),
+        details["pose_refine_step"]["kernel"]["median_ms"], "profile_pose_refine.txt")
 
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     print(f"nvidia-smi: {smi_line()}")

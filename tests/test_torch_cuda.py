@@ -13,7 +13,13 @@ weights / images atol 1e-4 on agreeing pixels.  The backward kernels (the
 fold, K3, K4b) and the gradients of a whole render: max |kernel - plain| <=
 1e-4 max |plain| per tensor (f32 sums in another order); two backward runs
 equal to the bit.  The global entries of K2 and K3 (the no-coarse path):
-selections equal to the plain version's, the rest as above.
+selections equal to the plain version's, the rest as above.  The two halves
+of the split global backward: each within 1e-4 of its plain version's
+largest entry, the pair after the fold within a normwise 1e-5 of the unified
+entry on the same inputs, two runs equal to the bit.  The k-NN converter on
+the card against the CPU, and pose scoring / refinement through the kernels
+against the plain path.  The loaders, the checkpoint and the pose entry
+points called without a device: everything on the card.
 """
 import math
 
@@ -32,8 +38,8 @@ from voge_tpu_torch.ops.cuda_fine import (
     fine_select, fine_select_global, fine_select_global_plain, fine_select_plain,
 )
 from voge_tpu_torch.ops.cuda_fine_bwd import (
-    fine_bwd, fine_bwd_global, fine_bwd_global_plain, fine_bwd_plain, fold_weights,
-    fold_weights_plain,
+    fine_bwd, fine_bwd_gauss, fine_bwd_gauss_plain, fine_bwd_global, fine_bwd_global_plain,
+    fine_bwd_plain, fine_bwd_rays, fine_bwd_rays_plain, fold_weights, fold_weights_plain,
 )
 from voge_tpu_torch.rays import camera_rays
 
@@ -236,6 +242,9 @@ class _PlainPath:
                       (fine, "fine_bwd", fine_bwd_plain),
                       (fine, "fine_select_global", fine_select_global_plain),
                       (fine, "fine_bwd_global", fine_bwd_global_plain),
+                      (fine, "fine_bwd_gauss", fine_bwd_gauss_plain),
+                      (fine, "fine_bwd_rays", fine_bwd_rays_plain),
+                      (fine, "fold_weights", fold_weights_plain),
                       (cuda_attr, "attr_merge", attr_merge_plain),
                       (cuda_attr, "attr_merge_bwd", attr_merge_bwd_plain)]
         self.saved = [(m, n, getattr(m, n), f) for m, n, f in self.saved]
@@ -586,3 +595,180 @@ def test_texture_scale_coarse_stage_reemits(dev):
         coarse.emit_keys = saved
     for a, b in zip(c[:5], p[:5]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("K", [5, 25, 40])
+@pytest.mark.parametrize("cots_kind", ["all", "only_len", "none_act"])
+def test_split_halves_match_plain(stage, K, cots_kind):
+    rays, table, args = _global_select(stage, K, "none")
+    idx, length, _, dsd, _ = fine_select_global(*args)
+    cots = _cotangents(length.shape, rays.device, 3, 11)
+    if cots_kind == "only_len":
+        cots[1:] = [None, None]
+    elif cots_kind == "none_act":
+        cots[1] = None
+    # some slots name no row of the table: they contribute nothing
+    idx = torch.where(idx % 7 == 3, idx + table.shape[0], idx)
+    halves = (rays, table, idx, length, dsd, *cots)
+    before = (fine_bwd_gauss.launches, fine_bwd_rays.launches)
+    rows, again = fine_bwd_gauss(*halves), fine_bwd_gauss(*halves)
+    g_rays, g_again = fine_bwd_rays(*halves), fine_bwd_rays(*halves)
+    torch.cuda.synchronize()
+    assert (fine_bwd_gauss.launches, fine_bwd_rays.launches) == (before[0] + 2, before[1] + 2)
+    assert rows.shape == (table.shape[0], 12) and g_rays.shape == rays.shape
+    assert torch.equal(rows, again) and torch.equal(g_rays, g_again)
+    _close(rows, fine_bwd_gauss_plain(*halves))
+    _close(g_rays, fine_bwd_rays_plain(*halves))
+    empty = torch.full_like(idx, -1)
+    assert not fine_bwd_gauss(rays, table, empty, length, dsd, *cots).any()
+    assert not fine_bwd_rays(rays, table, empty, length, dsd, *cots).any()
+
+
+@pytest.mark.parametrize("g_w", ["set", "only", "absent"])
+def test_fold_then_split_pair_matches_unified_entry(stage, g_w, monkeypatch):
+    """``ops.fine.global_backward`` above the branch point (patched down) and
+    for a frozen scene against the unified entry on the same inputs."""
+    rays, table, args = _global_select(stage, 25, "none")
+    sel = fine_select_global(*args)
+    cots = _cotangents(sel[1].shape, rays.device, 4, 7)
+    if g_w == "only":
+        cots[:3] = [None] * 3
+    elif g_w == "absent":
+        cots[3] = None
+    want_rows, want_rays = fine_bwd_global(rays, table, *sel, *cots, 0.9, True)
+    monkeypatch.setattr(fine, "_SPLIT_MIN_GAUSS", 100)
+    before = [fn.launches for fn in (fold_weights, fine_bwd_gauss, fine_bwd_rays, fine_bwd_global)]
+    rows, g_rays = fine.global_backward(rays, table, *sel, *cots, 0.9, True, True)
+    none, frozen = fine.global_backward(rays, table, *sel, *cots, 0.9, False, True)
+    torch.cuda.synchronize()
+    after = [fn.launches for fn in (fold_weights, fine_bwd_gauss, fine_bwd_rays, fine_bwd_global)]
+    folds = 0 if g_w == "absent" else 2
+    assert [a - b for a, b in zip(after, before)] == [folds, 1, 2, 0]
+    assert none is None and torch.equal(frozen, g_rays)
+    for got, want in ((rows, want_rows), (g_rays, want_rays)):
+        assert (got - want).norm() <= 1e-5 * want.norm()
+
+
+def test_point_cloud_render_takes_the_split_path(dev, monkeypatch):
+    """A 20,000-point cloud at 96x96 through ``render_pipeline`` with no
+    coarse stage and the branch point patched down: forward + backward on
+    the fold's entry and the two halves, gradients (cameras included) against
+    the same step below the branch point (the unified entry), and against
+    the coarse path's selections."""
+    pts = np.random.RandomState(0).uniform(-1, 1, (20000, 3)).astype(np.float32)
+    verts, isig, _ = vt.converter.fixed_pointcloud_converter(pts, radius=0.03)
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    R0, T0 = vt.look_at_view_transform(dist=4, elev=20, azim=30, device=dev)
+    colors = t((verts + 1) / 2)
+
+    def step():
+        leaves = [t(verts).requires_grad_(True), t(isig).requires_grad_(True),
+                  R0.clone().requires_grad_(True), T0.clone().requires_grad_(True)]
+        frag = vt.render_pipeline(leaves[0], leaves[1], leaves[2], leaves[3],
+                                  t([[120.0, 120.0]]), t([[48.0, 48.0]]), image_size=(96, 96),
+                                  max_assign=20, max_point_per_bin=-1)
+        img = vt.interpolate_attr(frag, colors)
+        loss = ((img - 0.5) ** 2).mean() + (vt.get_silhouette(frag) ** 2).mean()
+        return frag, torch.autograd.grad(loss, leaves)
+
+    fns = (fold_weights, fine_bwd_gauss, fine_bwd_rays, fine_bwd_global)
+    _, want = step()
+    monkeypatch.setattr(fine, "_SPLIT_MIN_GAUSS", 10000)
+    before = [fn.launches for fn in fns]
+    frag, got = step()
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [1, 1, 1, 0]
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all() and (a - b).norm() <= 1e-5 * b.norm()
+    coarse_frag = vt.render_pipeline(t(verts), t(isig), R0, T0, t([[120.0, 120.0]]),
+                                     t([[48.0, 48.0]]), image_size=(96, 96), max_assign=20)
+    assert vt.get_overflow_points(coarse_frag) == 0
+    agree = (coarse_frag.vert_index == frag.vert_index).all(-1)
+    assert 1.0 - agree.float().mean().item() < 1e-3
+
+
+def test_knn_converter_on_the_card_at_100k_points(dev):
+    """``naive_point_cloud_converter`` at the published point count: the
+    k-NN runs on the card in chunks of rows (a 100,000 x 100,000 float32
+    matrix would be 40 GB); the first 2,000 points against a direct
+    evaluation on the CPU (rtol 1e-5: float32 rounding of the distances)."""
+    pts = np.random.RandomState(0).uniform(-1, 1, (100_000, 3)).astype(np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    v, isig, _ = vt.naive_point_cloud_converter(pts, percentage=0.5, n_nearest=4, device=dev)
+    assert torch.cuda.max_memory_allocated() < 8 * 2 ** 30
+    assert v.shape == (100_000, 3) and isig.shape == (100_000,) and isig.dtype == np.float32
+    assert np.isfinite(isig).all() and (isig > 0).all()
+    t = torch.as_tensor(pts)
+    part = torch.cdist(t[:2000], t, compute_mode="donot_use_mm_for_euclid_dist").topk(
+        4, dim=1, largest=False).values.double()
+    length = torch.minimum(part, part.mean(1, keepdim=True) * 2).mean(1).numpy()
+    want = 1.0 / (length ** 2 / (4 * np.log(2.0)) + 1e-8)
+    np.testing.assert_allclose(isig[:2000], want, rtol=1e-5)
+
+
+def test_pose_kernel_path_matches_plain_path(dev):
+    """Scores of six hypotheses (chunks of 4, the last padded) and three
+    refinement steps on the 1K cuboid at 96x96 through the kernels and
+    through the plain versions: scores within 1e-5, parameters within 1e-4
+    (``chip_smoke.py`` holds the same at the full batched shape)."""
+    g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 1000,
+                                         percentage=0.6, as_obj=True, device=dev)
+    feats = ((g.verts.detach() + 1) / 3).contiguous()
+    scorer = vt.PoseHypothesisScorer(g.verts.detach(), g.sigmas.detach(), feats, focal=110.0,
+                                     principal=(48.0, 48.0), image_size=(96, 96), chunk=4)
+    assert scorer.verts.device.type == "cuda"
+    poses = (torch.full((6,), 6.0, device=dev), torch.full((6,), 0.2, device=dev),
+             torch.linspace(0.8, 1.4, 6, device=dev), torch.zeros(6, device=dev))
+    R, T = vt.models.pose_matrices(*poses)
+    with torch.no_grad():
+        target = scorer.render_features(R[2:3], T[2:3])[0][0]
+
+    def run():
+        scores = scorer.score(R, T, target)
+        params, sim = vt.refine_pose(scorer, target, (6.0, 0.25, 0.95, 0.0), steps=3, lr=0.01)
+        return scores, torch.stack([params[k] for k in ("dist", "elev", "azim", "theta")]), sim
+
+    before = (emit_keys.launches, fine_select.launches, fine_bwd.launches, attr_merge.launches)
+    sk, pk, simk = run()
+    torch.cuda.synchronize()
+    after = (emit_keys.launches, fine_select.launches, fine_bwd.launches, attr_merge.launches)
+    ran = [a - b for a, b in zip(after, before)]
+    assert ran[0] >= 5 and ran[1:] == [5, 3, 5]               # 2 chunks + 3 steps
+    with _PlainPath():
+        sp, pp, simp = run()
+    assert sk.shape == (6,) and int(sk.argmax()) == 2
+    assert (sk - sp).abs().max().item() <= 1e-5 and abs(simk - simp) <= 1e-5
+    assert (pk - pp).abs().max().item() <= 1e-4
+
+
+def test_slice_entry_points_default_to_the_card(dev, tmp_path):
+    """The loaders, the checkpoint and the pose entry points called without a
+    ``device`` put what they make on the card, and a scene loaded that way
+    renders through the kernels."""
+    from voge_tpu_torch import checkpoint
+    from voge_tpu_torch.converter import converters, io as tio
+
+    rng = np.random.RandomState(0)
+    pts = rng.uniform(-1, 1, (500, 3)).astype(np.float32)
+    isig = np.full((500,), 300.0, np.float32)
+    off, goff, npz = (str(tmp_path / n) for n in ("m.off", "s.goff", "s.npz"))
+    tio.save_off(off, pts, np.zeros((1, 3), np.int64))
+    tio.save_goff(goff, pts, isig)
+    loaded = tio.load_goff(goff, to_torch=True)
+    made = [tio.load_off(off, to_torch=True)[0], tio.load_off(off, to_torch=True)[1],
+            loaded[0], loaded[1], tio.to_torch(pts)[0],
+            vt.models.pose_matrices(3.0, 0.1, 0.2, 0.3)[0],
+            converters.to_gaussian_mesh(vt.fixed_pointcloud_converter, radius=0.05)(pts).verts]
+    g = vt.GaussianMeshes(*loaded)
+    checkpoint.save_scene(npz, g)
+    made += [g.verts, checkpoint.load_scene(npz)[0].verts,
+             checkpoint.load_scene(npz, naive=True)[0].verts]
+    assert all(t.device.type == "cuda" for t in made)
+    assert tio.load_off(off, to_torch=True, device="cpu")[0].device.type == "cpu"
+    R, T = vt.look_at_view_transform(dist=4.0, elev=20.0, azim=30.0)
+    before = fine_select.launches
+    frag = vt.render_pipeline(g.verts, g.sigmas, R, T, torch.tensor([[100.0, 100.0]], device="cuda"),
+                              torch.tensor([[32.0, 32.0]], device="cuda"), image_size=(64, 64),
+                              max_assign=8)
+    assert fine_select.launches == before + 1 and frag.vert_index.device.type == "cuda"
+    assert (frag.vert_index >= 0).any().item()

@@ -142,14 +142,17 @@ def test_index_helpers_match_voge_tpu():
     assert tutils.rotation_theta(torch.tensor([0.5])).device.type == "cpu"  # a tensor keeps its device
 
 
-def test_default_device_is_the_card():
+def test_default_device_is_the_card(tmp_path, monkeypatch):
     """Every entry point that turns numpy arrays or lists into tensors
     resolves ``device=None`` to ``cuda``: the rule's one helper says so, and
     each entry point called without a device either returns CUDA tensors (on
     a machine with a card) or fails with PyTorch's CUDA error (here).  A
     tensor argument keeps its device."""
     import voge_tpu_torch.utils as tutils
+    from voge_tpu_torch import checkpoint
     from voge_tpu_torch._device import DEFAULT_DEVICE, resolve_device
+    from voge_tpu_torch.converter import converters, io as tio
+    from voge_tpu_torch.models.pose import PoseHypothesisScorer, pose_matrices
 
     assert DEFAULT_DEVICE == torch.device("cuda")
     assert resolve_device() == torch.device("cuda")
@@ -159,7 +162,16 @@ def test_default_device_is_the_card():
 
     verts = np.zeros((4, 3), np.float32)
     sig = np.ones((4,), np.float32)
+    feats = np.ones((4, 2), np.float32)
     R, T, focal, principal = _cameras()
+    scene_file = str(tmp_path / "scene.npz")
+    off_file, goff_file = str(tmp_path / "m.off"), str(tmp_path / "s.goff")
+    checkpoint.save_scene(scene_file, vt.GaussianMeshes(verts, sig, device="cpu"))
+    tio.save_off(off_file, verts, np.zeros((1, 3), np.int64))
+    tio.save_goff(goff_file, verts, sig)
+    knn_points, knn = [], converters.knn_mean_dist
+    monkeypatch.setattr(converters, "knn_mean_dist",
+                        lambda points, *a: (knn_points.append(points), knn(points, *a))[1])
     calls = {
         "PerspectiveCameras": lambda: vt.PerspectiveCameras(focal_length=30.0).R,
         "look_at_view_transform": lambda: vt.look_at_view_transform(dist=3.0)[0],
@@ -182,6 +194,21 @@ def test_default_device_is_the_card():
         "precompute_camera_ctx": lambda: vt.precompute_camera_ctx(R, T, focal, principal,
                                                                   (8, 8)).rays,
         "rotation_theta": lambda: tutils.rotation_theta(0.5),
+        "PoseHypothesisScorer": lambda: PoseHypothesisScorer(
+            verts, sig, feats, focal[0], principal[0], image_size=(8, 8)).verts,
+        "scorer_from_numpy": lambda: vt.scorer_from_numpy(
+            verts, sig, feats, focal[0], principal[0], image_size=(8, 8)).features,
+        "pose_matrices": lambda: pose_matrices(3.0, 0.1, 0.2, 0.3)[0],
+        "load_scene": lambda: checkpoint.load_scene(scene_file)[0].verts,
+        "load_scene(naive)": lambda: checkpoint.load_scene(scene_file, naive=True)[0].verts,
+        "io.to_torch": lambda: tio.to_torch(verts, sig)[1],
+        "load_off(to_torch)": lambda: tio.load_off(off_file, to_torch=True)[0],
+        "load_goff(to_torch)": lambda: tio.load_goff(goff_file, to_torch=True)[1],
+        # the k-NN runs on the resolved device; the arrays come back as numpy
+        "naive_point_cloud_converter": lambda: (
+            converters.naive_point_cloud_converter(verts), knn_points[-1])[1],
+        "to_gaussian_mesh": lambda: converters.to_gaussian_mesh(
+            converters.fixed_pointcloud_converter, radius=0.01)(verts).verts,
     }
     for name, call in calls.items():
         try:

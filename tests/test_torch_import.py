@@ -20,6 +20,12 @@ def test_import_leaves_jax_and_voge_tpu_out():
         "from voge_tpu_torch.ops.coarse import overlap_mask, compact_mask, convert_to_box\n"
         "from voge_tpu_torch.ops.cuda_attr import attr_scatter, attr_dw\n"
         "from voge_tpu_torch.ops.cuda_fine import fine_select_bins\n"
+        "from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd_gauss, fine_bwd_rays\n"
+        "from voge_tpu_torch.ops.fine import global_backward\n"
+        "import voge_tpu_torch.checkpoint, voge_tpu_torch.models.pose\n"
+        "import voge_tpu_torch.converter.io, voge_tpu_torch.converter.converters\n"
+        "from voge_tpu_torch import PoseHypothesisScorer, refine_pose, scorer_from_numpy\n"
+        "from voge_tpu_torch.converter import IO, Converters, naive_point_cloud_converter\n"
         "from voge_tpu_torch import _build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'voge_tpu' or m.startswith('voge_tpu.')]\n"

@@ -21,17 +21,26 @@ neither JAX nor ``voge_tpu``.
 
 __version__ = "0.1.0"
 
-from voge_tpu_torch import aggregation, cameras, converter, interop, meshes, models, ops
+from voge_tpu_torch import aggregation, cameras, checkpoint, converter, interop, meshes, models
+from voge_tpu_torch import ops
 from voge_tpu_torch import rays, renderer, sampler, utils
 from voge_tpu_torch.cameras import PerspectiveCameras, look_at_view_transform
 from voge_tpu_torch.converter import (
+    fixed_pointcloud_converter,
     get_vert_edge_length,
     ico_sphere,
+    naive_point_cloud_converter,
     naive_vertices_converter,
+    normal_mesh_converter,
 )
-from voge_tpu_torch.interop import cameras_from_numpy, fitter_from_numpy, scene_from_numpy
+from voge_tpu_torch.interop import (
+    cameras_from_numpy,
+    fitter_from_numpy,
+    scene_from_numpy,
+    scorer_from_numpy,
+)
 from voge_tpu_torch.meshes import GaussianMeshes, GaussianMeshesNaive
-from voge_tpu_torch.models import ShapeFitter
+from voge_tpu_torch.models import PoseHypothesisScorer, ShapeFitter, refine_pose
 from voge_tpu_torch.renderer import (
     CameraCtx,
     Fragments,

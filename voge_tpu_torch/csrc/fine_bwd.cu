@@ -113,10 +113,6 @@ struct Args {
   float ow;
 };
 
-__device__ __forceinline__ float ld(const float* p, size_t i) {
-  return p != nullptr ? p[i] : 0.0f;
-}
-
 // Rank of ``id`` in the ascending ids[0, cnt), or -1.
 __device__ __forceinline__ int find_rank(const int* ids, int cnt, int id) {
   int lo = 0, hi = cnt;
@@ -152,7 +148,7 @@ __global__ void __launch_bounds__(RAY_THREADS) fine_bwd_rays_kernel(const Args a
   for (int k = 0; k < KB; ++k) {
     float gw = 0.0f;
     if (k < a.K) {
-      gw = ld(a.g_w, o + k);
+      gw = voge_ld(a.g_w, o + k);
       const int id = a.idx[o + k];
       if (a.attrs != nullptr && id >= 0 && id < a.n_rows) {
         float dw = 0.0f;  // channels ascending
@@ -167,17 +163,18 @@ __global__ void __launch_bounds__(RAY_THREADS) fine_bwd_rays_kernel(const Args a
 
   const float r0 = a.rays[pix * 3 + 0], r1 = a.rays[pix * 3 + 1],
               r2 = a.rays[pix * 3 + 2];
-  float gr0 = 0.0f, gr1 = 0.0f, gr2 = 0.0f;
+  const float r[3] = {r0, r1, r2};
+  float gr[3] = {0.0f, 0.0f, 0.0f};
   voge_fold_ray<KB>(l, e, sq, G, a.K, a.ow, [&](int k, float dl, float da, float dd) {
     const int id = a.idx[o + k];
     if (id < 0) {
       a.coef[o + k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       return;
     }
-    const float ga = ld(a.g_act, o + k) + da;
-    const float gd = ld(a.g_dsd, o + k) + dd;
+    const float ga = voge_ld(a.g_act, o + k) + da;
+    const float gd = voge_ld(a.g_dsd, o + k) + dd;
     const float lk = a.len[o + k];
-    const float cl = (ld(a.g_len, o + k) + dl) / a.dsd[o + k];
+    const float cl = (voge_ld(a.g_len, o + k) + dl) / a.dsd[o + k];
     a.coef[o + k] = make_float4(gd, cl, ga, lk);
     if (a.o_rays != nullptr) {
       const float* f = nullptr;
@@ -187,36 +184,13 @@ __global__ void __launch_bounds__(RAY_THREADS) fine_bwd_rays_kernel(const Args a
         const int rank = find_rank(a.ids + (size_t)s * a.M, cnt, id);
         if (rank >= 0) f = a.table + ((size_t)s * a.M + rank) * 16;
       }
-      if (f != nullptr) {
-        // g_r = g_d (L + L^T) r + g_a l^2 (L - L^T) r - c l L r
-        //       + (c - 2 g_a l) L^T delta
-        const float r[3] = {r0, r1, r2};
-        float dlt[3], g[3];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) dlt[i] = f[13 + i] - lk * r[i];
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-          float Lr = 0.0f, La = 0.0f, Ls = 0.0f, Ltd = 0.0f;
-#pragma unroll
-          for (int j = 0; j < 3; ++j) {
-            const float lij = f[4 + 3 * i + j], lji = f[4 + 3 * j + i];
-            Lr += lij * r[j];
-            La += (lij - lji) * r[j];
-            Ls += (lij + lji) * r[j];
-            Ltd += lji * dlt[j];
-          }
-          g[i] = gd * Ls + ga * lk * lk * La - cl * lk * Lr + (cl - 2.0f * ga * lk) * Ltd;
-        }
-        gr0 += g[0];
-        gr1 += g[1];
-        gr2 += g[2];
-      }
+      if (f != nullptr) voge_slot_ray(f, r, gd, cl, ga, lk, gr);
     }
   });
   if (a.o_rays != nullptr) {
-    a.o_rays[pix * 3 + 0] = gr0;
-    a.o_rays[pix * 3 + 1] = gr1;
-    a.o_rays[pix * 3 + 2] = gr2;
+    a.o_rays[pix * 3 + 0] = gr[0];
+    a.o_rays[pix * 3 + 1] = gr[1];
+    a.o_rays[pix * 3 + 2] = gr[2];
   }
 }
 
@@ -248,14 +222,14 @@ __global__ void __launch_bounds__(ROW_THREADS) fine_bwd_gauss_kernel(const Args 
   const bool live = row < cnt;
   const int my_id = live ? a.ids[(size_t)s * a.M + row] : -2;
   const int n_pass = a.d > 0 ? (a.d + CH - 1) / CH : 1;
-  float L[3][3], mu[3];  // the row's precision and mean
+  float L[9], mu[3];  // the row's precision and mean
   {
     const float* f = a.table + ((size_t)s * a.M + (live ? row : 0)) * 16;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       mu[i] = f[13 + i];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) L[i][j] = f[4 + 3 * i + j];
+      for (int j = 0; j < 3; ++j) L[3 * i + j] = f[4 + 3 * i + j];
     }
   }
 
@@ -263,9 +237,9 @@ __global__ void __launch_bounds__(ROW_THREADS) fine_bwd_gauss_kernel(const Args 
     const int c0 = pass * CH;
     const int nc = min(CH, a.d - c0);  // <= 0 without attributes
     const bool geo = pass == 0;
-    float gmu[3] = {0.0f, 0.0f, 0.0f}, gL[9], Ta[CH];
+    float acc[12], Ta[CH];  // g_mu (3), g_Lambda (9)
 #pragma unroll
-    for (int q = 0; q < 9; ++q) gL[q] = 0.0f;
+    for (int q = 0; q < 12; ++q) acc[q] = 0.0f;
 #pragma unroll
     for (int c = 0; c < CH; ++c) Ta[c] = 0.0f;
 
@@ -305,31 +279,9 @@ __global__ void __launch_bounds__(ROW_THREADS) fine_bwd_gauss_kernel(const Args 
         if (s_id[t] != my_id) continue;
         const int rr = t / a.K;
         if (geo) {
-          // cf = (g_d, c, g_a, l);  delta = mu - l r
-          //   g_mu     += c L r + g_a l (L^T - L) r + g_a (L + L^T) delta
-          //   g_Lambda += g_d r r^T + (c - g_a l) delta r^T + g_a l r delta^T
-          //               + g_a delta delta^T
-          const float4 cf = s_c[t];
+          const float4 cf = s_c[t];  // (g_d, c, g_a, l)
           const float r[3] = {s_r[rr * 3], s_r[rr * 3 + 1], s_r[rr * 3 + 2]};
-          const float gal = cf.z * cf.w;
-          float dlt[3];
-#pragma unroll
-          for (int i = 0; i < 3; ++i) dlt[i] = mu[i] - cf.w * r[i];
-#pragma unroll
-          for (int i = 0; i < 3; ++i) {
-            float Lr = 0.0f, La = 0.0f, Lsd = 0.0f;
-#pragma unroll
-            for (int j = 0; j < 3; ++j) {
-              Lr += L[i][j] * r[j];
-              La += (L[i][j] - L[j][i]) * r[j];
-              Lsd += (L[i][j] + L[j][i]) * dlt[j];
-            }
-            gmu[i] += cf.y * Lr - gal * La + cf.z * Lsd;
-#pragma unroll
-            for (int j = 0; j < 3; ++j)
-              gL[3 * i + j] += cf.x * r[i] * r[j] + (cf.y - gal) * dlt[i] * r[j] +
-                               gal * r[i] * dlt[j] + cf.z * dlt[i] * dlt[j];
-          }
+          voge_slot_gauss(L, mu, r, cf.x, cf.y, cf.z, cf.w, acc);
         }
 #pragma unroll
         for (int c = 0; c < CH; ++c) Ta[c] += s_w[t] * s_g[rr * CH + c];
@@ -339,9 +291,7 @@ __global__ void __launch_bounds__(ROW_THREADS) fine_bwd_gauss_kernel(const Args 
     float* o = out + (size_t)row * C;
     if (geo) {
 #pragma unroll
-      for (int i = 0; i < 3; ++i) o[i] = gmu[i];
-#pragma unroll
-      for (int q = 0; q < 9; ++q) o[3 + q] = gL[q];
+      for (int q = 0; q < 12; ++q) o[q] = acc[q];
     }
     for (int c = 0; c < nc; ++c) o[12 + c0 + c] = Ta[c];
   }
@@ -359,41 +309,23 @@ __global__ void __launch_bounds__(GAUSS_THREADS) fine_bwd_global_gauss_kernel(
   const long long j = ((long long)blockIdx.x * GAUSS_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (j >= n_tab) return;  // j is the same for the whole warp
-  float L[3][3], mu[3];
+  float L[9], mu[3];
   const float* f = table + (size_t)j * 16;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     mu[i] = f[13 + i];
 #pragma unroll
-    for (int q = 0; q < 3; ++q) L[i][q] = f[4 + 3 * i + q];
+    for (int q = 0; q < 3; ++q) L[3 * i + q] = f[4 + 3 * i + q];
   }
   float acc[12];
 #pragma unroll
   for (int q = 0; q < 12; ++q) acc[q] = 0.0f;
   for (long long t = starts[j] + lane; t < starts[j + 1]; t += 32) {
     const long long slot = order[t];
-    const float4 cf = coef[slot];  // (g_d, c, g_a, l);  delta = mu - l r
+    const float4 cf = coef[slot];  // (g_d, c, g_a, l)
     const float* rp = rays + (slot / K) * 3;
     const float r[3] = {rp[0], rp[1], rp[2]};
-    const float gal = cf.z * cf.w;
-    float dlt[3];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) dlt[i] = mu[i] - cf.w * r[i];
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      float Lr = 0.0f, La = 0.0f, Lsd = 0.0f;
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        Lr += L[i][q] * r[q];
-        La += (L[i][q] - L[q][i]) * r[q];
-        Lsd += (L[i][q] + L[q][i]) * dlt[q];
-      }
-      acc[i] += cf.y * Lr - gal * La + cf.z * Lsd;
-#pragma unroll
-      for (int q = 0; q < 3; ++q)
-        acc[3 + 3 * i + q] += cf.x * r[i] * r[q] + (cf.y - gal) * dlt[i] * r[q] +
-                              gal * r[i] * dlt[q] + cf.z * dlt[i] * dlt[q];
-    }
+    voge_slot_gauss(L, mu, r, cf.x, cf.y, cf.z, cf.w, acc);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)

@@ -1,6 +1,8 @@
-// The analytic backward of the erf transmittance compositing for one ray,
-// shared by K3 (fine_bwd.cu, its prologue) and the standalone fold
-// (fold_weights.cu).
+// Device code shared by the fine backward kernels: the analytic backward of
+// the erf transmittance compositing for one ray (K3's prologue in fine_bwd.cu,
+// and the standalone fold, fold_weights.cu), and one slot's chain rule (the
+// per-Gaussian and per-ray sides of fine_bwd.cu and fine_bwd_split.cu, at the
+// end of this file).
 //
 // Replaces the body of voge_tpu/ops/pallas_fine2.py::fold_weights_pallas
 // (kernel at :627; the same math sits in pallas_bwd.py:697-759).  With
@@ -117,5 +119,74 @@ __device__ __forceinline__ void voge_fold_load(const float* l_in,
       e[k] = 0.0f;
       s[k] = 1e-5f;
     }
+  }
+}
+
+// A cotangent that may be absent (null: zero).
+__device__ __forceinline__ float voge_ld(const float* p, size_t i) {
+  return p != nullptr ? p[i] : 0.0f;
+}
+
+// One slot's chain rule around the residual delta = mu - l r
+// (ops/cuda_fine_bwd.py has the three formulas), from the slot's coefficients
+// g_d, c = g_l / ksk, g_a and its len l.  Every kernel of the fine backward
+// that sums a Gaussian's or a ray's slots calls these two, so the compacted,
+// the global and the split entries evaluate one arithmetic.
+//
+// The Gaussian's side, with its precision L (9, row-major) and mean mu:
+// acc[0..2] += g_mu, acc[3..11] += g_Lambda (row-major),
+//   g_mu     = c L r + g_a l (L^T - L) r + g_a (L + L^T) delta
+//   g_Lambda = g_d r r^T + (c - g_a l) delta r^T + g_a l r delta^T
+//              + g_a delta delta^T
+__device__ __forceinline__ void voge_slot_gauss(const float (&L)[9],
+                                                const float (&mu)[3],
+                                                const float (&r)[3], float gd,
+                                                float c, float ga, float l,
+                                                float (&acc)[12]) {
+  const float gal = ga * l;
+  float dlt[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) dlt[i] = mu[i] - l * r[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float Lr = 0.0f, La = 0.0f, Lsd = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float lij = L[3 * i + j], lji = L[3 * j + i];
+      Lr += lij * r[j];
+      La += (lij - lji) * r[j];
+      Lsd += (lij + lji) * dlt[j];
+    }
+    acc[i] += c * Lr - gal * La + ga * Lsd;
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      acc[3 + 3 * i + j] += gd * r[i] * r[j] + (c - gal) * dlt[i] * r[j] +
+                            gal * r[i] * dlt[j] + ga * dlt[i] * dlt[j];
+  }
+}
+
+// The ray's side, from the slot's feature row f (16 floats: Lambda at 4..12,
+// mu at 13..15): g += g_r,
+//   g_r = g_d (L + L^T) r + g_a l^2 (L - L^T) r - c l L r
+//         + (c - 2 g_a l) L^T delta
+__device__ __forceinline__ void voge_slot_ray(const float* f,
+                                              const float (&r)[3], float gd,
+                                              float c, float ga, float l,
+                                              float (&g)[3]) {
+  float dlt[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) dlt[i] = f[13 + i] - l * r[i];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    float Lr = 0.0f, La = 0.0f, Ls = 0.0f, Ltd = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      const float lij = f[4 + 3 * i + j], lji = f[4 + 3 * j + i];
+      Lr += lij * r[j];
+      La += (lij - lji) * r[j];
+      Ls += (lij + lji) * r[j];
+      Ltd += lji * dlt[j];
+    }
+    g[i] += gd * Ls + ga * l * l * La - c * l * Lr + (c - 2.0f * ga * l) * Ltd;
   }
 }

@@ -11,6 +11,7 @@ from voge_tpu_torch._device import resolve_device
 from voge_tpu_torch.cameras import PerspectiveCameras
 from voge_tpu_torch.meshes import GaussianMeshes
 from voge_tpu_torch.models.fitting import ShapeFitter
+from voge_tpu_torch.models.pose import PoseHypothesisScorer
 
 
 def scene_from_numpy(verts, sigmas, colors=None, device=None):
@@ -53,12 +54,17 @@ def fitter_from_numpy(params, fixed=None, opt_trace=None, **kwargs) -> ShapeFitt
                     {k: np.array(v, np.float32) for k, v in (fixed or {}).items()},
                     **kwargs)
     if opt_trace is not None:
-        if not isinstance(f.opt, torch.optim.SGD) or not f.opt.defaults["momentum"]:
-            raise ValueError("opt_trace is the momentum trace of SGD with momentum")
-        if set(opt_trace) != set(f.params):
-            raise ValueError(f"opt_trace has {sorted(opt_trace)}, the params "
-                             f"{sorted(f.params)}")
-        for k, p in f.params.items():
-            f.opt.state[p]["momentum_buffer"] = torch.as_tensor(
-                np.array(opt_trace[k], np.float32), device=p.device)
+        f.set_momentum({k: np.array(v, np.float32) for k, v in opt_trace.items()})
     return f
+
+
+def scorer_from_numpy(verts, sigmas, features, focal, principal, **kwargs) -> PoseHypothesisScorer:
+    """A ``PoseHypothesisScorer`` from a ``voge_tpu.models.PoseHypothesisScorer``'s
+    arrays (``np.asarray(scorer.verts)``, ...).
+
+    :param kwargs: the scorer's keyword arguments (``image_size``,
+        ``max_assign``, ``chunk``, ``device``, ...); ``device=None`` is the card
+    """
+    f32 = lambda x: np.array(x, np.float32)
+    return PoseHypothesisScorer(f32(verts), f32(sigmas), f32(features), f32(focal),
+                                f32(principal), **kwargs)

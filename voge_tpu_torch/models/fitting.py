@@ -72,6 +72,41 @@ class ShapeFitter:
     def _get(self, name):
         return self.params[name] if name in self.params else self.fixed[name]
 
+    def set_momentum(self, trace: Dict[str, torch.Tensor]) -> None:
+        """Set the momentum trace of SGD with momentum, one array per
+        parameter: ``optax``'s ``trace``, ``torch.optim.SGD``'s
+        ``momentum_buffer``."""
+        if not isinstance(self.opt, torch.optim.SGD) or not self.opt.defaults["momentum"]:
+            raise ValueError("the momentum trace belongs to SGD with momentum")
+        if set(trace) != set(self.params):
+            raise ValueError(f"the trace has {sorted(trace)}, the params {sorted(self.params)}")
+        for k, p in self.params.items():
+            buf = torch.as_tensor(trace[k], dtype=torch.float32, device=p.device)
+            self.opt.state[p]["momentum_buffer"] = buf.detach().clone().reshape(p.shape)
+
+    def train_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """``{"params": ..., "momentum": ...}``: the parameters and the SGD
+        momentum trace (zeros before the first step, which starts the trace
+        at the first gradient either way), what
+        ``checkpoint.save_train_state`` persists of a fit."""
+        if not isinstance(self.opt, torch.optim.SGD) or not self.opt.defaults["momentum"]:
+            raise ValueError("the train state is that of SGD with momentum")
+        momentum = {k: self.opt.state[p].get("momentum_buffer", torch.zeros_like(p)).detach()
+                    for k, p in self.params.items()}
+        return {"params": {k: p.detach() for k, p in self.params.items()},
+                "momentum": momentum}
+
+    def load_train_state(self, state) -> None:
+        """Resume from :meth:`train_state`'s structure (as
+        ``checkpoint.load_train_state`` returns it)."""
+        if set(state["params"]) != set(self.params):
+            raise ValueError(f"the state has {sorted(state['params'])}, the params "
+                             f"{sorted(self.params)}")
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(torch.as_tensor(state["params"][k], device=p.device))
+        self.set_momentum(state["momentum"])
+
     def render(self, R, T):
         """(rgb (B, H, W, 3), silhouette (B, H, W)) of the current scene."""
         R, T = (torch.as_tensor(x, dtype=torch.float32, device=self.device) for x in (R, T))

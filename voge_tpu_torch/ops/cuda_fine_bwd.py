@@ -1,6 +1,7 @@
-"""K3: the fine backward (``csrc/fine_bwd.cu``) and the weight-cotangent
-fold (``csrc/fold_weights.cu``, the device function of ``csrc/fine_bwd.cuh``),
-with their plain PyTorch versions.
+"""K3: the fine backward (``csrc/fine_bwd.cu``), the weight-cotangent fold
+(``csrc/fold_weights.cu``, the device function of ``csrc/fine_bwd.cuh``) and
+the global backward split in two (``csrc/fine_bwd_split.cu``), with their
+plain PyTorch versions.
 
 K3 has two entries.  :func:`fine_bwd` replaces
 ``voge_tpu/ops/pallas_bwd.py::_bwd_t_kernel`` (``fine_bwd_compact_t_pallas``,
@@ -38,9 +39,16 @@ that factor in float32 (the sigma gradient of the 9,602-Gaussian headline
 was 3.8e-3 from a float64 evaluation; this form keeps it near 1e-4).
 
 ``fold_weights`` replaces ``voge_tpu/ops/pallas_fine2.py::fold_weights_pallas``:
-the same fold on its own, so that it has its own check against the plain
-version.  The plain versions use ``torch.erf``, ``voge_tpu`` a rational
-polynomial (``pallas_fine2._erf32``); the two differ by about 1e-7.
+the same fold on its own.  The plain versions use ``torch.erf``, ``voge_tpu``
+a rational polynomial (``pallas_fine2._erf32``); the two differ by about 1e-7.
+
+:func:`fine_bwd_gauss` and :func:`fine_bwd_rays` replace
+``pallas_bwd.py::_bwd_gauss_kernel`` (``fine_bwd_gauss_pallas``) and
+``_bwd_rays_kernel`` (``fine_bwd_rays_pallas``): the global backward as a
+per-Gaussian half and a per-ray half that take cotangents of len / act / dsd
+with the weight cotangent already folded in (by :func:`fold_weights`), so
+they take no ``w``, no ``g_w`` and no occupation weight.  ``ops.fine`` says
+when a backward takes the pair and when the per-ray half alone.
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ from voge_tpu_torch.ops._dispatch import (
     FLOAT, INT, LONG, VOIDP, check, on_cuda, ptr, raise_on_error, stream,
 )
 from voge_tpu_torch.ops.coarse import supertile_grid
+from voge_tpu_torch.ops.cuda_attr import _slot_runs
 from voge_tpu_torch.ops.cuda_fine import FEAT, MAX_K, _supertile, _to_image
 
 _INV_SQRT_PI = 0.5641895835477563
@@ -284,21 +293,33 @@ def fine_bwd(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
 fine_bwd.launches = 0
 
 
-def _check_global(rays, table, idx, length, act, dsd, w, grads):
+def _check_split(rays, table, idx, length, dsd, grads):
+    """Shapes and types of a global-space backward's arguments; (rows of the
+    table, K)."""
     B, H, W, K = idx.shape
-    if not 0 < K <= MAX_K:
-        raise NotImplementedError(f"K={K}: the backward kernel takes 1 <= K <= {MAX_K}")
+    if K <= 0:
+        raise ValueError(f"idx: expected (B, H, W, K) with K > 0, got {tuple(idx.shape)}")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     if table.ndim != 2 or table.shape[0] == 0:
         raise ValueError(f"table: expected (rows, {FEAT}), got {tuple(table.shape)}")
     check(table, "table", torch.float32, (table.shape[0], FEAT))
     check(idx, "idx", torch.int32)
-    for t, name in ((length, "len"), (act, "act"), (dsd, "dsd"), (w, "w")):
+    for t, name in ((length, "len"), (dsd, "dsd")):
         check(t, name, torch.float32, idx.shape)
-    for t, name in zip(grads, ("g_len", "g_act", "g_dsd", "g_w")):
+    for t, name in zip(grads, ("g_len", "g_act", "g_dsd")):
         if t is not None:
             check(t, name, torch.float32, idx.shape)
-    return B, H, W, K, table.shape[0]
+    return table.shape[0], K
+
+
+def _check_global(rays, table, idx, length, act, dsd, w, grads):
+    n_tab, K = _check_split(rays, table, idx, length, dsd, grads[:3])
+    if K > MAX_K:
+        raise NotImplementedError(f"K={K}: the backward kernel takes 1 <= K <= {MAX_K}")
+    for t, name in ((act, "act"), (w, "w"), (grads[3], "g_w")):
+        if t is not None:
+            check(t, name, torch.float32, idx.shape)
+    return (*idx.shape, n_tab)
 
 
 def fine_bwd_global_plain(rays, table, idx, length, act, dsd, w, g_len, g_act,
@@ -351,11 +372,7 @@ def fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
     dev = rays.device
     f32 = dict(dtype=torch.float32, device=dev)
     # one stable sort groups each Gaussian's slots into a run in slot order
-    flat = idx.reshape(-1)
-    key = torch.where((flat >= 0) & (flat < n_tab), flat, n_tab)
-    key_s, order = torch.sort(key, stable=True)
-    starts = torch.searchsorted(
-        key_s, torch.arange(n_tab + 1, dtype=key_s.dtype, device=dev))
+    order, starts = _slot_runs(idx, n_tab)
     coef = torch.empty((B, H, W, K, 4), **f32)
     rows = torch.empty((n_tab, 12), **f32)
     g_rays = torch.empty((B, H, W, 3), **f32) if want_rays else None
@@ -370,3 +387,105 @@ def fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
 
 
 fine_bwd_global.launches = 0
+
+
+def _split_slots(table, idx, length, dsd, g_len, g_act, g_dsd):
+    """What the plain halves share: each slot's feature row (..., K, 16), its
+    coefficients (g_d, c = g_len / dsd, g_a, l), each (..., K, 1) and zero
+    where the slot holds no row of the table, and its segment id (the dump
+    row ``n_tab`` for such slots)."""
+    n_tab = table.shape[0]
+    zero = lambda g: torch.zeros_like(length) if g is None else g
+    ok = (idx >= 0) & (idx < n_tab)
+    vf = ok.to(length.dtype)
+    coefs = (zero(g_dsd) * vf, zero(g_len) / torch.where(ok, dsd, 1.0) * vf,
+             zero(g_act) * vf, torch.where(ok, length, 0.0))
+    seg = torch.where(ok, idx, n_tab).long()
+    feats = torch.cat([table, table.new_zeros((1, FEAT))])[seg]
+    return feats, tuple(c[..., None] for c in coefs), seg
+
+
+def fine_bwd_gauss_plain(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
+    """Plain version of the per-Gaussian half: dense tensor ops per slot and
+    a segmented sum (``index_add_``).  Same contract as :func:`fine_bwd_gauss`."""
+    n_tab, _ = _check_split(rays, table, idx, length, dsd, (g_len, g_act, g_dsd))
+    feats, coefs, seg = _split_slots(table, idx, length, dsd, g_len, g_act, g_dsd)
+    g_mu, g_L, _ = _slot_grads(feats, rays[..., None, :], *coefs, False)
+    vals = torch.cat([g_mu, g_L], dim=-1).reshape(-1, 12)
+    return vals.new_zeros((n_tab + 1, 12)).index_add_(0, seg.reshape(-1), vals)[:n_tab]
+
+
+def fine_bwd_rays_plain(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
+    """Plain version of the per-ray half: dense tensor ops per slot, summed
+    over each ray's slots.  Same contract as :func:`fine_bwd_rays`."""
+    _check_split(rays, table, idx, length, dsd, (g_len, g_act, g_dsd))
+    feats, coefs, _ = _split_slots(table, idx, length, dsd, g_len, g_act, g_dsd)
+    return _slot_grads(feats, rays[..., None, :], *coefs, True)[2].sum(-2)
+
+
+def _kernel_gauss():
+    fn = load("fine_bwd_split").voge_fine_bwd_gauss
+    fn.argtypes = [VOIDP] * 10 + [LONG, INT, VOIDP]
+    fn.restype = INT
+    return fn
+
+
+def fine_bwd_gauss(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
+    """The per-Gaussian half of the select's global backward.
+
+    :param rays: (B, H, W, 3); :param table: (B * P, 16) feature rows,
+        indexed by the slots' ids
+    :param idx, length, dsd: (B, H, W, K) the select's outputs
+    :param g_len, g_act, g_dsd: (B, H, W, K) cotangents, the weight cotangent
+        already folded in (:func:`fold_weights`); None for zero
+    :return: rows (B * P, 12) float32 per Gaussian: grad mu (3), grad Lambda
+        (9, row-major), summed over the slots that hold it in slot order
+    """
+    grads = (g_len, g_act, g_dsd)
+    if not on_cuda(rays, table, idx, length, dsd, *grads):
+        return fine_bwd_gauss_plain(rays, table, idx, length, dsd, *grads)
+    n_tab, K = _check_split(rays, table, idx, length, dsd, grads)
+    # one stable sort groups each Gaussian's slots into a run in slot order
+    order, starts = _slot_runs(idx, n_tab)
+    rows = torch.empty((n_tab, 12), dtype=torch.float32, device=rays.device)
+    err = _kernel_gauss()(
+        ptr(rays), ptr(table), ptr(length), ptr(dsd), *(ptr(g) for g in grads),
+        ptr(order), ptr(starts), ptr(rows), n_tab, K, stream(rays.device))
+    raise_on_error(err, "fine_bwd_gauss")
+    fine_bwd_gauss.launches += 1
+    return rows
+
+
+fine_bwd_gauss.launches = 0
+
+
+def _kernel_rays():
+    fn = load("fine_bwd_split").voge_fine_bwd_rays
+    fn.argtypes = [VOIDP] * 9 + [LONG, LONG, INT, VOIDP]
+    fn.restype = INT
+    return fn
+
+
+def fine_bwd_rays(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
+    """The per-ray half of the select's global backward.
+
+    :param rays, table, idx, length, dsd, g_len, g_act, g_dsd: as for
+        :func:`fine_bwd_gauss`
+    :return: g_rays (B, H, W, 3) float32: each ray's gradient, summed over
+        its K slots in slot order
+    """
+    grads = (g_len, g_act, g_dsd)
+    if not on_cuda(rays, table, idx, length, dsd, *grads):
+        return fine_bwd_rays_plain(rays, table, idx, length, dsd, *grads)
+    n_tab, K = _check_split(rays, table, idx, length, dsd, grads)
+    g_rays = torch.empty_like(rays)
+    err = _kernel_rays()(
+        ptr(rays), ptr(table), ptr(idx), ptr(length), ptr(dsd),
+        *(ptr(g) for g in grads), ptr(g_rays), idx.numel() // K, n_tab, K,
+        stream(rays.device))
+    raise_on_error(err, "fine_bwd_rays")
+    fine_bwd_rays.launches += 1
+    return g_rays
+
+
+fine_bwd_rays.launches = 0

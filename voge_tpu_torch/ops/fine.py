@@ -32,6 +32,11 @@ two-stage tracer's second stage :func:`ray_tracing_fine`.
   table (``voge_tpu``'s is an XLA ``segment_sum``, a float atomic scatter on
   CUDA).
 
+The backward over the global space (the no-coarse path and the two-stage
+tracer) is :func:`global_backward`, which states once when it is the unified
+entry of K3 and when the fold's own entry followed by the two halves of
+``csrc/fine_bwd_split.cu``.
+
 All backward paths are free of float atomics, so gradients repeat to the
 bit.  K above 128 is not ported yet and raises.
 """
@@ -51,7 +56,16 @@ from voge_tpu_torch.ops.cuda_attr import AttrMerge
 from voge_tpu_torch.ops.cuda_fine import (
     FEAT, MAX_K, fine_select, fine_select_bins, fine_select_global,
 )
-from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd, fine_bwd_global
+from voge_tpu_torch.ops.cuda_fine_bwd import (
+    fine_bwd, fine_bwd_gauss, fine_bwd_global, fine_bwd_rays, fold_weights,
+)
+
+# ``voge_tpu``'s own branch point (``fine.py:912``, a TPU VMEM limit), kept
+# for now so that both packages take the same backward on the same scene.
+# It has no measured ground on the H100, where fold + pair was the faster
+# at every shape timed (PERF.md section 7; ROADMAP.md queue 2 has the
+# decision to take).
+_SPLIT_MIN_GAUSS = 262_144
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -250,13 +264,54 @@ class FineSelect(torch.autograd.Function):
                 None, None, None, None)
 
 
+def global_backward(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
+                    g_w, agg_ow: float, want_scene: bool, want_rays: bool):
+    """Backward of a select over the global space, from its saved outputs
+    (idx, len, act, dsd, w), each (B, H, W, K), and their cotangents (None
+    for zero; ``w`` and ``g_w`` are None where the select has no weights).
+
+    - More than ``_SPLIT_MIN_GAUSS`` (262,144) Gaussians per image, or a
+      frozen scene (``want_scene`` False: only the rays need a gradient), at
+      any size: ``voge_tpu``'s order of operations on its split path
+      (``fine.py:861-862``, ``:924-929``).  ``fold_weights`` turns ``g_w``
+      into cotangents of len / act / dsd, which join the incoming ones; then
+      the per-Gaussian half (``fine_bwd_gauss``; skipped for a frozen scene,
+      and with it the sort of the slot ids) and, when ``want_rays``, the
+      per-ray half (``fine_bwd_rays``).
+    - Otherwise the unified entry ``fine_bwd_global`` (fold fused in).
+
+    On a TPU the branch point is where the unified kernel's output block
+    outgrows VMEM; the card has no such limit, and the constant is kept only
+    so that both packages take the same branch on the same scene.
+
+    :return: (rows (B * P, 12) per Gaussian: grad mu (3), grad Lambda (9),
+        or None when ``want_scene`` is False; g_rays (B, H, W, 3) or None)
+    """
+    cont = lambda g: None if g is None else g.contiguous()
+    g_len, g_act, g_dsd, g_w = (cont(g) for g in (g_len, g_act, g_dsd, g_w))
+    split = table.shape[0] // rays.shape[0] > _SPLIT_MIN_GAUSS
+    if want_scene and not split:
+        if w is None:
+            w = torch.zeros_like(length)
+        return fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
+                               g_dsd, g_w, agg_ow, want_rays)
+    if g_w is not None:
+        folded = fold_weights(length, act, dsd, w, g_w, agg_ow)
+        g_len, g_act, g_dsd = (d if g is None else g + d
+                               for g, d in zip((g_len, g_act, g_dsd), folded))
+    halves = (rays, table, idx, length, dsd, g_len, g_act, g_dsd)
+    rows = fine_bwd_gauss(*halves) if want_scene else None
+    g_rays = fine_bwd_rays(*halves) if want_rays else None
+    return rows, g_rays
+
+
 class FineSelectGlobal(torch.autograd.Function):
     """K2's global entry as an autograd node, counterpart of ``voge_tpu``'s
     ``_rt_fine_kern`` custom VJP on the no-coarse path.  Differentiable
     inputs: ``points`` (B, P, 3), ``isigmas`` (B, P, 3, 3) and ``rays``
     (B, H, W, 3).  The forward builds the (B * P, 16) feature table under no
     autograd and runs the select over every Gaussian of each image; the
-    backward runs K3's global entry, whose per-Gaussian rows are the
+    backward is :func:`global_backward`, whose per-Gaussian rows are the
     gradients: no gather stays under autograd (its backward would be a
     float atomic scatter on CUDA).  The ray gradient is skipped when
     ``camera_grad`` is False or the rays need no gradient."""
@@ -275,14 +330,16 @@ class FineSelectGlobal(torch.autograd.Function):
     def backward(ctx, _g_idx, g_len, g_act, g_dsd, g_w):
         rays, table, idx, length, act, dsd, w = ctx.saved_tensors
         want_rays = bool(ctx.camera_grad) and ctx.needs_input_grad[2]
-        cont = lambda g: None if g is None else g.contiguous()
-        rows, g_rays = fine_bwd_global(
-            rays, table, idx, length, act, dsd, w, cont(g_len), cont(g_act),
-            cont(g_dsd), cont(g_w), ctx.agg_ow, want_rays)
-        B = rays.shape[0]
-        rows = rows.reshape(B, -1, 12)
-        return (rows[..., 0:3], rows[..., 3:12].reshape(B, -1, 3, 3), g_rays,
-                None, None, None, None, None)
+        want_scene = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        rows, g_rays = global_backward(
+            rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
+            ctx.agg_ow, want_scene, want_rays)
+        g_points = g_isigmas = None
+        if rows is not None:
+            B = rays.shape[0]
+            rows = rows.reshape(B, -1, 12)
+            g_points, g_isigmas = rows[..., 0:3], rows[..., 3:12].reshape(B, -1, 3, 3)
+        return g_points, g_isigmas, g_rays, None, None, None, None, None
 
 
 class RayTraceFine(torch.autograd.Function):
@@ -290,10 +347,10 @@ class RayTraceFine(torch.autograd.Function):
     ``voge_tpu``'s ``_ray_trace_fine`` custom VJP.  Differentiable inputs:
     ``mus`` (P, 3), ``isigmas`` (P, 3, 3), both flattened over the batch, and
     ``rays`` (B, H, W, 3).  The forward builds the (P, 16) feature table
-    under no autograd and selects from the bins' lists; the backward runs
-    K3's global entry on the cotangents of len, act and dsd (there are no
-    weights here: their cotangent is absent and the saved weights are
-    zeros), whose per-Gaussian rows are the gradients."""
+    under no autograd and selects from the bins' lists; the backward is
+    :func:`global_backward` on the cotangents of len, act and dsd (there are
+    no weights here, so no weight cotangent), whose per-Gaussian rows are the
+    gradients."""
 
     @staticmethod
     def forward(ctx, mus, isigmas, rays, bin_points, thr_act, bin_size, K):
@@ -307,13 +364,14 @@ class RayTraceFine(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _g_idx, g_len, g_act, g_dsd):
         rays, table, idx, length, act, dsd = ctx.saved_tensors
-        cont = lambda g: None if g is None else g.contiguous()
-        rows, g_rays = fine_bwd_global(
-            rays, table, idx, length, act, dsd, torch.zeros_like(length),
-            cont(g_len), cont(g_act), cont(g_dsd), None, 1.0,
-            ctx.needs_input_grad[2])
-        return (rows[:, 0:3], rows[:, 3:12].reshape(-1, 3, 3), g_rays,
-                None, None, None, None)
+        want_scene = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
+        rows, g_rays = global_backward(
+            rays, table, idx, length, act, dsd, None, g_len, g_act, g_dsd, None,
+            1.0, want_scene, ctx.needs_input_grad[2])
+        g_mus = g_isigmas = None
+        if rows is not None:
+            g_mus, g_isigmas = rows[:, 0:3], rows[:, 3:12].reshape(-1, 3, 3)
+        return g_mus, g_isigmas, g_rays, None, None, None, None
 
 
 def ray_tracing_fine(mus: torch.Tensor, isigmas: torch.Tensor,
