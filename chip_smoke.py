@@ -9,19 +9,24 @@ NVIDIA GPU and check them.
 Run from the root of a checkout.  Phases:
   1. the card (nvidia-smi name and power limit) and the kernel build from
      ``voge_tpu_torch/csrc``, one ``nvcc`` per source, all at once (build
-     seconds, ptxas register / spill report);
+     seconds, ptxas register / spill report; K2's registers, spills and
+     shared memory per instantiation and its resident blocks by K);
   2. each kernel against its plain PyTorch version on the card, on a 1K
      scene at 128x128 and on the 10K-Gaussian headline at 256x256: K1
-     exact; K2 at K = 5 and 20, with and without attributes; K3f; the fold,
+     exact; K2 at K = 5 and 20, with and without attributes, and all three
+     of its entries at K = 5, 8, 16, 20, 25, 32, 64, 80 and 128 on the 1K
+     scene (selections, len, act, dsd equal bit for bit, with and without a
+     random bits plane, two runs equal); K3f; the fold,
      K3 (with and without attributes, with and without ray gradients) and
      K4b with cotangents from a seeded ``torch.Generator``; then, at the
      ShapeFitting shapes (5 views, 2,562 Gaussians, 128x128, K = 25), K2's
      global entry (with and without a random sub-bin bits plane, selections
-     exact) and K3's global entry (with and without ray gradients, with the
+     exact; the share of (block, Gaussian) pairs its cone cull drops and the
+     pairs that pass, here and at the 300,000-point cloud) and K3's global entry (with and without ray gradients, with the
      weight cotangent set and zero); at the texture shapes (10,242
      Gaussians, 256x672, K = 80) the two halves of K4b alone, ``attr_scatter``
      (beside ``index_add_``) and ``attr_dw``, and K2's compacted entry on
-     the texture render's rows (the 128 bucket, with and without attributes,
+     the texture render's rows (K = 80, with and without attributes,
      selections exact; timed and bounded there too); at the headline K2's
      per-bin-list entry on ``rasterize_coarse``'s lists (selections exact);
      the two halves of the split global backward (``fine_bwd_gauss``,
@@ -30,12 +35,16 @@ Run from the root of a checkout.  Phases:
      plain version, the fold's entry + the pair against K3's unified global
      entry on the same inputs, two runs equal to the bit; K2's global entry
      there against its plain version on a 32x32 crop of the rays and against
-     the coarse path's selections on the whole image; K1 at 100,000 points
+     the coarse path's selections on the whole image, and the whole image
+     equal to the bit to the same kernel walking every Gaussian (no cone
+     cull); K1 at 100,000 points
      exact;
   3. the main paths, each with every launch counter set to 0 just before it
-     and read just after:
+     and read just after (the two glue kernels of K2's global entry counted
+     too: one launch each a launch of the entry):
      - the forward at the headline, through ``render_pipeline(attrs=)`` and
-       ``GaussianRenderer`` + ``to_white_background`` (K1, K2, K3f);
+       ``GaussianRenderer`` + ``to_white_background`` (K1, K2, K3f), the
+       renderer also with numpy ``R``, ``T`` beside cameras on the card;
      - the headline fitting step, ``render_pipeline(attrs=, cam_ctx=
        precompute_camera_ctx(...))`` -> ``bench.py``'s loss -> backward
        (K1, K2, K3): overflow 0, finite gradients, two backward runs equal
@@ -54,7 +63,7 @@ Run from the root of a checkout.  Phases:
        parameters against the same file;
      - texture extraction at full width (``bench.py:189-231``: render at
        K = 80 -> ``sample_features`` -> normalise -> ``to_white_background``;
-       K1, K2's 128 bucket, ``attr_scatter``, K3f, no plain version):
+       K1, K2 at K = 80, ``attr_scatter``, K3f, no plain version):
        overflow 0, texture, weight sums and image against ``voge_tpu``'s
        golden file; then one backward through the sampler alone
        (``attr_dw``, K3f) against the plain path, two runs equal to the bit;
@@ -85,7 +94,7 @@ Run from the root of a checkout.  Phases:
      then the 1K forward against its golden file and the quickstart bounds;
   4. CUDA-event timings of the headline forward and fitting step, of the
      ShapeFitting step, of the texture chain (and its three stages, and K2
-     there by K bucket) and of the two-stage forward + backward on the
+     there by K) and of the two-stage forward + backward on the
      kernel path and on the plain path, in turns (no earlier path's depth
      was cut to make room), of the point-cloud forward
      and the 300,000-point step (kernel path only: the plain global select
@@ -94,7 +103,11 @@ Run from the root of a checkout.  Phases:
      scoring and a refinement step, and of each kernel against its plain version and, where
      one PyTorch call computes the same function, that call; each kernel's
      bound (the larger of its bytes over the card's memory rate and its
-     operations over the card's FP32 rate, counted from this run's inputs);
+     operations over the card's FP32 rate, counted from this run's inputs;
+     K2's global entry both with every pair tested and with the passing
+     pairs alone, which is its bound; its cone tests are printed beside it);
+     K2's compacted entry at the 100K cloud, the rows' gather, the global
+     entry's glue, and the global entry with and without its cull in turns;
      torch.profiler traces of five kernel-path steps of each path give the
      device's busy share and the time by kernel.
 
@@ -107,6 +120,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -165,6 +179,10 @@ HBM_BYTES_S, FP32_FLOP_S = 3.35e12, 67e12
 # divisions and transcendental calls each counted once per result):
 # a (ray, candidate) hit test of K2: msk 5, ksk 17, len 1, d 6, e 15, act 5;
 PAIR_FLOPS = 49
+# one (block, Gaussian) cone test of K2's global entry: |u.c| 6, u x c 9, its
+# norm 6, the sine 4, the comparison 3 (this kernel's own overhead, printed
+# beside its bound and never counted into it);
+CULL_FLOPS = 28
 # one (j, k) term of the erf compositing (difference, scale, erf, 3 more);
 WEIGHT_FLOPS = 6
 # one (j, k) term of the weight fold (erf, exp and ~16 multiply-adds);
@@ -500,6 +518,48 @@ def compacted_pairs(bits_c, counts_c, H, W, bs):
     return total
 
 
+def cull_stats(rays, table, thr_act, bin_size):
+    """What K2's global entry (no bits plane) does on these inputs, counted
+    with the plain versions of its glue: (blocks, (block, Gaussian) pairs,
+    of them culled, (ray, Gaussian) pairs left for the hit test, of them
+    passing ``act < thr_act``).  A culled pair never passes (the proof in
+    ``csrc/fine_select.cu``), so the last count is every passing pair."""
+    from voge_tpu_torch.ops import cuda_fine as cf
+
+    B = rays.shape[0]
+    P = table.shape[0] // B
+    th, tw = cf.global_tile(False, bin_size)
+    cones, rows = cf.block_cones(rays, th, tw), cf.cull_rows(table, thr_act)
+    # the two glue kernels against their plain versions (float64 inside both;
+    # float32 out): cones and unit means to 1e-6, q to a relative 1e-5
+    cones_p, rows_p = cf.block_cones_plain(rays, th, tw), cf.cull_rows_plain(table, thr_act)
+    e_cone = (cones - cones_p).abs().max().item()
+    e_u = (rows[:, :3] - rows_p[:, :3]).abs().max().item()
+    e_q = ((rows[:, 3] - rows_p[:, 3]).abs() / rows_p[:, 3].clamp(min=1e-30)).max().item()
+    need(e_cone <= 1e-6 and e_u <= 1e-6 and e_q <= 1e-5
+         and torch.equal(rows[:, 3] > 0, rows_p[:, 3] > 0),
+         f"K2 global glue kernels vs plain: cones {e_cone}, u {e_u}, q {e_q}")
+    blocks = cf._tiles(rays, th, tw, float("nan"))               # th * tw = 128 rays
+    per_img = blocks.shape[0] // B
+    culled = tested = passing = 0
+    for b in range(B):
+        tab_b, rows_b = table[b * P:(b + 1) * P], rows[b * P:(b + 1) * P]
+        for s0 in range(b * per_img, (b + 1) * per_img, 32):
+            s1 = min(s0 + 32, (b + 1) * per_img)
+            mask = cf.cull_mask_plain(cones[s0:s1], rows_b)
+            culled += int(mask.sum())
+            blk, gauss = (~mask).nonzero(as_tuple=True)
+            for q0 in range(0, blk.numel(), 1 << 16):
+                r = blocks[s0:s1][blk[q0:q0 + (1 << 16)]]        # (n, 128, 3)
+                f = tab_b[gauss[q0:q0 + (1 << 16)]][:, None, :]
+                _, act, _ = cf.hit_plain(f, [r[..., i] for i in range(3)])
+                tested += int(torch.isfinite(r[..., 0]).sum())
+                passing += int((act < thr_act).sum())
+    return dict(blocks=cones.shape[0], block_pairs=cones.shape[0] * P, culled=culled,
+                culled_share=culled / (cones.shape[0] * P), tested_pairs=tested,
+                passing_pairs=passing, glue_err=dict(cones=e_cone, u=e_u, q_rel=e_q))
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device visible; the port's checks run only on a GPU")
@@ -517,7 +577,7 @@ def main():
         fine_select, fine_select_bins, fine_select_bins_plain, fine_select_global,
         fine_select_global_plain, fine_select_plain,
     )
-    from voge_tpu_torch.ops import cuda_fine_bwd
+    from voge_tpu_torch.ops import cuda_fine, cuda_fine_bwd
     from voge_tpu_torch.ops.cuda_fine_bwd import (
         fine_bwd, fine_bwd_gauss, fine_bwd_gauss_plain, fine_bwd_global, fine_bwd_global_plain,
         fine_bwd_plain, fine_bwd_rays, fine_bwd_rays_plain, fold_weights, fold_weights_plain,
@@ -537,16 +597,23 @@ def main():
                  "attr_dw": attr_dw, "fine_select_bins": fine_select_bins,
                  "fine_bwd_gauss": fine_bwd_gauss, "fine_bwd_rays": fine_bwd_rays}
 
+    # the two small kernels behind K2's global entry (its cone cull's glue):
+    # counted like the entries, and held to one launch each a launch of it
+    glue_launchers = {"cull_rows": cuda_fine.cull_rows, "block_cones": cuda_fine.block_cones}
+
     def zero_counts():
-        for fn in launchers.values():
+        for fn in (*launchers.values(), *glue_launchers.values()):
             fn.launches = 0
 
     def read_counts(path, required):
         torch.cuda.synchronize()
         counts = {k: fn.launches for k, fn in launchers.items()}
-        print(f"main path {path}: launches {counts}")
+        glue = {k: fn.launches for k, fn in glue_launchers.items()}
+        print(f"main path {path}: launches {counts}; K2 global's glue {glue}")
         for k in required:
             need(counts[k] > 0, f"{k} was not launched on the main path {path}")
+        need(all(v == counts["fine_select_global"] for v in glue.values()),
+             f"main path {path}: K2's global entry ran without its cone cull")
         return counts
 
     # ---- 1. card and build --------------------------------------------
@@ -566,11 +633,25 @@ def main():
         if line.startswith("==") or "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
     details["build_s"] = build_s
+    # K2's three instantiations (compacted 0, global 1, lists 2): one code path
+    # at every K, the top-K in K KB of dynamic shared memory beside 18.6 KB of
+    # staging, so the resident blocks an SM follow from K and the registers
     k2_ptxas = _build.build_info["fine_select"][1].splitlines()
-    at = next(i for i, line in enumerate(k2_ptxas) if "fine_select_kernelILi128E" in line)
-    bucket = " ".join(x.strip() for x in k2_ptxas[at + 1:at + 3])
-    print(f"ptxas K2 128 bucket (the texture path's K = 80): {bucket}")
-    details["ptxas_k2_128"] = bucket
+    details["ptxas_k2"] = {}
+    k2_regs = 0
+    for mode, tag in ((0, "compacted"), (1, "global"), (2, "lists")):
+        at = next(i for i, line in enumerate(k2_ptxas)
+                  if f"fine_select_kernelILi{mode}E" in line and "Compiling" in line)
+        report = " ".join(x.strip() for x in k2_ptxas[at + 2:at + 4])
+        print(f"ptxas K2 {tag}: {report}")
+        details["ptxas_k2"][tag] = report
+        k2_regs = max(k2_regs, int(re.search(r"Used (\d+) registers", report).group(1)))
+    k2_smem = lambda K: 256 * 64 + K * 128 * 8 + 256 * 8 + 128
+    k2_blocks = lambda K: min(16, 65536 // (k2_regs * 128), 232448 // (k2_smem(K) + 1024))
+    print(f"K2 dynamic shared memory and resident blocks of 128 threads an SM (of 227 KB, 1 KB "
+          f"a block reserved; of 65,536 registers at {k2_regs} a thread): " + ", ".join(
+              f"K={K} {k2_smem(K)} B -> {k2_blocks(K)}" for K in (5, 20, 25, 32, 64, 80, 128)))
+    details["k2_blocks_an_sm"] = {K: k2_blocks(K) for K in (5, 20, 25, 32, 64, 80, 128)}
 
     # ---- 2. kernels against their plain versions ----------------------
     err = {k: 0.0 for k in KERNELS}
@@ -641,6 +722,43 @@ def main():
                         k4b=(idx, w, attrs, g_att))
     torch.cuda.synchronize()
 
+    # 2a. every entry of K2 at every K the kernel takes (one code path, the
+    # top-K in shared memory), on the 1K scene at 128x128: selections and
+    # len / act / dsd equal to the plain versions bit for bit
+    g1, cams1, colors1 = scene(1000, (128, 128), 150.0, dev)
+    rays1, points1, isig1 = stage_inputs(g1, cams1, (128, 128))
+    table1 = fine.feature_table(points1, isig1)
+    thr_act = -math.log(0.01 + 1.0 / 1e10)
+    bs1, mppb1 = coarse.coarse_bin_config((128, 128), 20, points1.shape[1])
+    bp1 = vt.ops.rasterize_coarse(*cams1, points1, isig1, (128, 128), 0.01, bs1, mppb1)
+    bits1 = torch.randint(0, 16, (math.prod(coarse.supertile_grid(128, 128, bs1)),
+                                  points1.shape[1]), dtype=torch.int32, device=dev,
+                          generator=torch.Generator(dev).manual_seed(41))
+    for K in (5, 8, 16, 20, 25, 32, 64, 80, 128):
+        c = fine.compact_candidates(*cams1, points1, isig1, (128, 128), 0.01, K)
+        tab = fine.candidate_table(points1, isig1, c.pos_c)
+        pairs = [("fine_select", fine_select, fine_select_plain,
+                  (rays1, tab, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K, c.bin_size, 1.0,
+                   colors1)),
+                 ("fine_select_global", fine_select_global, fine_select_global_plain,
+                  (rays1, table1, None, thr_act, K, bs1, 1.0)),
+                 ("fine_select_global", fine_select_global, fine_select_global_plain,
+                  (rays1, table1, bits1, thr_act, K, bs1, 1.0)),
+                 ("fine_select_bins", fine_select_bins, fine_select_bins_plain,
+                  (rays1, table1, bp1, thr_act, K, bs1))]
+        for name, kfn, pfn, args in pairs:
+            got, want = kfn(*args), pfn(*args)
+            need(all(torch.equal(a, b) for a, b in zip(got[:4], want[:4])),
+                 f"{name} K={K}: selections or len / act / dsd differ from the plain version")
+            need(all(torch.equal(a, b) for a, b in zip(got[:4], kfn(*args)[:4])),
+                 f"{name} K={K}: two runs differ")
+            for a, b in zip(got[4:], want[4:]):
+                e = (a - b).abs().max().item()
+                need(e <= W_TOL, f"{name} K={K}: weights / image error {e}")
+                err[name] = max(err[name], e)
+    print("K2 every entry at K = 5, 8, 16, 20, 25, 32, 64, 80, 128 on the 1K scene: selections, "
+          "len, act, dsd equal to the plain versions bit for bit; two runs equal")
+
     # 2b. the global entries of K2 and K3 at the ShapeFitting shapes
     sf = shapefit_scene(dev)
     verts_sf, isig_sf, colors_sf, cams_sf, targets_sf = sf
@@ -651,7 +769,6 @@ def main():
     table_sf = fine.feature_table(points_sf, isig3)
     bs_sf, mppb = fine.production_bin_geometry(SF_HW, SF_K, P_sf, None, -1)
     need(mppb == -1, "the ShapeFitting geometry has a coarse stage")
-    thr_act = -math.log(0.01 + 1.0 / 1e10)
     nb_sf = SF_B * math.prod(coarse.supertile_grid(*SF_HW, bs_sf))
     bits_sf = torch.randint(0, 16, (nb_sf, P_sf), dtype=torch.int32, device=dev,
                             generator=torch.Generator(dev).manual_seed(40))
@@ -667,6 +784,13 @@ def main():
         if bits is None:
             sel_sf = got
             head["k2g"] = args
+
+    cull_sf = cull_stats(rays_sf, table_sf, thr_act, bs_sf)
+    print(f"K2 global shapefit cull: {cull_sf['culled']} of {cull_sf['block_pairs']} (block, "
+          f"Gaussian) pairs culled ({cull_sf['culled_share']:.4f}) over {cull_sf['blocks']} "
+          f"blocks; {cull_sf['tested_pairs']} (ray, Gaussian) pairs left to test, "
+          f"{cull_sf['passing_pairs']} pass; glue kernels vs plain {cull_sf['glue_err']}")
+    details["cull_shapefit"] = cull_sf
     g_sf = [seeded(sel_sf[1].shape, dev, 50 + q) for q in range(4)]
     # (g_len, g_act, g_dsd, g_w): all set, g_w zero, and the trainer's own
     # configuration (only g_w: the loss reads the weights alone)
@@ -712,8 +836,8 @@ def main():
         err["attr_dw"] = max(err["attr_dw"], grad_err(
             attr_dw(idx_tx, a_d, g_d), attr_dw_plain(idx_tx, a_d, g_d), f"attr_dw d={d}"))
 
-    # K2's compacted entry on the texture render's own inputs: K = 80, the
-    # 128 bucket, 44 supertiles of 64 x 64 rays
+    # K2's compacted entry on the texture render's own inputs: K = 80,
+    # 44 supertiles of 64 x 64 rays
     rays_tx, origins_tx = camera_rays(*cams_tx, TEX_HW)
     points_tx = verts_tx[None] - origins_tx[:, None, :]
     isg_tx = 2.0 * expend_sigma(isig_tx)[None]
@@ -825,6 +949,20 @@ def main():
     print(f"K2 global 300K: P={P_c} bs={bs_c} valid slots {int((sel_c[0] >= 0).sum())} of "
           f"{sel_c[0].numel()}; 32x32 crop equal to the plain version (max_err(w)={e:.3e}); "
           f"vs the coarse path (K1, sort, K2 compacted; overflow 0) flips={flips_c:.2e}")
+    need(all(torch.equal(a, b) for a, b in zip(sel_c, fine_select_global(*head["k2c"]))),
+         "K2 global 300K: two runs differ")
+    # the whole image, which the dense plain version cannot reach: the same
+    # kernel walking every Gaussian (no cull) gives the same bits
+    need(all(torch.equal(a, b)
+             for a, b in zip(sel_c, fine_select_global(*head["k2c"], _cull=False))),
+         "K2 global 300K: the cull changed a result")
+    cull_c = cull_stats(rays_c, table_cl, thr_act, bs_c)
+    print(f"K2 global 300K cull: {cull_c['culled']} of {cull_c['block_pairs']} (block, Gaussian) "
+          f"pairs culled ({cull_c['culled_share']:.5f}) over {cull_c['blocks']} blocks; "
+          f"{cull_c['tested_pairs']} (ray, Gaussian) pairs left to test of "
+          f"{rays_c.numel() // 3 * P_c}, {cull_c['passing_pairs']} pass; the whole image equal to "
+          f"the bit with the cull off")
+    details["cull_300k"] = cull_c
     g_c = [seeded(sel_c[1].shape, dev, 90 + q) for q in range(4)]
     head["halves"], pair_c = hold_halves("cloud 300K", rays_c, table_cl, sel_c, g_c)
     head["k3c"] = (rays_c, table_cl, *sel_c, None, None, None, g_c[3], 1.0, True)
@@ -852,6 +990,11 @@ def main():
     renderer = vt.GaussianRenderer(cam_obj, vt.GaussianRenderSettings(image_size=hw))
     frag2 = renderer(g, R=R, T=T)
     white = vt.to_white_background(frag2, colors)
+    # camera kwargs as the reference demos pass them: arrays off the card
+    frag_np = renderer(g, R=R.cpu().numpy().astype(np.float64), T=T.cpu().numpy())
+    need(frag_np.vert_index.is_cuda and torch.equal(frag_np.vert_index, frag2.vert_index)
+         and torch.equal(frag_np.vert_weight, frag2.vert_weight),
+         "GaussianRenderer with numpy R, T differs from the call with card tensors")
     add(read_counts("forward", ("emit_keys", "fine_select", "attr_merge")))
     for f in (frag, frag2):
         need(vt.get_overflow_points(f) == 0, "headline overflow_points != 0")
@@ -1355,7 +1498,7 @@ def main():
         f"{k} median {v['median_ms']:.3f} ms (min {v['min_ms']:.3f}, max {v['max_ms']:.3f})"
         for k, v in details["texture_stages"].items()))
 
-    # K2 at the texture shapes by K bucket: the compacted entry (with the
+    # K2 at the texture shapes by K: the compacted entry (with the
     # erf weights) and the per-bin-list entry on 32-px lists (without)
     table_tx = fine.feature_table(points_tx, isg_tx)
     bp_tx = vt.ops.rasterize_coarse(*cams_tx, points_tx, isg_tx, TEX_HW, 0.01, 32, 64)
@@ -1519,6 +1662,20 @@ def main():
               + (table.shape[0] * 48 if gauss else nbytes(rays)))
         return bound_ms(by, ok.sum().item() * (SLOT_GAUSS_FLOPS if gauss else SLOT_RAY_FLOPS))
 
+    def global_bound(args, idx, stats):
+        """K2's global entry, bytes as above, operations counted two ways:
+        ``all_pairs`` a hit test for every (ray, Gaussian) pair (what the
+        entry did before it culled); ``needed`` a hit test for every pair
+        that passes it (each may enter the top-K: what the function's result
+        needs, however the rest is ruled out).  The kernels line carries the
+        second.  ``cone_tests_ms``: this kernel's one cone test a (block,
+        Gaussian) pair at the card's peak, its own overhead, in no bound."""
+        rays, table = args[0], args[1]
+        every = float(rays.numel() // 3) * (table.shape[0] // rays.shape[0])
+        return dict(all_pairs=select_bound(rays, nbytes(table), idx, every),
+                    needed=select_bound(rays, nbytes(table), idx, stats["passing_pairs"]),
+                    cone_tests_ms=stats["block_pairs"] * CULL_FLOPS / FP32_FLOP_S * 1e3)
+
     k1 = head["k1"]
     P1, win1 = k1[4].shape[1], k1[-1]
     sel_h = fine_select(*k2)
@@ -1545,8 +1702,7 @@ def main():
                               k3b[1].shape[0] * k3b[1].shape[1], k3b[17], k3b[15], k3b[16]),
         "attr_merge_bwd": bound_ms(nbytes(idx4, w4, attrs4, g4) + nbytes(w4, attrs4),
                                    v4 * 4 * attrs4.shape[1]),
-        "fine_select_global": select_bound(
-            k2g[0], nbytes(k2g[1]), sel_sf[0], float(n_sf) * P_sf),
+        "fine_select_global": global_bound(k2g, sel_sf[0], cull_sf)["needed"],
         "fine_bwd_global": bwd_bound(k3g[0], nbytes(k3g[1]), k3g[2:7],
                                      [c for c in k3g[7:11] if c is not None],
                                      k3g[1].shape[0], k3g[12]),
@@ -1609,8 +1765,21 @@ def main():
     k2c = head["k2c"]
     c3 = dict(select_ms=cuda_ms(lambda: fine_select_global(*k2c), 3),
               unified_bwd_ms=statistics.median(turns["unified"]))
-    c3["select_bound_ms"], c3["select_bound_by"] = select_bound(
-        k2c[0], nbytes(k2c[1]), sel_c[0], float(rays_c.numel() // 3) * P_c)
+    gb_c, gb_sf = global_bound(k2c, sel_c[0], cull_c), global_bound(k2g, sel_sf[0], cull_sf)
+    c3["select_bound_ms"], c3["select_bound_by"] = gb_c["needed"]
+    c3["select_bound_all_pairs_ms"] = gb_c["all_pairs"][0]
+    sf_ms = next(k["ms"] for k in kern if k["name"] == "fine_select_global")
+    for tag, gb, ms in (("ShapeFitting", gb_sf, sf_ms), ("300K", gb_c, c3["select_ms"])):
+        need(gb["needed"][0] <= ms, f"fine_select_global at the {tag} shapes beats its bound")
+        print(f"fine_select_global bound at the {tag} shapes: every (ray, Gaussian) pair "
+              f"tested {gb['all_pairs'][0]:.5f} ms by {gb['all_pairs'][1]} (the kernel takes "
+              f"{ms / gb['all_pairs'][0]:.3f} of it); the passing pairs {gb['needed'][0]:.5f} ms "
+              f"by {gb['needed'][1]} (share {gb['needed'][0] / ms:.4f}); beside the bound, the "
+              f"kernel's own cone tests at the card's peak {gb['cone_tests_ms']:.5f} ms")
+    details["fine_select_global_bounds"] = {
+        tag: dict(all_pairs=gb["all_pairs"][0], needed=gb["needed"][0],
+                  cone_tests_ms=gb["cone_tests_ms"])
+        for tag, gb in (("shapefit", gb_sf), ("cloud_300k", gb_c))}
     c3["unified_bound_ms"], c3["unified_bound_by"] = bwd_bound(
         k3c[0], nbytes(k3c[1]), k3c[2:7], [k3c[10]], P_c, True)
     print(f"kernel fine_select_global at the 300K shapes: {c3['select_ms']:.3f} ms, bound "
@@ -1628,10 +1797,52 @@ def main():
     tx["bound_ms"], tx["bound_by"] = select_bound(
         k2tx[0], int(k2tx[4].sum()) * 72 + nbytes(k2tx[4]), idx_tx,
         compacted_pairs(k2tx[2], k2tx[4], *TEX_HW, k2tx[7]))
-    print(f"kernel fine_select at the texture shapes (K = {TEX_K}, the 128 bucket): "
+    print(f"kernel fine_select at the texture shapes (K = {TEX_K}): "
           f"{tx['ms']:.4f} ms, plain {tx['plain_ms']:.4f} ms, bound {tx['bound_ms']:.5f} ms by "
           f"{tx['bound_by']} (share {tx['bound_ms'] / tx['ms']:.4f}), library none")
     details["fine_select_texture"] = tx
+
+    # K2's compacted entry at the 100K cloud, the rows' gather there and at
+    # the texture shapes, and the global entry's glue
+    c_pp = fine.compact_candidates(*cams_p, points_p, isg_p, CLOUD_HW, 0.01, CLOUD_K)
+    tab_pp = fine.candidate_table(points_p, isg_p, c_pp.pos_c)
+    k2p = (ctx_p.rays, tab_pp, c_pp.bits_c, c_pp.ids_c, c_pp.counts_c, c_pp.thr_act, CLOUD_K,
+           c_pp.bin_size, 1.0, None)
+    cp = dict(ms=cuda_ms(lambda: fine_select(*k2p), 20),
+              gather_ms=cuda_ms(lambda: fine.candidate_table(points_p, isg_p, c_pp.pos_c), 20),
+              gather_texture_ms=cuda_ms(
+                  lambda: fine.candidate_table(points_tx, isg_tx, c_tx.pos_c), 20),
+              row_width=tab_pp.shape[1], row_width_texture=tab_tx.shape[1])
+    cp["bound_ms"], cp["bound_by"] = select_bound(
+        k2p[0], int(k2p[4].sum()) * 72 + nbytes(k2p[4]), frag_p.vert_index,
+        compacted_pairs(k2p[2], k2p[4], *CLOUD_HW, k2p[7]))
+    print(f"kernel fine_select at the 100K cloud: {cp['ms']:.4f} ms, bound {cp['bound_ms']:.5f} "
+          f"ms by {cp['bound_by']} (share {cp['bound_ms'] / cp['ms']:.4f}); candidate_table "
+          f"(rows of {cp['row_width']}) {cp['gather_ms']:.4f} ms; at the texture shapes (rows of "
+          f"{cp['row_width_texture']}) {cp['gather_texture_ms']:.4f} ms")
+    details["fine_select_cloud_100k"] = cp
+    th_g, tw_g = cuda_fine.global_tile(False, bs_c)
+    glue = {tag: dict(cull_rows_ms=cuda_ms(lambda: cuda_fine.cull_rows(t, thr_act), 20),
+                      block_cones_ms=cuda_ms(lambda: cuda_fine.block_cones(r, th_g, tw_g), 20))
+            for tag, r, t in (("shapefit", rays_sf, table_sf), ("cloud_300k", rays_c, table_cl))}
+    print("K2 global glue (inside the wrapper's time): " + "; ".join(
+        f"{tag} cull_rows {v['cull_rows_ms']:.4f} ms, block_cones {v['block_cones_ms']:.4f} ms"
+        for tag, v in glue.items()))
+    details["fine_select_global_glue"] = glue
+
+    # the global entry against the same kernel walking every Gaussian (its
+    # reference without the cone cull), in turns (on, off, off, on)
+    def cull_both_ways(args, n):
+        out = {True: [], False: []}
+        for v in (True, False, False, True):
+            out[v].append(cuda_ms(lambda: fine_select_global(*args, _cull=v), n))
+        return dict(on=out[True], off=out[False])
+
+    switches = {"cull_shapefit": cull_both_ways(k2g, 20), "cull_cloud_300k": cull_both_ways(k2c, 2)}
+    for tag, v in switches.items():
+        print(f"K2 global with and without its cull, {tag}: on {v['on'][0]:.4f} / "
+              f"{v['on'][1]:.4f} ms, off {v['off'][0]:.4f} / {v['off'][1]:.4f} ms")
+    details["k2_switches"] = switches
 
     from torch.profiler import ProfilerActivity, profile
 

@@ -97,7 +97,7 @@ def test_emit_kernel_equals_plain(stage):
         assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("K", [5, 20, 40, 80])   # the 8, 32, 64 and 128 buckets
+@pytest.mark.parametrize("K", [5, 20, 40, 80])
 @pytest.mark.parametrize("with_attrs", [False, True])
 def test_select_kernel_matches_plain(stage, K, with_attrs):
     cams, hw, rays, points, isig, colors = stage
@@ -772,3 +772,204 @@ def test_slice_entry_points_default_to_the_card(dev, tmp_path):
                               max_assign=8)
     assert fine_select.launches == before + 1 and frag.vert_index.device.type == "cuda"
     assert (frag.vert_index >= 0).any().item()
+
+
+# ---- K2 on the shared-memory top-K: every entry, every K ---------------------
+
+ALL_K = [5, 8, 16, 20, 25, 32, 64, 80, 128]
+
+
+def _equal_select(got, want):
+    """Selections and len / act / dsd equal to the bit; weights and image
+    within 1e-4."""
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1:4], want[1:4]):
+        assert torch.equal(g, w)
+    for g, w in zip(got[4:], want[4:]):
+        if w is None:
+            assert g is None
+        else:
+            torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("K", ALL_K)
+@pytest.mark.parametrize("entry", ["compacted", "compacted_attrs", "global", "global_bits", "bins"])
+def test_select_entries_equal_plain_at_every_k(stage, entry, K):
+    from voge_tpu_torch.ops.cuda_fine import fine_select_bins, fine_select_bins_plain
+
+    cams, hw, rays, points, isig, colors = stage
+    thr_act = -math.log(0.01 + 1e-10)
+    if entry.startswith("compacted"):
+        c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
+        table = fine.candidate_table(points, isig, c.pos_c)
+        args = (rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K, c.bin_size, 0.9,
+                colors if entry.endswith("attrs") else None)
+        got, want = fine_select(*args), fine_select_plain(*args)
+        assert torch.equal(got[0], fine_select(*args)[0])
+    elif entry.startswith("global"):
+        _, _, args = _global_select(stage, K, "random" if entry.endswith("bits") else "none")
+        got, want = fine_select_global(*args), fine_select_global_plain(*args)
+    else:
+        bp = coarse.rasterize_coarse(*cams, points, isig, hw, 0.01, 10, 150)
+        args = (rays, fine.feature_table(points, isig), bp, thr_act, K, 10)
+        got, want = fine_select_bins(*args), fine_select_bins_plain(*args)
+    torch.cuda.synchronize()
+    assert (got[0] >= 0).any()
+    _equal_select(got, want)
+
+
+def _edge_scene(dev, B, P, seed, behind=0, dup=1, needles=False):
+    """Rays of B small cameras and a (B * P * dup, 16) table: anisotropic
+    Gaussians in front of the camera, ``behind`` of them mirrored behind it,
+    the whole set repeated ``dup`` times (exact ties).  ``needles``: axis
+    ratio 1:100 (Lambda's condition 1e4) in every orientation, spread past
+    the image so that many lie at the edge of a block's cone cull."""
+    rng = np.random.RandomState(seed)
+    H, W = 37, 45
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    d = np.stack([(xx - W / 2 + 0.5) / 40.0, (yy - H / 2 + 0.5) / 40.0,
+                  np.ones_like(xx, dtype=np.float64)], -1)
+    rays = np.stack([d / np.linalg.norm(d, axis=-1, keepdims=True)] * B).astype(np.float32)
+    mus = np.concatenate([rng.uniform(-0.5, 0.5, (B, P, 2)), rng.uniform(2, 4, (B, P, 1))], -1)
+    mus[:, :behind] *= -1.0
+    a = rng.uniform(-1, 1, size=(B, P, 3, 3))
+    lam = (np.einsum("bmij,bmkj->bmik", a, a) + 0.5 * np.eye(3)) * 40.0
+    if needles:
+        mus[..., :2] *= 4.0
+        sig = 0.3 * np.stack([np.ones((B, P)), 10.0 ** (-2.0 * rng.rand(B, P)),
+                              np.full((B, P), 0.01)], -1)
+        q = np.linalg.qr(rng.normal(size=(B, P, 3, 3)))[0]
+        lam = np.einsum("bmij,bmj,bmkj->bmik", q, 1.0 / sig ** 2, q)
+    mus, lam = np.tile(mus, (1, dup, 1)), np.tile(lam, (1, dup, 1, 1))
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    return t(rays), t(mus), t(lam)
+
+
+@pytest.mark.parametrize("case", ["ties", "behind", "one_image", "few", "short_rows", "needles"])
+def test_select_edge_cases_equal_plain(dev, case):
+    """Exact ties (an earlier candidate wins), Gaussians behind the camera
+    (selected like any other), B = 1, fewer Gaussians than K, compacted
+    rows with an empty supertile and one whose count is 0, and needles of
+    axis ratio 1:100 at the edge of the blocks' cone cull (some behind the
+    camera): the culled kernel against the plain version in float32."""
+    from voge_tpu_torch.ops import cuda_fine
+
+    thr_act = -math.log(0.01 + 1e-10)
+    B, P, K = (1, 333, 20) if case == "one_image" else (2, 150, 20)
+    if case == "few":
+        P, K = 7, 25
+    if case == "needles":
+        P = 900
+    rays, mus, lam = _edge_scene(dev, B, P, 21,
+                                 behind={"behind": 40, "needles": 90}.get(case, 0),
+                                 dup=3 if case == "ties" else 1, needles=case == "needles")
+    table = fine.feature_table(mus, lam)
+    if case != "short_rows":
+        args = (rays, table, None, thr_act, K, 6, 1.0)
+        got, want = fine_select_global(*args), fine_select_global_plain(*args)
+        _equal_select(got, want)
+        valid = got[0] >= 0
+        assert valid.any()
+        if case == "needles":
+            for a, b in zip(got, fine_select_global(*args, _cull=False)):
+                assert torch.equal(a, b)
+            th, tw = cuda_fine.global_tile(False, 6)
+            cones, rows = cuda_fine.block_cones(rays[:1], th, tw), cuda_fine.cull_rows(
+                table[:P], thr_act)
+            mask = cuda_fine.cull_mask_plain(cones, rows)
+            assert 0.1 < mask.float().mean() < 0.95
+            near = rows * torch.tensor([1.0, 1.0, 1.0, 0.95], device=dev)
+            assert (mask ^ cuda_fine.cull_mask_plain(cones, near)).any()   # pairs at the bound
+        if case == "ties":     # the three copies of a Gaussian tie: ascending ids win
+            same = (got[1][..., 1:] == got[1][..., :-1]) & valid[..., 1:]
+            assert same.any() and (got[0][..., 1:] > got[0][..., :-1])[same].all()
+        if case == "behind":
+            assert (got[1][valid] < 0).any()
+        return
+    nb = B * math.prod(coarse.supertile_grid(37, 45, 6))
+    M = 256
+    gen = torch.Generator(dev).manual_seed(8)
+    pos = torch.stack([torch.randperm(P, device=dev, generator=gen).sort().values
+                       for _ in range(nb)])[:, :M].to(torch.int32)
+    pos = torch.nn.functional.pad(pos, (0, M - pos.shape[1]))
+    counts = torch.randint(0, P + 1, (nb,), device=dev, generator=gen).to(torch.int32)
+    counts[0], counts[nb // 2] = 0, 0
+    bits = torch.randint(1, 16, (nb, M), device=dev, generator=gen).to(torch.int32)
+    img = torch.arange(nb, device=dev)[:, None] // (nb // B)
+    occupied = torch.arange(M, device=dev)[None] < counts[:, None]
+    ids = torch.where(occupied, img * P + pos, -1).to(torch.int32)
+    table_c = table[(img * P + pos).reshape(-1)].reshape(nb, M, 16).contiguous()
+    args = (rays, table_c, bits, ids, counts, thr_act, K, 6, 0.8, None)
+    got, want = fine_select(*args), fine_select_plain(*args)
+    _equal_select(got, want)
+    assert (got[0] >= 0).any()
+
+
+@pytest.mark.parametrize("K", [20, 80])
+def test_global_select_is_the_same_with_and_without_the_cull(stage, K):
+    """The cone cull drops only pairs the hit test would reject: every output
+    bit equals the kernel's without it; two runs equal to the bit.  The glue
+    kernels count their launches, one each a culled call and none otherwise."""
+    from voge_tpu_torch.ops import cuda_fine
+
+    _, _, args = _global_select(stage, K, "none")
+    glue = (cuda_fine.cull_rows, cuda_fine.block_cones)
+    before = [fn.launches for fn in glue]
+    culled = fine_select_global(*args)
+    again = fine_select_global(*args)
+    assert [fn.launches for fn in glue] == [n + 2 for n in before]
+    plain_walk = fine_select_global(*args, _cull=False)
+    assert [fn.launches for fn in glue] == [n + 2 for n in before]
+    torch.cuda.synchronize()
+    for a, b, c in zip(culled, again, plain_walk):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    th, tw = cuda_fine.global_tile(False, 10)
+    mask = cuda_fine.cull_mask_plain(
+        cuda_fine.block_cones(args[0][:1], th, tw),
+        cuda_fine.cull_rows(args[1][:args[1].shape[0] // args[0].shape[0]], args[3]))
+    assert 0 < mask.float().mean() < 1
+
+
+def test_renderer_takes_numpy_camera_kwargs_on_the_card(dev):
+    """``renderer(gmesh, R=R, T=T)`` with numpy arrays beside cameras on the
+    card renders, equal to the call with card tensors to the bit."""
+    g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 1000, percentage=0.6,
+                                         as_obj=True, device=dev)
+    R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70, device=dev)
+    cam = vt.PerspectiveCameras(focal_length=150.0, principal_point=((64.0, 64.0),),
+                                image_size=((128, 128),), device=dev)
+    rend = vt.GaussianRenderer(cam, vt.GaussianRenderSettings(image_size=(128, 128)))
+    want = rend(g, R=R, T=T)
+    got = rend(g, R=R.cpu().numpy().astype(np.float64), T=T.cpu().numpy())
+    assert got.vert_index.device.type == "cuda" and (got.vert_index >= 0).any()
+    for name in ("vert_index", "vert_weight", "vert_hit_length"):
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+
+
+@pytest.mark.parametrize("tile", [(8, 16), (20, 20), (13, 7)])
+def test_cull_glue_kernels_match_plain(stage, tile):
+    """The cull rows and block cones computed on the card against their plain
+    versions (float64 inside both): to 1e-6, q to a relative 1e-5, the same
+    rows never culled; a ray that is not finite gives a cone that culls
+    nothing."""
+    from voge_tpu_torch.ops import cuda_fine
+
+    _, _, rays, points, isig, _ = stage
+    table = fine.feature_table(points, isig).clone()
+    table[3, 4] = -1.0          # not positive definite
+    table[5, 13:16] = 0.0       # at the camera
+    table[9, 8] = float("nan")
+    thr_act = -math.log(0.01 + 1e-10)
+    rows, want = cuda_fine.cull_rows(table, thr_act), cuda_fine.cull_rows_plain(table, thr_act)
+    assert torch.equal(rows[:, 3] > 0, want[:, 3] > 0) and (rows[:, 3] > 0).any()
+    assert not rows[[3, 5, 9]].any()
+    torch.testing.assert_close(rows[:, :3], want[:, :3], rtol=0, atol=1e-6)
+    torch.testing.assert_close(rows[:, 3], want[:, 3], rtol=1e-5, atol=0)
+    rays = rays.clone()
+    rays[1, 30, 40, 2] = float("inf")
+    cones, want = cuda_fine.block_cones(rays, *tile), cuda_fine.block_cones_plain(rays, *tile)
+    assert cones.shape == want.shape
+    assert torch.equal(torch.isnan(cones[:, 3]), torch.isnan(want[:, 3]))
+    assert torch.isnan(cones[:, 3]).any() and not torch.isnan(cones[:, 3]).all()
+    ok = ~torch.isnan(want[:, 3])
+    torch.testing.assert_close(cones[ok], want[ok], rtol=0, atol=1e-6)

@@ -267,7 +267,7 @@ def test_paths_not_ported_raise():
     R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70, device="cpu")
     args = (g.verts, g.sigmas, R, T, torch.tensor([[30.0, 30.0]]), torch.tensor([[16.0, 16.0]]))
     for mppb in (None, -1):
-        with pytest.raises(NotImplementedError, match="item 15"):
+        with pytest.raises(NotImplementedError, match="item 6"):
             vt.render_pipeline(*args, image_size=(32, 32), max_assign=129,
                                max_point_per_bin=mppb)
     # no coarse stage renders now, and culls nothing

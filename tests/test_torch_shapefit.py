@@ -239,7 +239,7 @@ def test_fit_samples_the_same_views_as_voge_tpu():
 
 def test_shape_fitter_refuses_a_mesh():
     verts, isig, colors, _, _, focal, principal = _scene()[:7]
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         vt.ShapeFitter({"verts": verts}, {"sigmas": isig, "colors": colors}, image_size=HW,
                        focal=focal[0], principal=principal[0], mesh=object(), device="cpu")
 

@@ -279,6 +279,6 @@ def test_ray_tracing_fine_checks_its_arguments():
     mus, isig, rays, bp, hw = _fine_case()
     with pytest.raises(AssertionError):
         tops.ray_tracing_fine(t(mus)[None], t(isig), t(rays), t(bp), 0.01, 10, 4)
-    with pytest.raises(NotImplementedError, match="item 15"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         tops.ray_tracing_fine(t(mus), t(isig), t(rays), t(bp), 0.01, 10, 200)
     assert tfine.ray_tracing_fine is tops.ray_tracing_fine

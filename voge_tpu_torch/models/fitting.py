@@ -54,7 +54,7 @@ class ShapeFitter:
         if mesh is not None:
             raise NotImplementedError(
                 "ShapeFitter(mesh=...) (sharded renders) is not ported yet: "
-                "ROADMAP queue 1, item 12")
+                "ROADMAP queue 1, item 9")
         self.device = resolve_device(device, *params.values())
         as_f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self.device)
         self.params = {k: as_f32(v).detach().clone().requires_grad_(True)

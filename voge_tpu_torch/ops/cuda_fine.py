@@ -16,20 +16,28 @@ attribute image.  The candidates of a supertile are its emission-compacted
 rows (compacted entry) or every Gaussian of its image in ascending index
 (global entry).  Outputs are in image layout.
 
-Bound on the H100: latency, not throughput: each thread walks its
-supertile's candidate rows in order, and the densest supertile sets the time
-(see the source note); on the global entry every ray walks all of its
-image's Gaussians (no culling).  Design: one thread per ray, 128 rays per block,
-candidate rows staged through shared memory, the running top-K in registers
-(K bucket template, unrolled stable insertion), compiled with
-``-fmad=false`` so that len / act / dsd equal :func:`fine_select_plain`'s
-bit for bit.
+Bound on the H100: latency, not throughput (the work is small against the
+card's rates; a thread walks its candidates in order and each pair costs a
+division and four shared-memory reads).  Design (see the source note): one
+thread per ray, 128 rays per block; the running top-K in shared memory as
+(len, position), slot-major, at any K up to 128 (one code path, no K
+buckets), with act / dsd of the kept candidates computed again at the flush;
+candidates examined 512 at a time and only those that can matter to the
+block packed into shared memory in ascending position (sub-bin bits, list
+ids, and on the global entry a cone cull proven conservative:
+:func:`cull_rows`, :func:`block_cones`, :func:`cull_mask_plain`, the first
+two small kernels of their own on the card); rows copied by ``cp.async``
+while the next candidates are examined; accepted candidates entering the
+list on a warp vote; blocks of 8 x 16 pixels on the global entry without a
+bits plane.  Compiled with ``-fmad=false`` so that len / act / dsd equal
+:func:`fine_select_plain`'s bit for bit.
 
 The forward runs inside ``ops.fine.FineSelect`` / ``FineSelectGlobal``,
 whose backward is K3 (``ops/cuda_fine_bwd.py``).
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
@@ -42,11 +50,19 @@ from voge_tpu_torch.ops.coarse import supertile_grid
 from voge_tpu_torch.ops.cuda_attr import attr_merge_plain
 
 FEAT = 16          # feature row: A(3), msm, Lambda(9), mu(3)
-MAX_K = 128        # largest K bucket the kernel is built for
+MAX_K = 128        # largest K the kernel takes (K KB of shared memory a block)
 _INF = 1e10
 _E_HALF = 1.6487212707001282
 # dense (rows x candidates) elements the plain version evaluates at once
 _PLAIN_CHUNK = 1 << 24
+_BLOCK_RAYS = 128          # rays a block of the kernel holds
+_GLOBAL_TILE = (8, 16)     # the global entry's ray tile without a bits plane
+# The cone cull's slack (proof in the source note of csrc/fine_select.cu):
+# off the sine of the angle between a Gaussian's line and the cone's edge,
+# on the threshold, on the cone's half-angle, and off the eigenvalue bound
+# in units of ||Lambda||_F.
+_CULL_EPS, _CULL_MARGIN, _CONE_SLACK, _EIG_SLACK = 1e-4, 1e-3, 1e-6, 4e-6
+_EIG_NEWTON_STEPS = 6
 
 
 def _tiles(x, th: int, tw: int, fill=0):
@@ -86,7 +102,7 @@ def _check_args(rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs):
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
             f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
-            "waits for the dense path (ROADMAP queue 1, item 15)")
+            "waits for the dense path (ROADMAP queue 1, item 6)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     check(table_c, "table_c", torch.float32, (nb, M, FEAT))
     check(bits_c, "bits_c", torch.int32, (nb, M))
@@ -97,6 +113,25 @@ def _check_args(rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs):
         if attrs.ndim != 2:
             raise ValueError(f"attrs: expected (rows, d), got {tuple(attrs.shape)}")
     return B, H, W, BH2, BW2, nb, M
+
+
+def hit_plain(f, r):
+    """The hit test in the kernel's operation order: feature rows ``f``
+    (..., 16) against ray components ``r`` (three tensors broadcastable to
+    ``f``'s leading shape) -> (len, act, dsd)."""
+    rr = [r[i] * r[j] for i in range(3) for j in range(3)]
+    msk = f[..., 0] * r[0]
+    msk = msk + f[..., 1] * r[1]
+    msk = msk + f[..., 2] * r[2]
+    ksk = f[..., 4] * rr[0]
+    for q in range(1, 9):
+        ksk = ksk + f[..., 4 + q] * rr[q]
+    length = msk / ksk
+    d = [f[..., 13 + i] - length * r[i] for i in range(3)]
+    e = [(d[0] * f[..., 4 + j] + d[1] * f[..., 7 + j]) + d[2] * f[..., 10 + j]
+         for j in range(3)]
+    act = (e[0] * d[0] + e[1] * d[1]) + e[2] * d[2]
+    return length, act, ksk
 
 
 def _select_tiles_plain(r_all, table_c, ids_c, member, thr_act: float, K: int):
@@ -121,18 +156,7 @@ def _select_tiles_plain(r_all, table_c, ids_c, member, thr_act: float, K: int):
         s1 = min(nb, s0 + step)
         f = table_c[s0:s1, None, :, :]                          # (n, 1, M, 16)
         r = [r_all[s0:s1, :, i, None] for i in range(3)]        # (n, R, 1)
-        rr = [r[i] * r[j] for i in range(3) for j in range(3)]
-        msk = f[..., 0] * r[0]
-        msk = msk + f[..., 1] * r[1]
-        msk = msk + f[..., 2] * r[2]
-        ksk = f[..., 4] * rr[0]
-        for q in range(1, 9):
-            ksk = ksk + f[..., 4 + q] * rr[q]
-        length = msk / ksk
-        d = [f[..., 13 + i] - length * r[i] for i in range(3)]
-        e = [(d[0] * f[..., 4 + j] + d[1] * f[..., 7 + j]) + d[2] * f[..., 10 + j]
-             for j in range(3)]
-        act = (e[0] * d[0] + e[1] * d[1]) + e[2] * d[2]
+        length, act, ksk = hit_plain(f, r)
         ok = (act < thr_act) & member(s0, s1)
         lm = torch.where(ok, length, _INF)
         vals, order = torch.sort(lm, dim=-1, stable=True)
@@ -246,7 +270,7 @@ def _check_global(rays, table, bits, K, bin_size):
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
             f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
-            "waits for the dense path (ROADMAP queue 1, item 15)")
+            "waits for the dense path (ROADMAP queue 1, item 6)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     if table.ndim != 2 or table.shape[0] % B or table.shape[0] == 0:
         raise ValueError(f"table: expected (B * P, {FEAT}) with B={B}, got {tuple(table.shape)}")
@@ -277,15 +301,157 @@ def fine_select_global_plain(rays, table, bits, thr_act: float, K: int,
                              bin_size, agg_ow)[:5]
 
 
+def global_tile(with_bits: bool, bin_size: int):
+    """(height, width) in pixels of the ray tile a group of the global
+    entry's blocks takes: the supertile when a bits plane names sub-bins,
+    else 8 x 16 pixels of the image (one block, a narrow cone)."""
+    return (2 * bin_size, 2 * bin_size) if with_bits else _GLOBAL_TILE
+
+
+@torch.no_grad()
+def cull_rows_plain(table: torch.Tensor, thr_act: float) -> torch.Tensor:
+    """Plain version of :func:`cull_rows`: (N, 4) float32 cull rows ``(u, q)``
+    of the feature rows ``table`` (N, 16): ``u = mu / |mu|`` and ``q = lo |mu|^2 / (thr_act (1 + 1e-3))``,
+    where ``lo`` is a lower bound of the least eigenvalue of Lambda's
+    symmetric part less ``4e-6 ||Lambda||_F``.  ``q`` is 0 (the Gaussian is
+    never culled) when ``|mu|`` is ~0, ``lo <= 0``, ``thr_act <= 0`` or
+    anything is not finite.
+
+    The eigenvalue bound, in float64: for a symmetric positive definite 3x3
+    matrix ``det / (trace / 2)^2 <= lambda_min`` (the other two eigenvalues'
+    product is at most the square of their mean); from there Newton's
+    iteration on the characteristic polynomial, which left of its least
+    root is positive, decreasing and convex, rises monotonically and never
+    passes the root.
+    """
+    f64 = torch.float64
+    L = table[:, 4:13].to(f64).reshape(-1, 3, 3)
+    S = 0.5 * (L + L.transpose(1, 2))
+    mu = table[:, 13:16].to(f64)
+    a, b, c = S[:, 0, 0], S[:, 1, 1], S[:, 2, 2]
+    d, e, f = S[:, 0, 1], S[:, 0, 2], S[:, 1, 2]
+    tr = a + b + c
+    c2 = (a * b - d * d) + (a * c - e * e) + (b * c - f * f)
+    det = a * (b * c - f * f) - d * (d * c - f * e) + e * (d * f - b * e)
+    spd = (tr > 0) & (c2 > 0) & (det > 0)
+    x = torch.where(spd, det / (0.5 * tr) ** 2, 0.0)
+    for _ in range(_EIG_NEWTON_STEPS):
+        p = ((tr - x) * x - c2) * x + det          # det(S - x I)
+        dp = (2.0 * tr - 3.0 * x) * x - c2
+        x = torch.where(spd & (p > 0) & (dp < 0), x - p / dp, x)
+    lo = x - _EIG_SLACK * L.flatten(1).norm(dim=1)
+    n2 = (mu * mu).sum(1)
+    q = lo * n2 / (thr_act * (1.0 + _CULL_MARGIN)) if thr_act > 0 else torch.zeros_like(lo)
+    u = mu / n2.sqrt()[:, None]
+    ok = spd & (q > 0) & (n2 > 1e-20) & torch.isfinite(q) & torch.isfinite(u).all(1)
+    row = torch.cat([u, q.clamp(max=1e30)[:, None]], dim=1)
+    return torch.where(ok[:, None], row, 0.0).to(torch.float32).contiguous()
+
+
+@torch.no_grad()
+def block_cones_plain(rays: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """Plain version of :func:`block_cones`: (n_tiles * n_chunks, 8) float32
+    cones ``(c, sin theta, cos theta, 0, 0, 0)`` of the kernel's ray blocks: the rays (B, H, W, 3) in tiles of
+    ``th`` x ``tw`` pixels (row-major over the image, rays row-major in the
+    tile) and each tile's rays in chunks of 128.  ``c`` is the unit mean
+    direction of the block's rays inside the image and ``theta`` the largest
+    angle between one of them and ``c``, computed in float64 and widened by
+    1e-6, at most pi / 2 (then nothing is culled).  A block with no ray in
+    the image, or with a ray that is not finite, gets NaN and culls nothing.
+    """
+    f64 = torch.float64
+    B, H, W, _ = rays.shape
+    t = _tiles(rays.to(f64), th, tw, float("nan"))                # (nt, th*tw, 3)
+    nt, R, _ = t.shape
+    nchunk = (R - 1) // _BLOCK_RAYS + 1
+    if nchunk * _BLOCK_RAYS != R:
+        t = torch.cat([t, t.new_full((nt, nchunk * _BLOCK_RAYS - R, 3), float("nan"))], dim=1)
+    inside = _tiles(torch.ones((B, H, W, 1), dtype=torch.bool, device=rays.device), th, tw,
+                    False)
+    if nchunk * _BLOCK_RAYS != R:
+        inside = torch.cat([inside, inside.new_zeros((nt, nchunk * _BLOCK_RAYS - R, 1))], dim=1)
+    t = t.reshape(nt * nchunk, _BLOCK_RAYS, 3)
+    inside = inside.reshape(nt * nchunk, _BLOCK_RAYS)
+    unit = t / t.norm(dim=-1, keepdim=True)
+    axis = torch.where(inside[..., None], unit, 0.0).sum(1)
+    axis = axis / axis.norm(dim=-1, keepdim=True)
+    cos = (unit * axis[:, None, :]).sum(-1)
+    cos = torch.where(inside, cos, 1.0).min(dim=1).values     # a NaN ray gives NaN
+    theta = (torch.acos(cos.clamp(-1.0, 1.0)) + _CONE_SLACK).clamp(max=0.5 * torch.pi)
+    theta = torch.where(inside.any(1), theta, float("nan"))
+    zero = torch.zeros_like(theta)
+    cone = torch.stack([axis[:, 0], axis[:, 1], axis[:, 2], torch.sin(theta),
+                        torch.cos(theta), zero, zero, zero], dim=1)
+    return cone.to(torch.float32).contiguous()
+
+
+def cull_rows(table: torch.Tensor, thr_act: float) -> torch.Tensor:
+    """(N, 4) float32 cull rows of the feature rows ``table`` (N, 16) for
+    K2's global entry: a small kernel of ``csrc/fine_select.cu`` on the card,
+    :func:`cull_rows_plain` (which documents them) on the CPU."""
+    if not on_cuda(table):
+        return cull_rows_plain(table, thr_act)
+    check(table, "table", torch.float32, (table.shape[0], FEAT))
+    out = torch.empty((table.shape[0], 4), dtype=torch.float32, device=table.device)
+    fn = load("fine_select").voge_cull_rows
+    fn.argtypes = [VOIDP, VOIDP, LONG, ctypes.c_double, VOIDP]
+    fn.restype = INT
+    raise_on_error(fn(ptr(table), ptr(out), table.shape[0], thr_act, stream(table.device)),
+                   "cull_rows")
+    cull_rows.launches += 1
+    return out
+
+
+cull_rows.launches = 0
+
+
+def block_cones(rays: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """(n_tiles * n_chunks, 8) float32 cones of the kernel's ray blocks for
+    K2's global entry: a small kernel of ``csrc/fine_select.cu`` on the card,
+    :func:`block_cones_plain` (which documents them) on the CPU."""
+    if not on_cuda(rays):
+        return block_cones_plain(rays, th, tw)
+    B, H, W, _ = rays.shape
+    check(rays, "rays", torch.float32, (B, H, W, 3))
+    TH, TW = (H - 1) // th + 1, (W - 1) // tw + 1
+    nchunk = (th * tw - 1) // _BLOCK_RAYS + 1
+    out = torch.empty((B * TH * TW * nchunk, 8), dtype=torch.float32, device=rays.device)
+    fn = load("fine_select").voge_block_cones
+    fn.argtypes = [VOIDP, VOIDP] + [INT] * 7 + [VOIDP]
+    fn.restype = INT
+    raise_on_error(fn(ptr(rays), ptr(out), B * TH * TW, H, W, th, tw, TW, TH * TW,
+                      stream(rays.device)), "block_cones")
+    block_cones.launches += 1
+    return out
+
+
+block_cones.launches = 0
+
+
+def cull_mask_plain(cones: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """(n_blocks, N) bool: the pairs (block, Gaussian) the kernel's cull
+    drops, from ``cones`` (n_blocks, 8) and cull ``rows`` (N, 4) of one image,
+    in the kernel's float32 operation order."""
+    c = [cones[:, i, None] for i in range(5)]
+    u = [rows[None, :, i] for i in range(4)]
+    t = ((u[0] * c[0] + u[1] * c[1]) + u[2] * c[2]).abs()
+    x0 = u[1] * c[2] - u[2] * c[1]
+    x1 = u[2] * c[0] - u[0] * c[2]
+    x2 = u[0] * c[1] - u[1] * c[0]
+    sp = torch.sqrt((x0 * x0 + x1 * x1) + x2 * x2)
+    sd = (sp * c[4] - t * c[3]) - _CULL_EPS
+    return (sd > 0) & (u[3] * (sd * sd) >= 1.0)
+
+
 def _kernel_global():
     fn = load("fine_select").voge_fine_select_global
-    fn.argtypes = [VOIDP] * 8 + [INT] * 8 + [FLOAT, FLOAT, VOIDP]
+    fn.argtypes = [VOIDP] * 10 + [INT] * 10 + [FLOAT, FLOAT, VOIDP]
     fn.restype = INT
     return fn
 
 
 def fine_select_global(rays, table, bits, thr_act: float, K: int,
-                       bin_size: int, agg_ow: float):
+                       bin_size: int, agg_ow: float, *, _cull: bool = True):
     """Select the K nearest passing Gaussians of every pixel over the global
     candidate space: every Gaussian of the pixel's image, in ascending index
     (the no-coarse path; ``voge_tpu``'s ``fine_select_mask_pallas``).
@@ -296,6 +462,10 @@ def fine_select_global(rays, table, bits, thr_act: float, K: int,
         n-th Gaussian of image b
     :param bits: (nb, P) int32 sub-bin membership bits of each supertile
         (nb = B * BH2 * BW2), or None: every Gaussian is a member everywhere
+    :param _cull: a reference for checks and measurements, not an option of
+        the path: False walks every Gaussian (the same kernel without its
+        cone cull; the same bits, slower), which reaches image sizes the
+        dense plain version cannot
     :return: (idx (B,H,W,K) int32 ids ``b * P + n``, len, act, dsd, w
         (B,H,W,K) float32); empty slots hold idx -1, len / act 1e10, dsd 0,
         w 0
@@ -307,10 +477,15 @@ def fine_select_global(rays, table, bits, thr_act: float, K: int,
     f32 = dict(dtype=torch.float32, device=dev)
     idx = torch.empty((B, H, W, K), dtype=torch.int32, device=dev)
     sl, sa, sd, w = (torch.empty((B, H, W, K), **f32) for _ in range(4))
+    th, tw = global_tile(bits is not None, bin_size)
+    TH, TW = (H - 1) // th + 1, (W - 1) // tw + 1
+    cull = cones = None
+    if _cull:
+        cull, cones = cull_rows(table, thr_act), block_cones(rays, th, tw)
     err = _kernel_global()(
-        ptr(rays), ptr(table), ptr(bits), ptr(idx), ptr(sl), ptr(sa), ptr(sd),
-        ptr(w), nb, H, W, bin_size, BW2, BH2 * BW2, P, K, thr_act, agg_ow,
-        stream(dev),
+        ptr(rays), ptr(table), ptr(bits), ptr(cull), ptr(cones), ptr(idx),
+        ptr(sl), ptr(sa), ptr(sd), ptr(w), B * TH * TW, H, W, bin_size, th, tw,
+        TW, TH * TW, P, K, thr_act, agg_ow, stream(dev),
     )
     raise_on_error(err, "fine_select_global")
     fine_select_global.launches += 1
@@ -327,7 +502,7 @@ def _check_bins(rays, table, bin_points, K, bin_size):
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
             f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
-            "waits for the dense path (ROADMAP queue 1, item 15)")
+            "waits for the dense path (ROADMAP queue 1, item 6)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     if table.ndim != 2 or table.shape[0] == 0:
         raise ValueError(f"table: expected (rows, {FEAT}), got {tuple(table.shape)}")

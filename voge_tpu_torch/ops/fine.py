@@ -16,12 +16,15 @@ two-stage tracer's second stage :func:`ray_tracing_fine`.
   ``fine.py:1303-1338``, and the ``_rt_fine_kern`` custom VJP,
   ``fine.py:695-966``): no K1 and no sort; every Gaussian of an image is a
   candidate of every pixel, in ascending index (``voge_tpu``'s CPU
-  candidate order, so ties break the same way; the TPU path's culling mask
-  is not copied, ROADMAP queue 3 item 2).  K2's global entry reads the
-  (B * P, 16) feature table in place, K3's global entry sums each
-  Gaussian's gradient over its slots, and attributes go through the
-  attribute merge (K3f / K4b).  Rays are tiled in the same supertiles;
-  nothing is culled and ``overflow_points`` is 0.
+  candidate order, so ties break the same way; the TPU path's culling mask,
+  whose bound is not proven conservative, is not copied).  K2's global entry
+  reads the (B * P, 16) feature table in place and skips, block by block,
+  only the Gaussians a cone bound proves no ray of the block can pass
+  (``ops.cuda_fine.cull_rows`` / ``block_cones``; the proof is in
+  ``csrc/fine_select.cu``), so its results are those of testing every pair;
+  K3's global entry sums each Gaussian's gradient over its slots, and
+  attributes go through the attribute merge (K3f / K4b).  Nothing is
+  truncated and ``overflow_points`` is 0.
 
 - Two-stage (``ops.coarse.rasterize_coarse`` then :func:`ray_tracing_fine`,
   reference ``RayTracing.py:76-95``; ``fine.py:1158-1182``, the chain
@@ -106,7 +109,7 @@ def _check_k(n_assign: int):
     if n_assign > MAX_K:
         raise NotImplementedError(
             f"max_assign={n_assign} > {MAX_K} is not ported yet: ROADMAP "
-            "queue 1, item 15 (dense large-K dispatch)")
+            "queue 1, item 6 (dense large-K dispatch)")
 
 
 def _gauss_feature_planes_batched(mus: torch.Tensor, isigmas: torch.Tensor):
@@ -152,10 +155,14 @@ def compact_candidates(R, T, focal, principal, points: torch.Tensor,
     BH2, BW2 = supertile_grid(H, W, bs)
     nst = BH2 * BW2
     cc = _pick_cand_chunk(P)
-    # voge_tpu's padded Gaussian count (its chunk widths' lcm, 1024)
-    P_pad = _ceil_to(max(P, 1024), 1024)
-    m_min = mppb if (max_points_per_bin is not None and max_points_per_bin > 0) else 0
-    M_floor = _pick_m_max(P_pad, nst, cc, 4 * m_min)
+    # Rows are sized from the sorted counts: the densest supertile rounded up
+    # to ``cc``.  ``voge_tpu``'s static capacity heuristic stays a floor only
+    # where the caller asked for a capacity (a positive ``max_point_per_bin``).
+    M_floor = 0
+    if max_points_per_bin is not None and max_points_per_bin > 0:
+        # voge_tpu's padded Gaussian count (its chunk widths' lcm, 1024)
+        P_pad = _ceil_to(max(P, 1024), 1024)
+        M_floor = _pick_m_max(P_pad, nst, cc, 4 * mppb)
     pos_c, bits_c, ids_c, counts_c, overflow_c, dst = emit_supertile_candidates(
         R, T, focal, principal, points, isigmas, (H, W), thr, bs, M_floor,
         row_align=cc, return_dst=True,

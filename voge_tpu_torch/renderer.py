@@ -165,7 +165,7 @@ def render_pipeline(
     :param camera_grad: False declares the camera pose not differentiated:
         the backward skips the ray gradient and its per-ray reduction
     :param max_point_per_bin: None for the default coarse stage, -1 for none
-        (every Gaussian a candidate of every pixel, nothing culled)
+        (every Gaussian a candidate of every pixel, nothing truncated)
     :param attrs: optional (N, d) or (B, N, d) attributes; the fragments then
         carry ``attr_img = interpolate_attr(frag, attrs)``, computed in the
         select kernel (by the attribute merge without a coarse stage)
@@ -228,7 +228,10 @@ class GaussianRenderer(nn.Module):
             raise ValueError("Got NDC camera. Cameras.in_ndc must be set to false.")
         for name in self.to_set_args:
             if name in kwargs:
-                setattr(self.cameras, name, torch.as_tensor(kwargs[name]))
+                # any array (numpy, list, CPU tensor, float64), as voge_tpu
+                # takes: one device and one dtype with the cameras
+                setattr(self.cameras, name, torch.as_tensor(
+                    kwargs[name], dtype=self.cameras.dtype, device=self.cameras.device))
         verts, sigmas, _radians = gmeshes()
         s = self.render_settings
         B = max(self.cameras.R.shape[0], 1 if verts.ndim == 2 else verts.shape[0])
