@@ -1,8 +1,7 @@
 """Drive the voge_tpu_torch render, its fitting step, the no-coarse
 ShapeFitting trainer, texture extraction, the two-stage public tracer, the
 point-cloud renders (100,000 points forward; 300,000 points forward +
-backward on the split global backward) and pose scoring / refinement on one
-NVIDIA GPU and check them.
+backward) and pose scoring / refinement on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -10,25 +9,33 @@ Run from the root of a checkout.  Phases:
   1. the card (nvidia-smi name and power limit) and the kernel build from
      ``voge_tpu_torch/csrc``, one ``nvcc`` per source, all at once (build
      seconds, ptxas register / spill report; K2's registers, spills and
-     shared memory per instantiation and its resident blocks by K);
+     shared memory per instantiation and its resident blocks by K; K3's
+     per-slot and per-Gaussian kernels' and the fold's registers and spills);
   2. each kernel against its plain PyTorch version on the card, on a 1K
      scene at 128x128 and on the 10K-Gaussian headline at 256x256: K1
      exact; K2 at K = 5 and 20, with and without attributes, and all three
      of its entries at K = 5, 8, 16, 20, 25, 32, 64, 80 and 128 on the 1K
      scene (selections, len, act, dsd equal bit for bit, with and without a
      random bits plane, two runs equal); K3f; the fold,
-     K3 (with and without attributes, with and without ray gradients) and
-     K4b with cotangents from a seeded ``torch.Generator``; then, at the
+     K3 (per-Gaussian rows; with and without attributes, with and without
+     ray gradients, two runs equal to the bit) and K4b with cotangents from
+     a seeded ``torch.Generator``; K3 and the fold also at K = 5, 40, 80 and
+     128 on the 1K scene and on the headline scene seen by 8 cameras (the
+     pose batch, ray gradients); then, at the
      ShapeFitting shapes (5 views, 2,562 Gaussians, 128x128, K = 25), K2's
      global entry (with and without a random sub-bin bits plane, selections
      exact; the share of (block, Gaussian) pairs its cone cull drops and the
-     pairs that pass, here and at the 300,000-point cloud) and K3's global entry (with and without ray gradients, with the
-     weight cotangent set and zero); at the texture shapes (10,242
+     pairs that pass, here and at the 300,000-point cloud) and K3's global
+     entry (with and without ray gradients, with the weight cotangent set,
+     zero and absent: the skipped fold equal to the bit to a zero g_w); at
+     the texture shapes (10,242
      Gaussians, 256x672, K = 80) the two halves of K4b alone, ``attr_scatter``
      (beside ``index_add_``) and ``attr_dw``, and K2's compacted entry on
      the texture render's rows (K = 80, with and without attributes,
      selections exact; timed and bounded there too); at the headline K2's
-     per-bin-list entry on ``rasterize_coarse``'s lists (selections exact);
+     per-bin-list entry on ``rasterize_coarse``'s lists (selections exact)
+     and K3's global entry on its outputs (no weights: the fold skipped,
+     equal to the bit to a zero g_w);
      the two halves of the split global backward (``fine_bwd_gauss``,
      ``fine_bwd_rays``) at the ShapeFitting shapes and on the 300,000-point
      cloud (320x320, K = 20) with seeded cotangents: each half against its
@@ -80,9 +87,10 @@ Run from the root of a checkout.  Phases:
      - the 300,000-point step, past ``voge_tpu``'s branch point of 262,144
        (``render_pipeline(max_point_per_bin=-1)`` -> ``interpolate_attr`` ->
        ``bench.py``'s loss -> gradients of verts, sigmas, R and T; K2
-       global, K3f, K4b's d_w half, the fold's own entry, the two halves; K3's
-       unified entry not launched): gradients against the unified entry's on
-       the same inputs, two backward runs equal to the bit;
+       global, K3f, K4b's d_w half, K3's unified entry, where ``voge_tpu``
+       takes the fold and the two halves): gradients against the same step
+       on the fold's entry and the two halves, two backward runs equal to
+       the bit;
      - a frozen-scene step on the same cloud (``ray_tracing`` on constant
        points, only the cameras need a gradient): the fold and the per-ray
        half, no per-Gaussian half and no sort of the slot ids;
@@ -99,7 +107,10 @@ Run from the root of a checkout.  Phases:
      was cut to make room), of the point-cloud forward
      and the 300,000-point step (kernel path only: the plain global select
      is dense over rays x Gaussians and cannot exist at that size), of the
-     fold + pair against the unified entry on the same cotangents, of pose
+     fold + pair against the unified entry on the same cotangents at the
+     300K cloud, the ShapeFitting and the two-stage shapes (the split
+     question), of K3's three parts apart (the per-slot kernel, the sort of
+     the slot ids, the per-Gaussian kernel), of pose
      scoring and a refinement step, and of each kernel against its plain version and, where
      one PyTorch call computes the same function, that call; each kernel's
      bound (the larger of its bytes over the card's memory rate and its
@@ -283,7 +294,6 @@ def plain_path():
              (fine, "fine_select_global", cuda_fine.fine_select_global_plain),
              (fine, "fine_bwd_global", cuda_fine_bwd.fine_bwd_global_plain),
              (fine, "fold_weights", cuda_fine_bwd.fold_weights_plain),
-             (fine, "fine_bwd_gauss", cuda_fine_bwd.fine_bwd_gauss_plain),
              (fine, "fine_bwd_rays", cuda_fine_bwd.fine_bwd_rays_plain),
              (cuda_attr, "attr_merge", cuda_attr.attr_merge_plain),
              (cuda_attr, "attr_merge_bwd", cuda_attr.attr_merge_bwd_plain)]
@@ -652,9 +662,37 @@ def main():
           f"a block reserved; of 65,536 registers at {k2_regs} a thread): " + ", ".join(
               f"K={K} {k2_smem(K)} B -> {k2_blocks(K)}" for K in (5, 20, 25, 32, 64, 80, 128)))
     details["k2_blocks_an_sm"] = {K: k2_blocks(K) for K in (5, 20, 25, 32, 64, 80, 128)}
+    # K3's two kernels and the fold: one code path at every K (no K bucket)
+    details["ptxas_k3"] = {}
+    for lib, kname in (("fine_bwd", "fine_bwd_slots_kernel"), ("fine_bwd", "fine_bwd_runs_kernel"),
+                       ("fold_weights", "fold_kernel")):
+        lines = _build.build_info[lib][1].splitlines()
+        at = next(i for i, line in enumerate(lines) if kname in line and "Compiling" in line)
+        report = " ".join(x.strip() for x in lines[at + 2:at + 4])
+        print(f"ptxas K3 {kname}: {report}")
+        details["ptxas_k3"][kname] = report
 
     # ---- 2. kernels against their plain versions ----------------------
     err = {k: 0.0 for k in KERNELS}
+
+    def hold_k3(tag, name, b_args):
+        """K3's entry ``name`` against its plain version (each output within
+        GRAD_TOL of the plain one's largest entry) and two runs equal to the
+        bit."""
+        kfn, pfn = ((fine_bwd, fine_bwd_plain) if name == "fine_bwd"
+                    else (fine_bwd_global, fine_bwd_global_plain))
+        kb, again, pb = kfn(*b_args), kfn(*b_args), pfn(*b_args)
+        need(kb[0].shape == pb[0].shape == (b_args[1].shape[0], kb[0].shape[1]),
+             f"K3 {tag}: not one row per Gaussian")
+        e = grad_err(kb[0], pb[0], f"K3 rows {tag}")
+        need(torch.equal(kb[0], again[0]), f"K3 {tag}: two runs differ")
+        if b_args[-1]:
+            e = max(e, grad_err(kb[1], pb[1], f"K3 rays {tag}"))
+            need(torch.equal(kb[1], again[1]), f"K3 {tag}: two runs differ")
+        else:
+            need(kb[1] is None and pb[1] is None, f"K3 {tag}: unasked ray gradient")
+        err[name] = max(err[name], e)
+        return kb
     shapes = {"small": (1000, (128, 128), 150.0), "headline": (10000, (256, 256), 300.0)}
     head = {}
     for tag, (n, hw, focal) in shapes.items():
@@ -692,16 +730,14 @@ def main():
                     for a, b in zip(fold_weights(*f_args), fold_weights_plain(*f_args)))
             err["fold_weights"] = max(err["fold_weights"], e)
             # K3 with / without attributes and ray gradients
+            feats = fine.feature_table(points, isig)
             for with_attrs in (False, True):
                 for want_rays in (False, True):
-                    b_args = (rays, table, c.ids_c, c.counts_c, *sel[:5], *g_cot,
-                              c.bin_size, 1.0, colors if with_attrs else None,
+                    b_args = (rays, feats, *sel[:5], *g_cot, 1.0,
+                              colors if with_attrs else None,
                               g_img if with_attrs else None, want_rays)
-                    kb, pb = fine_bwd(*b_args), fine_bwd_plain(*b_args)
-                    e = grad_err(kb[0], pb[0], f"K3 rows {tag} K={K}")
-                    if want_rays:
-                        e = max(e, grad_err(kb[1], pb[1], f"K3 rays {tag} K={K}"))
-                    err["fine_bwd"] = max(err["fine_bwd"], e)
+                    hold_k3(f"{tag} K={K} attrs={with_attrs} rays={want_rays}", "fine_bwd",
+                            b_args)
                     if tag == "headline" and K == 20 and with_attrs and not want_rays:
                         head["k3b"] = b_args
             print(f"fold/K3 {tag}: K={K} max_err/max|plain| fold {err['fold_weights']:.3e} "
@@ -759,6 +795,47 @@ def main():
     print("K2 every entry at K = 5, 8, 16, 20, 25, 32, 64, 80, 128 on the 1K scene: selections, "
           "len, act, dsd equal to the plain versions bit for bit; two runs equal")
 
+    # K3 (compacted entry, attributes, with and without rays) and the fold on
+    # small frames at K = 5, 40, 80, 128: one code path at every K
+    colors1b = colors1.contiguous()
+    for K in (5, 40, 80, 128):
+        c = fine.compact_candidates(*cams1, points1, isig1, (128, 128), 0.01, K)
+        tab = fine.candidate_table(points1, isig1, c.pos_c)
+        sel = fine_select(rays1, tab, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K, c.bin_size,
+                          1.0, colors1b)
+        g_cot = [seeded(sel[1].shape, dev, 100 + q) for q in range(4)]
+        g_img = seeded(rays1.shape, dev, 104)
+        for want_rays in (False, True):
+            hold_k3(f"1K K={K} rays={want_rays}", "fine_bwd",
+                    (rays1, table1, *sel[:5], *g_cot, 1.0, colors1b, g_img, want_rays))
+        f_args = (*sel[1:5], g_cot[3], 1.0)
+        err["fold_weights"] = max(err["fold_weights"], *(
+            grad_err(a, b, f"fold 1K K={K}")
+            for a, b in zip(fold_weights(*f_args), fold_weights_plain(*f_args))))
+    # the headline scene seen by the pose batch's 8 cameras (K = 20, rays)
+    g_b, _, colors_b = head["scene"]
+    Rb, Tb = vt.look_at_view_transform(dist=[6.0] * POSE_B, elev=list(np.linspace(5, 25, POSE_B)),
+                                       azim=list(np.linspace(50, 90, POSE_B)), device=dev)
+    cams_b = (Rb, Tb, torch.tensor([[300.0, 300.0]] * POSE_B, device=dev),
+              torch.tensor([[128.0, 128.0]] * POSE_B, device=dev))
+    rays_b, origins_b = camera_rays(*cams_b, POSE_HW)
+    points_b = g_b.verts.detach()[None] - origins_b[:, None, :]
+    isig_b = 2.0 * expend_sigma(g_b.sigmas.detach())[None].expand(POSE_B, -1, 3, 3)
+    c = fine.compact_candidates(*cams_b, points_b, isig_b, POSE_HW, 0.01, 20)
+    attrs_b = colors_b.repeat(POSE_B, 1).contiguous()
+    sel = fine_select(rays_b, fine.candidate_table(points_b, isig_b, c.pos_c), c.bits_c, c.ids_c,
+                      c.counts_c, c.thr_act, 20, c.bin_size, 1.0, attrs_b)
+    g_cot = [seeded(sel[1].shape, dev, 110 + q) for q in range(4)]
+    for with_attrs in (False, True):
+        hold_k3(f"pose batch B={POSE_B} attrs={with_attrs}", "fine_bwd",
+                (rays_b, fine.feature_table(points_b, isig_b), *sel[:5], *g_cot, 1.0,
+                 attrs_b if with_attrs else None,
+                 seeded(rays_b.shape, dev, 114) if with_attrs else None, True))
+    print(f"K3 / fold at K = 5, 40, 80, 128 on the 1K scene and at B = {POSE_B} on the headline "
+          f"scene: max_err/max|plain| K3 {err['fine_bwd']:.3e} fold {err['fold_weights']:.3e}; "
+          "two runs equal to the bit")
+    del sel, g_cot
+
     # 2b. the global entries of K2 and K3 at the ShapeFitting shapes
     sf = shapefit_scene(dev)
     verts_sf, isig_sf, colors_sf, cams_sf, targets_sf = sf
@@ -794,18 +871,21 @@ def main():
     g_sf = [seeded(sel_sf[1].shape, dev, 50 + q) for q in range(4)]
     # (g_len, g_act, g_dsd, g_w): all set, g_w zero, and the trainer's own
     # configuration (only g_w: the loss reads the weights alone)
-    for cots in (g_sf, g_sf[:3] + [torch.zeros_like(g_sf[3])], [None, None, None, g_sf[3]]):
+    zero_gw = {}
+    for kind, cots in (("all", g_sf), ("zero g_w", g_sf[:3] + [torch.zeros_like(g_sf[3])]),
+                       ("no g_w", g_sf[:3] + [None]), ("only g_w", [None, None, None, g_sf[3]])):
         for want_rays in (False, True):
-            b_args = (rays_sf, table_sf, *sel_sf, *cots, 1.0, want_rays)
-            kb, pb = fine_bwd_global(*b_args), fine_bwd_global_plain(*b_args)
-            e = grad_err(kb[0], pb[0], "K3 global rows")
-            if want_rays:
-                e = max(e, grad_err(kb[1], pb[1], "K3 global rays"))
-            else:
-                need(kb[1] is None and pb[1] is None, "K3 global: unasked ray gradient")
-            err["fine_bwd_global"] = max(err["fine_bwd_global"], e)
+            out = hold_k3(f"global shapefit {kind} rays={want_rays}", "fine_bwd_global",
+                          (rays_sf, table_sf, *sel_sf, *cots, 1.0, want_rays))
+            if kind == "zero g_w":
+                zero_gw[want_rays] = out
+            elif kind == "no g_w":   # the fold skipped: the same bits as a zero g_w
+                need(all(a is None and b is None or torch.equal(a, b)
+                         for a, b in zip(out, zero_gw[want_rays])),
+                     "K3 global shapefit: the skipped fold differs from a zero g_w")
     head["k3g"] = (rays_sf, table_sf, *sel_sf, None, None, None, g_sf[3], 1.0, False)
-    print(f"K3 global shapefit: max_err/max|plain| {err['fine_bwd_global']:.3e}")
+    print(f"K3 global shapefit: max_err/max|plain| {err['fine_bwd_global']:.3e}; two runs equal "
+          "to the bit; the skipped fold (no g_w) equal to the bit to a zero g_w")
     torch.cuda.synchronize()
 
     # 2c. the two halves of K4b alone and K2's compacted entry at the texture
@@ -881,6 +961,19 @@ def main():
     print(f"K2 bins headline: {bp_h.shape[1]}x{bp_h.shape[2]} bins of {bs_h} px, lists of "
           f"{bp_h.shape[3]} (densest bin {densest_h}, memberships {int(cnt_h.sum())}), "
           f"selections equal at K = 5, 20, 80, max_err(len, act, dsd)={err['fine_select_bins']:.3e}")
+    # K3's global entry on the per-bin-list select's outputs (no weights: the
+    # fold is skipped, and w is absent), and the same call with a zero w and
+    # a zero g_w (a fold of G = 0): equal to the bit
+    sel_bins = fine_select_bins(*head["k2b"])
+    cots_b = [seeded(sel_bins[1].shape, dev, 120 + q) for q in range(3)]
+    skipped = hold_k3("two-stage (no weights)", "fine_bwd_global",
+                      (rays_h, table_h, *sel_bins, None, *cots_b, None, 1.0, True))
+    zero = torch.zeros_like(sel_bins[1])
+    need(all(torch.equal(a, b) for a, b in zip(
+        skipped, fine_bwd_global(rays_h, table_h, *sel_bins, zero, *cots_b, zero, 1.0, True))),
+        "K3 two-stage: the skipped fold differs from a zero g_w")
+    print(f"K3 global two-stage (no weights): max_err/max|plain| {err['fine_bwd_global']:.3e}; the "
+          "skipped fold equal to the bit to a zero w and g_w")
     torch.cuda.synchronize()
 
 
@@ -916,6 +1009,17 @@ def main():
               f"gauss {err['fine_bwd_gauss']:.3e} rays {err['fine_bwd_rays']:.3e}; fold + pair vs "
               f"the unified entry (normwise) {pair:.3e}; two runs equal to the bit")
         return kept, pair
+
+    def fold_then_pair(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
+                       agg_ow, want_rays=True):
+        """The global backward as the fold's entry and the two halves, with
+        the unified entry's arguments and results."""
+        g3 = [g_len, g_act, g_dsd]
+        if g_w is not None:
+            g3 = [d if g is None else g + d
+                  for g, d in zip(g3, fold_weights(length, act, dsd, w, g_w, agg_ow))]
+        halves = (rays, table, idx, length, dsd, *g3)
+        return fine_bwd_gauss(*halves), fine_bwd_rays(*halves) if want_rays else None
 
     _, pair_sf = hold_halves("shapefit", rays_sf, table_sf, sel_sf, g_sf)
     verts_c, isig_c, cams_c = cloud_scene(300_000, dev)
@@ -1040,6 +1144,10 @@ def main():
         print(f"fitting step {tag} vs voge_tpu golden: loss {lv:.8f} rel err "
               + ", ".join(f"{k} {v:.3e}" for k, v in e.items()))
     details["golden_grad"] = gold_err
+    # the closest to its gate: the golden file's own float32 chain rule (9.0e-4
+    # with K3's per-row sums gathered back; ROADMAP section 3)
+    print(f"headline sigma gradient vs its golden file: {gold_err['headline']['sigmas']:.4e} "
+          f"(gate {GOLD_GRAD_TOL:.0e})")
 
     # 3c. the 1K quickstart through GaussianRenderer -> white background
     q, qcams, qcolors = scene(1000, (256, 256), 300.0, dev)
@@ -1291,43 +1399,45 @@ def main():
                                  memberships=int(c_p.counts_c.sum()))
     del sel_g, c_p
 
-    # 3h. the 300,000-point step (slice 5): past the branch point, the fold's
-    # entry and the two halves
+    # 3h. the 300,000-point step (slice 5): past voge_tpu's branch point,
+    # K3's unified entry (the card has no VMEM limit; PERF.md section 6)
     colors_c = ((verts_c + 1) / 2).contiguous()
     # (the colours are constants, so the merge's backward is its d_w half alone)
-    split_path = ("fine_select_global", "attr_merge", "attr_dw", "fold_weights",
-                  "fine_bwd_gauss", "fine_bwd_rays")
     zero_counts()
     with no_plain_version():
         frag_c, loss_c, leaves_c = cloud_step(verts_c, isig_c, cams_c, colors_c)
         gr = torch.autograd.grad(loss_c, leaves_c, retain_graph=True)
         gr2 = torch.autograd.grad(loss_c, leaves_c)
-    counts = read_counts("point cloud 300K step", split_path)
-    need(counts["fine_bwd_global"] == 0, "300K step: the unified entry ran past the branch point")
+    counts = read_counts("point cloud 300K step", ("fine_select_global", "attr_merge", "attr_dw",
+                                                   "fine_bwd_global"))
+    need(all(counts[k] == 0 for k in ("fold_weights", "fine_bwd_gauss", "fine_bwd_rays")),
+         "300K step: the split backward ran")
     compacted_unused(counts, "point cloud 300K step")
     add(counts)
     need(vt.get_overflow_points(frag_c) == 0, "300K step overflow_points != 0")
     need(torch.equal(frag_c.vert_index, sel_c[0]), "300K step: not the selections held above")
-    threshold = fine._SPLIT_MIN_GAUSS
-    fine._SPLIT_MIN_GAUSS = 1 << 40           # the same step on the unified entry
+    unified = fine.fine_bwd_global
+    fine.fine_bwd_global = fold_then_pair       # the same step on the split backward
     try:
-        before = fine_bwd_global.launches
+        before = fine_bwd_gauss.launches
         _, loss_u, leaves_u = cloud_step(verts_c, isig_c, cams_c, colors_c)
         gu = torch.autograd.grad(loss_u, leaves_u)
-        need(fine_bwd_global.launches == before + 1, "the unified entry did not run")
+        need(fine_bwd_gauss.launches == before + 1, "the split pair did not run")
     finally:
-        fine._SPLIT_MIN_GAUSS = threshold
+        fine.fine_bwd_global = unified
     cloud_err = {}
     for name, a, b, c in zip(("verts", "sigmas", "R", "T"), gr, gr2, gu):
         need(bool(torch.isfinite(a).all()), f"300K step: non-finite {name} gradient")
         need(torch.equal(a, b), f"300K step: {name} gradient differs between two backward runs")
         cloud_err[name] = rel_t(a, c)
-        need(cloud_err[name] <= PAIR_TOL, f"300K step grad {name} vs the unified entry "
+        need(cloud_err[name] <= PAIR_TOL, f"300K step grad {name} vs the fold + pair "
                                           f"{cloud_err[name]:.3e}")
+    same = all(torch.equal(a, c) for a, c in zip(gr, gu))
     print(f"point cloud 300K step: loss {loss_c.item():.8f}, gradients on "
-          f"{int((gr[0].abs().sum(-1) > 0).sum())} of {P_c} Gaussians, vs the unified entry "
-          f"(normwise) {cloud_err}, two runs equal to the bit")
-    details["cloud_300k"].update(loss=loss_c.item(), grad_vs_unified=cloud_err)
+          f"{int((gr[0].abs().sum(-1) > 0).sum())} of {P_c} Gaussians, vs the fold + pair "
+          f"(normwise) {cloud_err}, equal to the bit: {same}; two runs equal to the bit")
+    details["cloud_300k"].update(loss=loss_c.item(), grad_vs_fold_pair=cloud_err,
+                                 equal_to_fold_pair=same)
 
     # 3i. a frozen scene on the same cloud: only the cameras need a gradient
     cw_c = seeded(sel_c[4].shape, dev, 95)
@@ -1555,18 +1665,9 @@ def main():
     # wanted), in turns; and the per-Gaussian half when every run is empty
     k3c = head["k3c"]
 
-    def split_pair(k3):
-        """The fold's entry (where there is a g_w) and the halves, on the
-        unified entry's argument tuple."""
-        g3 = k3[7:10]
-        if k3[10] is not None:
-            g3 = fold_weights(*k3[3:7], k3[10], k3[11])
-        halves = (*k3[:4], k3[5], *g3)
-        return fine_bwd_gauss(*halves), (fine_bwd_rays(*halves) if k3[12] else None)
-
     def pair_vs_unified(k3, n):
-        ts = [cuda_ms(fn, n) for fn in (lambda: split_pair(k3), lambda: fine_bwd_global(*k3),
-                                        lambda: fine_bwd_global(*k3), lambda: split_pair(k3))]
+        ts = [cuda_ms(fn, n) for fn in (lambda: fold_then_pair(*k3), lambda: fine_bwd_global(*k3),
+                                        lambda: fine_bwd_global(*k3), lambda: fold_then_pair(*k3))]
         return dict(pair=[ts[0], ts[3]], unified=ts[1:3])
 
     turns = pair_vs_unified(k3c, 10)
@@ -1574,13 +1675,19 @@ def main():
     # backward (only g_w, no ray gradient) and the two-stage tracer's (g_len,
     # g_act, g_dsd, the ray gradient, no weights)
     sel_two = [x.detach() for x in sel_2]
-    k3two = (rays_h, table_h, *sel_two, torch.zeros_like(sel_two[1]), *cots_h, None, 1.0, True)
+    k3two = (rays_h, table_h, *sel_two, None, *cots_h, None, 1.0, True)
     below = {"shapefit": pair_vs_unified(head["k3g"], 20),
              "two_stage": pair_vs_unified(k3two, 20)}
-    for tag, k3 in (("shapefit", head["k3g"]), ("two_stage", k3two)):
-        for a, b in zip(split_pair(k3), fine_bwd_global(*k3)):
+    split_bits = {}
+    for tag, k3 in (("cloud_300k", k3c), ("shapefit", head["k3g"]), ("two_stage", k3two)):
+        pair_out, uni_out = fold_then_pair(*k3), fine_bwd_global(*k3)
+        for a, b in zip(pair_out, uni_out):
             need((a is None and b is None) or rel_t(a, b) <= PAIR_TOL,
                  f"fold + pair vs the unified entry at the {tag} shapes")
+        split_bits[tag] = all((a is None and b is None) or torch.equal(a, b)
+                              for a, b in zip(pair_out, uni_out))
+    print(f"fold + pair against the unified entry, equal to the bit: {split_bits}")
+    details["split_equal_to_the_bit"] = split_bits
     halves_c = head["halves"]
     empty_idx = torch.full_like(halves_c[2], -1)
     gauss_ms = dict(real=cuda_ms(lambda: fine_bwd_gauss(*halves_c), 20),
@@ -1600,6 +1707,29 @@ def main():
           f"{details['split_vs_unified_300k_ms']['fold']:.4f} ms; fine_bwd_gauss "
           f"{gauss_ms['real']:.4f} ms on the render's slots, {gauss_ms['all_empty']:.4f} ms with "
           f"all {P_c} runs empty, of which the sort + searchsorted {gauss_ms['sort']:.4f} ms")
+
+    # K3's three parts apart: the per-slot kernel, the stable sort of the slot
+    # ids (glue) and the per-Gaussian kernel, at the headline (compacted
+    # entry, attributes, with and without rays) and the ShapeFitting shapes
+    # (global entry, only g_w, as the trainer's loss gives it)
+    def k3_parts(k3, attrs, g_img):
+        rays, table, idx = k3[0], k3[1], k3[2]
+        parts = (rays, table, idx, *k3[3:7], k3[7:11], k3[11], attrs, g_img)
+        coef, _ = cuda_fine_bwd._slots_stage(*parts, k3[-1])
+        order, starts = cuda_fine_bwd._slot_runs(idx, table.shape[0])
+        return dict(
+            slots=cuda_ms(lambda: cuda_fine_bwd._slots_stage(*parts, k3[-1]), 50),
+            sort=cuda_ms(lambda: cuda_fine_bwd._slot_runs(idx, table.shape[0]), 50),
+            runs=cuda_ms(lambda: cuda_fine_bwd._runs_stage(rays, table, coef, k3[6], g_img,
+                                                          order, starts), 50))
+    k3b_rays = head["k3b"][:-1] + (True,)
+    k3_ms = {"headline": k3_parts(head["k3b"], *head["k3b"][12:14]),
+             "headline_rays": k3_parts(k3b_rays, *head["k3b"][12:14]),
+             "shapefit": k3_parts(head["k3g"], None, None)}
+    for tag, v in k3_ms.items():
+        print(f"K3 parts {tag}: per-slot kernel {v['slots']:.4f} ms, sort {v['sort']:.4f} ms, "
+              f"per-Gaussian kernel {v['runs']:.4f} ms")
+    details["k3_parts_ms"] = k3_ms
 
     # pose: scoring 8 hypotheses in one chunk, and one refinement step
     def pose_score(_):
@@ -1698,8 +1828,8 @@ def main():
                                slot_counts(k3[0])[0] * 2 * k3[2].shape[1]),
         "fold_weights": bound_ms(8 * nbytes(head["fold"][0]),
                                  slot_counts(sel_h[0])[1] * FOLD_FLOPS),
-        "fine_bwd": bwd_bound(k3b[0], occupied * 68 + nbytes(k3b[3]), k3b[4:9], k3b[9:13],
-                              k3b[1].shape[0] * k3b[1].shape[1], k3b[17], k3b[15], k3b[16]),
+        "fine_bwd": bwd_bound(k3b[0], torch.unique(k3b[2][k3b[2] >= 0]).numel() * 64, k3b[2:7],
+                              k3b[7:11], k3b[1].shape[0], k3b[14], k3b[12], k3b[13]),
         "attr_merge_bwd": bound_ms(nbytes(idx4, w4, attrs4, g4) + nbytes(w4, attrs4),
                                    v4 * 4 * attrs4.shape[1]),
         "fine_select_global": global_bound(k2g, sel_sf[0], cull_sf)["needed"],

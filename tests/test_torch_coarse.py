@@ -177,7 +177,12 @@ def test_full_width_coarse_stage_drops_nothing(name, win, densest):
     P = points.shape[1]
     c = tfine.compact_candidates(*cams, points, isig, hw, 0.01, K)
     assert int(c.overflow_c.sum()) == 0
-    assert c.dst[0].shape[-1] == win * win
+    # the same emission with its inverse map, whose width is the window's
+    again = tcoarse.emit_supertile_candidates(
+        *cams, points, isig, hw, 0.01, c.bin_size, 0,
+        row_align=tfine._pick_cand_chunk(P), return_dst=True)
+    assert all(torch.equal(a, b) for a, b in zip(again[:5], c[:5]))
+    assert again[5][0].shape[-1] == win * win
     if densest is not None:
         assert int(c.counts_c.max()) == densest
     bs = c.bin_size

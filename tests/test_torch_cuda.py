@@ -148,9 +148,12 @@ def test_wrappers_check_their_inputs(stage):
         attr_merge(c.ids_c[:, ::2], torch.ones_like(table[:, ::2, 0]), colors)
     sel = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, 20,
                       c.bin_size, 1.0)
+    feats = fine.feature_table(points, isig)
     with pytest.raises(ValueError):
-        fine_bwd(rays, table, c.ids_c, c.counts_c, *sel[:5], None, None, None,
-                 sel[4][..., :3].contiguous(), c.bin_size, 1.0)
+        fine_bwd(rays, feats, *sel[:5], None, None, None, sel[4][..., :3].contiguous(), 1.0)
+    with pytest.raises(ValueError):     # the fold needs the weights
+        fine_bwd(rays, feats, sel[0], sel[1], sel[2], sel[3], None, None, None, None,
+                 sel[4], 1.0)
     with pytest.raises(ValueError):
         attr_merge_bwd(sel[0], sel[4], colors, torch.ones_like(rays).cpu())
 
@@ -167,7 +170,7 @@ def _cotangents(shape, dev, n, seed):
     return [torch.randn(shape, device=dev, generator=gen) for _ in range(n)]
 
 
-@pytest.mark.parametrize("K", [5, 20, 40])
+@pytest.mark.parametrize("K", [5, 20, 40, 128])
 def test_fold_kernel_matches_plain(stage, K):
     cams, hw, rays, points, isig, colors = stage
     c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
@@ -184,26 +187,29 @@ def test_fold_kernel_matches_plain(stage, K):
         _close(g, x)
 
 
+@pytest.mark.parametrize("K", [5, 20, 25, 40, 128])
 @pytest.mark.parametrize("want_rays", [False, True])
 @pytest.mark.parametrize("with_attrs", [False, True])
-def test_fine_bwd_kernel_matches_plain(stage, with_attrs, want_rays):
+def test_fine_bwd_kernel_matches_plain(stage, with_attrs, want_rays, K):
+    """K3's compacted entry (B = 2) against its plain version: per-Gaussian
+    rows, two runs equal to the bit."""
     cams, hw, rays, points, isig, colors = stage
-    c = fine.compact_candidates(*cams, points, isig, hw, 0.01, 20)
-    table = fine.candidate_table(points, isig, c.pos_c)
+    c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
+    table_c = fine.candidate_table(points, isig, c.pos_c)
+    table = fine.feature_table(points, isig)
     attrs = colors if with_attrs else None
-    sel = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, 20,
+    sel = fine_select(rays, table_c, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K,
                       c.bin_size, 0.9, attrs)
     cots = _cotangents(sel[1].shape, rays.device, 4, 3)
     g_img = _cotangents(rays.shape, rays.device, 1, 4)[0] if with_attrs else None
-    args = (rays, table, c.ids_c, c.counts_c, *sel[:5], *cots, c.bin_size, 0.9,
-            attrs, g_img, want_rays)
+    args = (rays, table, *sel[:5], *cots, 0.9, attrs, g_img, want_rays)
     before = fine_bwd.launches
     got = fine_bwd(*args)
     again = fine_bwd(*args)
     want = fine_bwd_plain(*args)
     torch.cuda.synchronize()
     assert fine_bwd.launches == before + 2
-    assert got[0].shape == (table.shape[0], table.shape[1], 15 if with_attrs else 12)
+    assert got[0].shape == (table.shape[0], 15 if with_attrs else 12)
     _close(got[0], want[0])
     assert torch.equal(got[0], again[0])
     if want_rays:
@@ -242,7 +248,6 @@ class _PlainPath:
                       (fine, "fine_bwd", fine_bwd_plain),
                       (fine, "fine_select_global", fine_select_global_plain),
                       (fine, "fine_bwd_global", fine_bwd_global_plain),
-                      (fine, "fine_bwd_gauss", fine_bwd_gauss_plain),
                       (fine, "fine_bwd_rays", fine_bwd_rays_plain),
                       (fine, "fold_weights", fold_weights_plain),
                       (cuda_attr, "attr_merge", attr_merge_plain),
@@ -340,6 +345,47 @@ def test_fine_bwd_global_kernel_matches_plain(stage, want_rays, g_w):
         assert torch.equal(got[1], again[1])
     else:
         assert got[1] is None and want[1] is None
+
+
+def test_fine_bwd_long_and_empty_runs(stage):
+    """Gaussians that hold more than 32 slots (a run longer than a warp) and
+    Gaussians that hold none (an empty run: a zero row; seven rows that no
+    slot names are added to the table), on both entries, and a selection
+    with every slot empty."""
+    rays, table, args = _global_select(stage, 25, "none")
+    sel = fine_select_global(*args)
+    table = torch.cat([table, table[:7]])
+    held = torch.bincount(sel[0][sel[0] >= 0].long(), minlength=table.shape[0])
+    assert held.max() > 32 and (held == 0).sum() >= 7
+    cots = _cotangents(sel[1].shape, rays.device, 4, 13)
+    attrs = torch.rand(table.shape[0], 5, device=rays.device,
+                       generator=torch.Generator(rays.device).manual_seed(14))
+    g_img = _cotangents(rays.shape[:3] + (5,), rays.device, 1, 15)[0]
+    for fn, pfn, extra in ((fine_bwd, fine_bwd_plain, (attrs, g_img, True)),
+                           (fine_bwd_global, fine_bwd_global_plain, (True,))):
+        got = fn(rays, table, *sel, *cots, 0.9, *extra)
+        want = pfn(rays, table, *sel, *cots, 0.9, *extra)
+        _close(got[0], want[0])
+        _close(got[1], want[1])
+        assert not got[0][held == 0].any() and got[0][held > 32].abs().sum(-1).min() > 0
+        empty = torch.full_like(sel[0], -1)
+        rows, g_rays = fn(rays, table, empty, *sel[1:], *cots, 0.9, *extra)
+        assert not rows.any() and not g_rays.any()
+
+
+@pytest.mark.parametrize("entry", ["compacted", "global"])
+def test_fine_bwd_skipped_fold_equals_zero_weight_cotangent(stage, entry):
+    """Neither g_w nor attributes: the fold is skipped (and w may be absent),
+    and the result equals the same call with an explicit zero g_w to the
+    bit."""
+    rays, table, args = _global_select(stage, 25, "none")
+    sel = fine_select_global(*args)
+    cots = _cotangents(sel[1].shape, rays.device, 3, 16)
+    fn = fine_bwd if entry == "compacted" else fine_bwd_global
+    skipped = fn(rays, table, *sel[:4], None, *cots, None, 0.9, want_rays=True)
+    zero = fn(rays, table, *sel, *cots, torch.zeros_like(sel[4]), 0.9, want_rays=True)
+    assert all(torch.equal(a, b) for a, b in zip(skipped, zero))
+    _close(skipped[0], fine_bwd_global_plain(rays, table, *sel[:4], None, *cots, None, 0.9)[0])
 
 
 def test_shape_fitter_kernel_path_matches_plain_path(dev):
@@ -586,7 +632,10 @@ def test_texture_scale_coarse_stage_reemits(dev):
     points = tt(verts)[None] - origins[:, None, :]
     isg = 2.0 * expend_sigma(tt(isig))[None]
     c = fine.compact_candidates(*cams, points, isg, hw, 0.01, 80)
-    assert int(c.overflow_c.sum()) == 0 and c.dst[0].shape[-1] == 9
+    again = coarse.emit_supertile_candidates(*cams, points, isg, hw, 0.01, c.bin_size, 0,
+                                             row_align=256, return_dst=True)
+    assert int(c.overflow_c.sum()) == 0 and again[5][0].shape[-1] == 9
+    assert all(torch.equal(a, b) for a, b in zip(again[:5], c[:5]))
     saved = coarse.emit_keys
     coarse.emit_keys = emit_keys_plain
     try:
@@ -624,10 +673,23 @@ def test_split_halves_match_plain(stage, K, cots_kind):
     assert not fine_bwd_rays(rays, table, empty, length, dsd, *cots).any()
 
 
+def _fold_then_pair(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
+                    agg_ow, want_rays=True):
+    """The global backward as the fold's entry and the two halves, with the
+    unified entry's arguments and results."""
+    g3 = [g_len, g_act, g_dsd]
+    if g_w is not None:
+        g3 = [d if g is None else g + d
+              for g, d in zip(g3, fold_weights(length, act, dsd, w, g_w, agg_ow))]
+    halves = (rays, table, idx, length, dsd, *g3)
+    return fine_bwd_gauss(*halves), fine_bwd_rays(*halves) if want_rays else None
+
+
 @pytest.mark.parametrize("g_w", ["set", "only", "absent"])
-def test_fold_then_split_pair_matches_unified_entry(stage, g_w, monkeypatch):
-    """``ops.fine.global_backward`` above the branch point (patched down) and
-    for a frozen scene against the unified entry on the same inputs."""
+def test_fold_then_split_pair_matches_unified_entry(stage, g_w):
+    """``ops.fine.global_backward`` (the unified entry; for a frozen scene the
+    fold and the per-ray half) against the fold's entry + the split pair on
+    the same inputs."""
     rays, table, args = _global_select(stage, 25, "none")
     sel = fine_select_global(*args)
     cots = _cotangents(sel[1].shape, rays.device, 4, 7)
@@ -635,26 +697,25 @@ def test_fold_then_split_pair_matches_unified_entry(stage, g_w, monkeypatch):
         cots[:3] = [None] * 3
     elif g_w == "absent":
         cots[3] = None
-    want_rows, want_rays = fine_bwd_global(rays, table, *sel, *cots, 0.9, True)
-    monkeypatch.setattr(fine, "_SPLIT_MIN_GAUSS", 100)
-    before = [fn.launches for fn in (fold_weights, fine_bwd_gauss, fine_bwd_rays, fine_bwd_global)]
+    want_rows, want_rays = _fold_then_pair(rays, table, *sel, *cots, 0.9)
+    fns = (fold_weights, fine_bwd_gauss, fine_bwd_rays, fine_bwd_global)
+    before = [fn.launches for fn in fns]
     rows, g_rays = fine.global_backward(rays, table, *sel, *cots, 0.9, True, True)
     none, frozen = fine.global_backward(rays, table, *sel, *cots, 0.9, False, True)
     torch.cuda.synchronize()
-    after = [fn.launches for fn in (fold_weights, fine_bwd_gauss, fine_bwd_rays, fine_bwd_global)]
-    folds = 0 if g_w == "absent" else 2
-    assert [a - b for a, b in zip(after, before)] == [folds, 1, 2, 0]
-    assert none is None and torch.equal(frozen, g_rays)
+    folds = 0 if g_w == "absent" else 1
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [folds, 0, 1, 1]
+    assert none is None and torch.equal(frozen, want_rays)
     for got, want in ((rows, want_rows), (g_rays, want_rays)):
         assert (got - want).norm() <= 1e-5 * want.norm()
 
 
 def test_point_cloud_render_takes_the_split_path(dev, monkeypatch):
     """A 20,000-point cloud at 96x96 through ``render_pipeline`` with no
-    coarse stage and the branch point patched down: forward + backward on
-    the fold's entry and the two halves, gradients (cameras included) against
-    the same step below the branch point (the unified entry), and against
-    the coarse path's selections."""
+    coarse stage: forward + backward on K3's unified entry (the rule at
+    every size), gradients (cameras included) against the same step on the
+    fold's entry and the two halves, and the selections against the coarse
+    path's."""
     pts = np.random.RandomState(0).uniform(-1, 1, (20000, 3)).astype(np.float32)
     verts, isig, _ = vt.converter.fixed_pointcloud_converter(pts, radius=0.03)
     t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
@@ -672,12 +733,14 @@ def test_point_cloud_render_takes_the_split_path(dev, monkeypatch):
         return frag, torch.autograd.grad(loss, leaves)
 
     fns = (fold_weights, fine_bwd_gauss, fine_bwd_rays, fine_bwd_global)
-    _, want = step()
-    monkeypatch.setattr(fine, "_SPLIT_MIN_GAUSS", 10000)
     before = [fn.launches for fn in fns]
     frag, got = step()
     torch.cuda.synchronize()
-    assert [fn.launches - b for fn, b in zip(fns, before)] == [1, 1, 1, 0]
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 0, 0, 1]
+    monkeypatch.setattr(fine, "fine_bwd_global", _fold_then_pair)
+    _, want = step()
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [1, 1, 1, 1]
     for a, b in zip(got, want):
         assert torch.isfinite(a).all() and (a - b).norm() <= 1e-5 * b.norm()
     coarse_frag = vt.render_pipeline(t(verts), t(isig), R0, T0, t([[120.0, 120.0]]),

@@ -8,7 +8,13 @@ interpret mode, on the same emission-compacted candidate rows and rays:
   ``pallas_fine2.fold_weights_pallas``;
 - the plain fine backward (``cuda_fine_bwd.fine_bwd_plain``) against
   ``pallas_bwd.fine_bwd_compact_t_pallas``, fed the Pallas select's own
-  outputs, with and without the attribute VJP, with and without rays.
+  outputs, with and without the attribute VJP, with and without rays: both
+  return per-Gaussian rows;
+- the per-Gaussian plain backward against the per-candidate-row sums of the
+  same slots gathered back through the inverse emission map
+  (``ops.fine.gather_back_rows``, the path K3 took before its rows became
+  the Gaussians): equal within float32 sum order (rtol 1e-5, atol 1e-6 of
+  each tensor's largest entry).
 
 Tolerances (as in ``tests/test_parity_full.py:22-49``): selections equal but
 for knife-edge pixels, flipped pixels < 0.1%; len / act / dsd rtol 1e-5, atol
@@ -35,8 +41,10 @@ from voge_tpu.ops.pallas_fine2 import (
     fine_select_compact_pallas, fold_weights_pallas, prefix_visit_lists,
 )
 from voge_tpu.rays import camera_rays
-from voge_tpu_torch.ops.cuda_fine import fine_select_plain
-from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd_plain, fold_weights_plain
+from voge_tpu_torch.ops.cuda_fine import _supertile, fine_select_plain
+from voge_tpu_torch.ops.cuda_fine_bwd import (
+    _slot_coefs, _slot_grads, fine_bwd_plain, fold_weights_plain,
+)
 
 torch.set_num_threads(2)
 
@@ -71,7 +79,8 @@ def _case():
     return dict(rays=np.array(rays), table=np.array(table),
                 bits=np.array(bits_c)[..., 0], ids=np.array(ids_c)[..., 0],
                 counts=np.array(counts_c), pos=np.array(pos_c),
-                attrs=np.swapaxes(attr, 1, 2).reshape(B * P, CA).copy())
+                attrs=np.swapaxes(attr, 1, 2).reshape(B * P, CA).copy(),
+                feat=np.array(rows[:, :16]))
 
 
 @pytest.fixture(scope="module")
@@ -187,9 +196,8 @@ def test_plain_fold_matches_pallas(K, Kp):
 def test_plain_fine_bwd_matches_pallas(case, with_attrs, mode):
     """K3's plain version against ``fine_bwd_compact_t_pallas`` (the
     transposed unified backward, ``_bwd_t_kernel``), both fed the Pallas
-    select's outputs and the same random cotangents; the port's per-row
-    output summed per Gaussian by ``pos_c`` (the Pallas side's
-    ``segment_sum``)."""
+    select's outputs and the same random cotangents; both give one row per
+    Gaussian."""
     K = 20
     sel, raw = _pallas(case, K, attrs=with_attrs, raw=True)
     rng = np.random.RandomState(8)
@@ -212,18 +220,12 @@ def test_plain_fine_bwd_matches_pallas(case, with_attrs, mode):
     idx, l, a, d, w = (t(_unbin(x).copy()) for x in sel[:5])
     assert (idx >= 0).any()
     rows, g_rays = fine_bwd_plain(
-        t(case["rays"]), t(case["table"][..., :16].copy()), t(case["ids"]),
-        t(case["counts"]), idx, l, a, d, w, *(t(x) for x in cot), BS, OW,
+        t(case["rays"]), t(case["feat"]), idx, l, a, d, w, *(t(x) for x in cot), OW,
         t(case["attrs"]) if with_attrs else None, t(g_img) if with_attrs else None,
         want_rays=mode == "both")
     C = 12 + (CA if with_attrs else 0)
-    assert rows.shape == (case["ids"].shape[0], M_MAX, C)
-    nb = rows.shape[0]
-    valid = np.arange(M_MAX)[None] < case["counts"][:, None]
-    seg = np.where(valid, (np.arange(nb)[:, None] // (nb // B)) * P + case["pos"], B * P)
-    summed = np.zeros((B * P + 1, C), np.float64)
-    np.add.at(summed, seg.reshape(-1), rows.numpy().reshape(-1, C))
-    summed = summed[:B * P].reshape(B, P, C)
+    assert rows.shape == (B * P, C)
+    summed = rows.numpy().reshape(B, P, C)
     _grad_close(summed[..., 0:3], gg[..., 0:3])
     _grad_close(summed[..., 3:12], gg[..., 3:12])
     if with_attrs:
@@ -233,3 +235,66 @@ def test_plain_fine_bwd_matches_pallas(case, with_attrs, mode):
         _grad_close(g_rays.numpy(), want_rays)
     else:
         assert g_rays is None and rb_t is None
+
+
+def _per_row_sums(rays, table_c, ids_c, idx, coefs, w, g_img):
+    """The slots' gradients summed per candidate row (nb, M, 12 + d), each
+    slot matched to its supertile's row by id: the contract of K3 before its
+    rows became the Gaussians (rows ascending by id, padding last)."""
+    nb, M = ids_c.shape
+    st = lambda x, fill=0: _supertile(x, BS, fill)
+    idx_s = st(idx, -1)
+    R, K = idx_s.shape[1], idx_s.shape[2]
+    key = torch.where(ids_c >= 0, ids_c, 2 ** 31 - 1)
+    rank = torch.searchsorted(key, idx_s.reshape(nb, R * K)).reshape(nb, R, K)
+    rank_c = rank.clamp(max=M - 1)
+    found = (idx_s >= 0) & (key.gather(1, rank_c.reshape(nb, -1)).reshape(nb, R, K) == idx_s)
+    row = torch.arange(nb)[:, None, None] * M + rank_c
+    flat = torch.where(found, row, nb * M).reshape(-1)
+    feats = torch.cat([table_c.reshape(nb * M, 16), table_c.new_zeros((1, 16))])[flat]
+    g_mu, g_L, _ = _slot_grads(feats.reshape(nb, R, K, 16), st(rays)[:, :, None, :],
+                               *(st(c)[..., None] for c in coefs), False)
+    cols = [g_mu, g_L, st(w)[..., None] * st(g_img)[:, :, None, :]]
+    vals = torch.cat(cols, dim=-1).reshape(-1, 12 + g_img.shape[-1])
+    rows = vals.new_zeros((nb * M + 1, vals.shape[1])).index_add_(0, flat, vals)
+    return rows[:nb * M]
+
+
+def test_per_gaussian_rows_equal_per_row_sums_gathered_back():
+    """The per-Gaussian plain backward (attributes, B = 2) against the
+    per-candidate-row sums of the same slots gathered back through the
+    inverse emission map of the port's own coarse stage."""
+    import voge_tpu_torch as vt
+    from voge_tpu_torch.ops import coarse as tcoarse, fine as tfine
+    from voge_tpu_torch.rays import camera_rays as t_camera_rays
+
+    rng = np.random.RandomState(5)
+    mus_w = rng.uniform(-1, 1, size=(P, 3)).astype(np.float32) * 0.8
+    a = rng.uniform(-1, 1, size=(P, 3, 3)).astype(np.float32)
+    isig = (np.einsum("pij,pkj->pik", a, a) + 2 * np.eye(3, dtype=np.float32)) * 4.0
+    R, T = vt.look_at_view_transform(dist=[4.0, 4.5], elev=[5.0, 20.0], azim=[10.0, 40.0],
+                                     device="cpu")
+    focal = torch.full((B, 2), 60.0)
+    principal = torch.tensor([[W / 2, H / 2]] * B)
+    rays, origins = t_camera_rays(R, T, focal, principal, (H, W))
+    points = torch.tensor(mus_w)[None] - origins[:, None, :]
+    isg = torch.tensor(isig)[None].expand(B, P, 3, 3).contiguous()
+    pos_c, bits_c, ids_c, counts_c, _, dst = tcoarse.emit_supertile_candidates(
+        R, T, focal, principal, points, isg, (H, W), 0.01, BS, 0, row_align=8,
+        return_dst=True)
+    table = tfine.feature_table(points, isg)
+    table_c = tfine.candidate_table(points, isg, pos_c)
+    attrs = torch.tensor(rng.normal(size=(B * P, CA)).astype(np.float32))
+    K = 20
+    sel = fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, THR_ACT, K, BS, OW, attrs)
+    assert (sel[0] >= 0).any() and (sel[0] < 0).any()
+    cot = [torch.tensor(rng.normal(size=(B, H, W, K)).astype(np.float32)) for _ in range(4)]
+    g_img = torch.tensor(rng.normal(size=(B, H, W, CA)).astype(np.float32))
+    rows, _ = fine_bwd_plain(rays, table, *sel[:5], *cot, OW, attrs, g_img, want_rays=False)
+    coefs = _slot_coefs(sel[0], *sel[1:5], *cot, OW, attrs, g_img)
+    per_row = _per_row_sums(rays, table_c, ids_c, sel[0], coefs, sel[4], g_img)
+    want = tfine.gather_back_rows(per_row, dst).reshape(B * P, 12 + CA)
+    assert rows.shape == want.shape and want.abs().max() > 0
+    for lo, hi in ((0, 3), (3, 12), (12, 12 + CA)):
+        torch.testing.assert_close(rows[:, lo:hi], want[:, lo:hi], rtol=1e-5,
+                                   atol=1e-6 * want[:, lo:hi].abs().max().item())

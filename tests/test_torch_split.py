@@ -16,11 +16,14 @@ the pair:
 - the fold's own entry followed by the pair against the unified entry's
   plain version on the same inputs: normwise 1e-5 (the same arithmetic but
   for where the folded cotangents are rounded);
-- the three branches of the rule (split pair, frozen scene, unified), with
-  the branch point patched down: which wrappers ran, and the gradients
-  against ``jax.grad`` of ``voge_tpu``'s render (for the frozen scene, of
+- the rule (the unified entry whenever the scene needs a gradient, at any
+  size, with or without the ray gradient; the fold and the per-ray half for
+  a frozen scene): which wrappers ran, and the gradients against
+  ``jax.grad`` of ``voge_tpu``'s render (for the frozen scene, of
   ``voge_tpu``'s ``ray_tracing`` in the rays alone), normwise 1e-3 (f32 sums
-  in another order, ``torch.erf`` against XLA's erf).
+  in another order, ``torch.erf`` against XLA's erf);
+- the global backward without weights: ``w=None`` gives the same result as
+  an explicit zero ``w``.
 """
 import math
 
@@ -210,44 +213,54 @@ def jax_grads():
         *(jnp.asarray(x) for x in (verts, isig, colors, R, T)), focal, principal)
 
 
+class _Calls(dict):
+    """Calls per wrapper; ``rays_asked``: each unified call's ``want_rays``."""
+
+
 @pytest.fixture
 def spy(monkeypatch):
-    """Count the calls of the four backward wrappers ``ops.fine`` dispatches
-    to (on the CPU they run their plain versions, which count no launch)."""
-    calls = {}
-    for name in ("fold_weights", "fine_bwd_gauss", "fine_bwd_rays", "fine_bwd_global"):
+    """Count the calls of the three backward wrappers ``ops.fine`` dispatches
+    to (on the CPU they run their plain versions, which count no launch),
+    and record whether each call of the unified entry asked for rays."""
+    calls = _Calls()
+    calls.rays_asked = []
+    for name in ("fold_weights", "fine_bwd_rays", "fine_bwd_global"):
         real = getattr(cuda_fine_bwd, name)
         calls[name] = 0
 
         def counted(*a, _real=real, _name=name, **k):
             calls[_name] += 1
+            if _name == "fine_bwd_global":
+                calls.rays_asked.append(a[-1])
             return _real(*a, **k)
         monkeypatch.setattr(fine, name, counted)
     return calls
 
 
-@pytest.mark.parametrize("branch", ["split", "unified"])
-def test_global_backward_rule_matches_jax_grad(branch, jax_grads, spy, monkeypatch):
+@pytest.mark.parametrize("branch", ["scene_and_cameras", "scene_only"])
+def test_global_backward_rule_matches_jax_grad(branch, jax_grads, spy):
+    """The unified entry at any size, asked for the ray gradient only when
+    the cameras need one; the gradients against ``jax.grad``."""
     verts, isig, colors, R, T, focal, principal = _render_scene()
-    if branch == "split":                   # 162 Gaussians per image > 100
-        monkeypatch.setattr(fine, "_SPLIT_MIN_GAUSS", 100)
-    assert fine._SPLIT_MIN_GAUSS == (100 if branch == "split" else 262_144)
-    args = [torch.tensor(x, requires_grad=True) for x in (verts, isig, colors, R, T)]
+    cams = branch == "scene_and_cameras"
+    args = [torch.tensor(x, requires_grad=True) for x in (verts, isig, colors)]
+    args += [torch.tensor(x, requires_grad=cams) for x in (R, T)]
     _loss_t(*args, focal, principal).backward()
-    if branch == "split":
-        assert spy == dict(fold_weights=1, fine_bwd_gauss=1, fine_bwd_rays=1, fine_bwd_global=0)
-    else:
-        assert spy == dict(fold_weights=0, fine_bwd_gauss=0, fine_bwd_rays=0, fine_bwd_global=1)
+    assert spy == dict(fold_weights=0, fine_bwd_rays=0, fine_bwd_global=1)
+    assert spy.rays_asked == [cams]
     for name, a, g in zip(("verts", "sigmas", "colors", "R", "T"), args, jax_grads):
+        if not a.requires_grad:
+            assert a.grad is None
+            continue
         assert a.grad.shape == a.shape and torch.isfinite(a.grad).all(), name
         assert _rel(a.grad.numpy(), g) <= 1e-3, (branch, name, _rel(a.grad.numpy(), g))
 
 
 def test_frozen_scene_takes_the_ray_half_alone(spy):
     """Only the rays need a gradient (``ray_tracing`` on constant points):
-    below the branch point too, the fold and the per-ray half, no
-    per-Gaussian half; the ray gradient against ``jax.grad`` of
-    ``voge_tpu``'s ``ray_tracing`` on the same arrays."""
+    the fold and the per-ray half, no per-Gaussian pass; the ray gradient
+    against ``jax.grad`` of ``voge_tpu``'s ``ray_tracing`` on the same
+    arrays."""
     from voge_tpu_torch.aggregation import expend_sigma
     from voge_tpu_torch.rays import camera_rays as t_camera_rays
 
@@ -268,26 +281,29 @@ def test_frozen_scene_takes_the_ray_half_alone(spy):
     r = rays.clone().requires_grad_(True)
     sel, _ = fine.ray_tracing(cams, points, isg, r, HW, 0.01, K_RENDER, max_points_per_bin=-1)
     (sel[4] * torch.tensor(cw)).sum().backward()
-    assert spy == dict(fold_weights=1, fine_bwd_gauss=0, fine_bwd_rays=1, fine_bwd_global=0)
+    assert spy == dict(fold_weights=1, fine_bwd_rays=1, fine_bwd_global=0)
     assert _rel(r.grad.numpy(), want) <= 1e-3
 
 
-def test_split_backward_repeats_to_the_bit_and_skips_unasked_rays(spy, monkeypatch):
-    monkeypatch.setattr(fine, "_SPLIT_MIN_GAUSS", 100)
+def test_split_backward_repeats_to_the_bit_and_skips_unasked_rays(spy):
+    """The global backward (the unified entry, which replaced the split pair
+    on every scene) repeats to the bit, and with constant cameras never asks
+    for the ray gradient."""
     verts, isig, colors, R, T, focal, principal = _render_scene()
     args = [torch.tensor(x, requires_grad=True) for x in (verts, isig, colors)]
     loss = _loss_t(*args, torch.tensor(R), torch.tensor(T), focal, principal)
     g1 = torch.autograd.grad(loss, args, retain_graph=True)
     g2 = torch.autograd.grad(loss, args)
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
-    # the cameras need no gradient: the per-ray half never runs
-    assert spy == dict(fold_weights=2, fine_bwd_gauss=2, fine_bwd_rays=0, fine_bwd_global=0)
+    assert spy == dict(fold_weights=0, fine_bwd_rays=0, fine_bwd_global=2)
+    assert spy.rays_asked == [False, False]
 
 
-def test_two_stage_tracer_takes_the_rule(spy, monkeypatch):
-    """``ray_tracing_fine``'s backward goes through the same rule: above the
-    branch point the pair (no weights there, so no fold), and the per-ray
-    half alone when only the rays need a gradient."""
+def test_two_stage_tracer_takes_the_rule(spy):
+    """``ray_tracing_fine``'s backward goes through the same rule: the
+    unified entry (no weights there, so no fold) when the scene needs a
+    gradient, equal to the fold-free pair of halves on the same cotangents,
+    and the per-ray half alone when only the rays need one."""
     rays, table, sel, cots = _global_scene(K=8)
     P = table.shape[0]
     mus = table[:, 13:16].clone()
@@ -303,13 +319,29 @@ def test_two_stage_tracer_takes_the_rule(spy, monkeypatch):
         return torch.autograd.grad(loss, [x for x in leaves if x.requires_grad])
 
     want = grads(True)
-    assert spy == dict(fold_weights=0, fine_bwd_gauss=0, fine_bwd_rays=0, fine_bwd_global=1)
-    monkeypatch.setattr(fine, "_SPLIT_MIN_GAUSS", 100)
-    got = grads(True)
-    assert spy == dict(fold_weights=0, fine_bwd_gauss=1, fine_bwd_rays=1, fine_bwd_global=1)
-    for a, b in zip(got, want):
+    assert spy == dict(fold_weights=0, fine_bwd_rays=0, fine_bwd_global=1)
+    # the pair of halves on the tracer's own cotangents gives the same rows
+    idx, length, _, dsd, _ = sel
+    pair = (fine_bwd_gauss(rays, table, idx, length, dsd, *cots[:3]),
+            fine_bwd_rays(rays, table, idx, length, dsd, *cots[:3]))
+    unified = fine_bwd_global_plain(rays, table, *sel[:4], None, *cots[:3], None, 1.0)
+    for a, b in zip(pair, unified):
         assert _rel(a.numpy(), b.numpy()) <= 1e-5
-    monkeypatch.setattr(fine, "_SPLIT_MIN_GAUSS", 262_144)
     only_rays, = grads(False)
-    assert spy == dict(fold_weights=0, fine_bwd_gauss=1, fine_bwd_rays=2, fine_bwd_global=1)
+    assert spy == dict(fold_weights=0, fine_bwd_rays=1, fine_bwd_global=1)
     assert _rel(only_rays.numpy(), want[2].numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("want_rays", [False, True])
+def test_global_backward_without_weights_needs_no_zero_w(want_rays):
+    """The two-stage tracer's backward has no weights: ``w=None`` (no fold)
+    gives the same result as an explicit zero ``w`` (a fold of G = 0)."""
+    rays, table, sel, cots = _global_scene(K=8)
+    idx, length, act, dsd, _ = sel
+    args = (rays, table, idx, length, act, dsd)
+    none = fine.global_backward(*args, None, *cots[:3], None, 1.0, True, want_rays)
+    zero = fine.global_backward(*args, torch.zeros_like(length), *cots[:3],
+                                torch.zeros_like(length), 1.0, True, want_rays)
+    assert (none[1] is None) == (not want_rays)
+    for a, b in zip(none, zero):
+        assert (a is None and b is None) or torch.equal(a, b)

@@ -1,8 +1,8 @@
 // Device code shared by the fine backward kernels: the analytic backward of
-// the erf transmittance compositing for one ray (K3's prologue in fine_bwd.cu,
-// and the standalone fold, fold_weights.cu), and one slot's chain rule (the
-// per-Gaussian and per-ray sides of fine_bwd.cu and fine_bwd_split.cu, at the
-// end of this file).
+// the erf transmittance compositing (the weight fold: K3's per-slot stage in
+// fine_bwd.cu and the standalone fold, fold_weights.cu), and one slot's chain
+// rule (the per-Gaussian and per-ray sides of fine_bwd.cu and
+// fine_bwd_split.cu, at the end of this file).
 //
 // Replaces the body of voge_tpu/ops/pallas_fine2.py::fold_weights_pallas
 // (kernel at :627; the same math sits in pallas_bwd.py:697-759).  With
@@ -17,109 +17,82 @@
 // Every sum runs over slots in ascending order.  Invalid slots carry
 // l = 1e10, e = 0, s = 1e-5 and G = 0, which zeroes their contributions.
 //
-// Registers: the slot arrays are held per thread.  Two passes keep five of
-// them live instead of eight: pass 1 forms B for every slot, pass 2 forms
-// A, C, D of one slot at a time and hands the finished (dl, da, dd) of that
-// slot to the caller's ``emit(k, dl, da, dd)``, which folds it into the
-// slot's incoming cotangents at once.  phi is evaluated in both passes;
-// erf only in pass 2.  Buckets up to 32 are fully unrolled, as in K2, so the
-// arrays stay in registers; larger buckets run from local memory.
+// One thread per (ray, slot).  A block takes whole rays, VOGE_SLOT_THREADS /
+// K of them (one when K passes it), thread t holding slot t % K of ray t / K,
+// so a warp's lanes hold consecutive slots and no lane idles between rays.
+// The block stages l, e, s and G of its rays in shared memory (loads and the
+// later stores coalesced over the image layout), then each thread forms B, A,
+// C and D of its own slot in one loop over the ray's slots.  No per-thread
+// array of length K, no K template: the registers stay few at every K and
+// enough warps are in flight to hide the exp / erf latency.  The loop stops
+// after the ray's last slot with e or G nonzero: every later slot adds an
+// exact zero to each sum (e = G = 0 and, for finite inputs, phi and Phi are
+// finite), and a sum that starts at +0 is unchanged by adding zeros, so the
+// bits are those of the full loop; the select leaves its empty slots last, so
+// a ray with few hits folds few slots.
 #pragma once
 
 #include <cuda_runtime.h>
 
 constexpr float VOGE_INV_SQRT_PI = 0.5641895835477563f;
+constexpr int VOGE_SLOT_THREADS = 256;   // the most threads a per-slot block holds
 
-template <int KB, typename Emit>
-__device__ __forceinline__ void voge_fold_ray(const float (&l)[KB],
-                                                  const float (&e)[KB],
-                                                  const float (&s)[KB],
-                                                  const float (&G)[KB], int K,
-                                                  float ow, Emit&& emit) {
-  float Bm[KB];
-  if constexpr (KB <= 32) {
-#pragma unroll
-    for (int m = 0; m < KB; ++m) {
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < KB; ++k) {
-        if (k < K) {
-          const float ca = (l[m] - l[k]) * s[k];
-          acc = acc + (e[k] * s[k]) * (expf(-ca * ca) * VOGE_INV_SQRT_PI);
-        }
-      }
-      Bm[m] = acc;
-    }
-#pragma unroll
-    for (int k = 0; k < KB; ++k) {
-      if (k < K) {
-        float A = 0.0f, C = 0.0f, D = 0.0f;
-#pragma unroll
-        for (int m = 0; m < KB; ++m) {
-          if (m < K) {
-            const float diff = l[m] - l[k];
-            const float ca = diff * s[k];
-            const float phi = expf(-ca * ca) * VOGE_INV_SQRT_PI;
-            const float Phi = (erff(ca) + 1.0f) * 0.5f;
-            A = A + G[m] * Phi;
-            C = C + G[m] * phi;
-            D = D + G[m] * phi * diff;
-          }
-        }
-        emit(k, -ow * (G[k] * Bm[k] - e[k] * s[k] * C), -G[k] + ow * e[k] * A,
-             -ow * e[k] * D * (0.5f / s[k]));
-      }
-    }
-  } else {
-#pragma unroll 1
-    for (int m = 0; m < K; ++m) {
-      float acc = 0.0f;
-#pragma unroll 1
-      for (int k = 0; k < K; ++k) {
-        const float ca = (l[m] - l[k]) * s[k];
-        acc = acc + (e[k] * s[k]) * (expf(-ca * ca) * VOGE_INV_SQRT_PI);
-      }
-      Bm[m] = acc;
-    }
-#pragma unroll 1
-    for (int k = 0; k < K; ++k) {
-      float A = 0.0f, C = 0.0f, D = 0.0f;
-#pragma unroll 1
-      for (int m = 0; m < K; ++m) {
-        const float diff = l[m] - l[k];
-        const float ca = diff * s[k];
-        const float phi = expf(-ca * ca) * VOGE_INV_SQRT_PI;
-        const float Phi = (erff(ca) + 1.0f) * 0.5f;
-        A = A + G[m] * Phi;
-        C = C + G[m] * phi;
-        D = D + G[m] * phi * diff;
-      }
-      emit(k, -ow * (G[k] * Bm[k] - e[k] * s[k] * C), -G[k] + ow * e[k] * A,
-           -ow * e[k] * D * (0.5f / s[k]));
-    }
-  }
+// Rays a per-slot block takes at K slots a ray; its threads are that times K.
+__host__ __device__ inline int voge_rays_per_block(int K) {
+  return K >= VOGE_SLOT_THREADS ? 1 : VOGE_SLOT_THREADS / K;
 }
 
-// Load one ray's slot primals for the fold: l, e = exp(-a) and s = sqrt(d +
-// 1e-10) for k < K, the invalid-slot fill beyond.
-template <int KB>
-__device__ __forceinline__ void voge_fold_load(const float* l_in,
-                                               const float* a_in,
-                                               const float* d_in, int K,
-                                               float (&l)[KB], float (&e)[KB],
-                                               float (&s)[KB]) {
-#pragma unroll
-  for (int k = 0; k < KB; ++k) {
-    if (k < K) {
-      l[k] = l_in[k];
-      e[k] = expf(-a_in[k]);
-      s[k] = sqrtf(d_in[k] + 1e-10f);
-    } else {
-      l[k] = 1e10f;
-      e[k] = 0.0f;
-      s[k] = 1e-5f;
-    }
+// One block's rays, slot t = r * K + k, staged for the fold.
+struct VogeFoldBlock {
+  float l[VOGE_SLOT_THREADS], e[VOGE_SLOT_THREADS], s[VOGE_SLOT_THREADS],
+      G[VOGE_SLOT_THREADS];
+  int n[VOGE_SLOT_THREADS];  // per ray: 1 + its last slot with e or G nonzero
+};
+
+// Before staging (then __syncthreads): no ray has a slot to fold yet.
+__device__ __forceinline__ void voge_fold_clear(VogeFoldBlock& fb, int rays) {
+  if ((int)threadIdx.x < rays) fb.n[threadIdx.x] = 0;
+}
+
+// Stage slot k of the block's ray r (then __syncthreads) from its len l, act
+// a, dsd d and weight cotangent times weight G.
+__device__ __forceinline__ void voge_fold_put(VogeFoldBlock& fb, int t, int r, int k,
+                                              float l, float a, float d, float G) {
+  const float e = expf(-a);
+  fb.l[t] = l;
+  fb.e[t] = e;
+  fb.s[t] = sqrtf(d + 1e-10f);
+  fb.G[t] = G;
+  if (e != 0.0f || G != 0.0f) atomicMax(&fb.n[r], k + 1);  // an integer max: no order
+}
+
+// The fold of slot k of the block's ray r (K slots a ray): (dl, da, dd).
+__device__ __forceinline__ void voge_fold_slot(const VogeFoldBlock& fb, int r, int k,
+                                               int K, float ow, float& dl, float& da,
+                                               float& dd) {
+  const float* l = fb.l + r * K;
+  const float* e = fb.e + r * K;
+  const float* s = fb.s + r * K;
+  const float* G = fb.G + r * K;
+  const float lk = l[k], sk = s[k];
+  float B = 0.0f, A = 0.0f, C = 0.0f, D = 0.0f;
+  const int n = fb.n[r];
+  for (int m = 0; m < n; ++m) {
+    const float lm = l[m], sm = s[m], Gm = G[m];
+    const float cb = (lk - lm) * sm;
+    B = B + (e[m] * sm) * (expf(-cb * cb) * VOGE_INV_SQRT_PI);
+    const float diff = lm - lk;
+    const float ca = diff * sk;
+    const float phi = expf(-ca * ca) * VOGE_INV_SQRT_PI;
+    const float Phi = (erff(ca) + 1.0f) * 0.5f;
+    A = A + Gm * Phi;
+    C = C + Gm * phi;
+    D = D + Gm * phi * diff;
   }
+  const float ek = e[k], Gk = G[k];
+  dl = -ow * (Gk * B - ek * sk * C);
+  da = -Gk + ow * ek * A;
+  dd = -ow * ek * D * (0.5f / sk);
 }
 
 // A cotangent that may be absent (null: zero).

@@ -9,9 +9,13 @@
 // voge_tpu takes the pair where a render's padded Gaussian count passes
 // 262,144 (the unified kernel's output block no longer fits the TPU's VMEM),
 // after fold_weights_pallas has turned the weight cotangent into cotangents of
-// len / act / dsd.  ops/fine.py keeps that branch point and that order: the
-// fold's own entry (fold_weights.cu), then these two; and it runs the per-ray
-// half alone where only the rays need a gradient (a frozen scene).
+// len / act / dsd.  The card has no such limit, and K3's unified entry
+// (fine_bwd.cu) was as fast or faster than the fold's entry + this pair, with
+// equal bits, at every shape timed (PERF.md section 6), so ops/fine.py takes
+// the unified entry whenever the scene needs a gradient.  It runs the fold's
+// entry and the per-ray half alone where only the rays need one (a frozen
+// scene); the per-Gaussian half stays an entry that chip_smoke.py builds and
+// holds against its plain version and against the unified entry.
 //
 // Both read the select's saved image-layout outputs (idx, len, dsd), the
 // cotangents (g_len, g_act, g_dsd; each may be null for zero) and the

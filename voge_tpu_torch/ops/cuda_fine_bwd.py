@@ -3,21 +3,20 @@
 the global backward split in two (``csrc/fine_bwd_split.cu``), with their
 plain PyTorch versions.
 
-K3 has two entries.  :func:`fine_bwd` replaces
+K3 has two entries on one kernel pair.  :func:`fine_bwd` replaces
 ``voge_tpu/ops/pallas_bwd.py::_bwd_t_kernel`` (``fine_bwd_compact_t_pallas``,
-the emission-compacted rows); :func:`fine_bwd_global` replaces
-``pallas_bwd.py::_bwd_unified_kernel`` (``fine_bwd_unified_pallas``, the
-global candidate space of the no-coarse path), whose per-Gaussian sums run
-over each Gaussian's run of a stable sort of the slot ids, one warp per
-Gaussian in a fixed order.  From the select's saved image-layout outputs
-(idx, len, act, dsd, w) and their cotangents it folds the weight cotangent
-(and, with attributes, the attribute image's weight cotangent) into the
-len / act / dsd cotangents, applies the entry-space chain rule, and reduces
-per candidate row to the gradients of mu (3), Lambda (9) and the attributes
-(d), and per ray to the ray gradient (3).  The per-row sums run in (ray,
-slot) order in one thread each: no float atomics, two runs give the same
-bits.  The rows go back to Gaussians through the inverse emission map
-(``ops.fine.gather_back_rows``); the global entry's rows are the Gaussians.
+the emission-compacted path, with the attribute VJP); :func:`fine_bwd_global`
+replaces ``pallas_bwd.py::_bwd_unified_kernel`` (``fine_bwd_unified_pallas``,
+the global candidate space of the no-coarse path and the two-stage tracer).
+From the select's saved image-layout outputs (idx, len, act, dsd, w) and
+their cotangents, one thread per slot folds the weight cotangent (and, with
+attributes, the attribute image's weight cotangent) into the len / act / dsd
+cotangents and applies the entry-space chain rule; per ray it sums the ray
+gradient (3); per Gaussian, over each Gaussian's run of a stable sort of the
+slot ids, one warp sums the gradients of mu (3), Lambda (9) and the
+attributes (d) in a fixed order.  A slot's id ``b * P + p`` is its row of the
+(B * P, 16) feature table and of the output, so both entries return
+per-Gaussian rows: no float atomics, two runs give the same bits.
 
 The chain rule is ``voge_tpu``'s (``ray_trace_voge.cu:324-326``: with
 ``ksk = dsd``, ``msk = len * dsd``, ``g_ksk = (g_a msk - g_l) msk / ksk^2 +
@@ -60,12 +59,10 @@ from voge_tpu_torch._build import load
 from voge_tpu_torch.ops._dispatch import (
     FLOAT, INT, LONG, VOIDP, check, on_cuda, ptr, raise_on_error, stream,
 )
-from voge_tpu_torch.ops.coarse import supertile_grid
 from voge_tpu_torch.ops.cuda_attr import _slot_runs
-from voge_tpu_torch.ops.cuda_fine import FEAT, MAX_K, _supertile, _to_image
+from voge_tpu_torch.ops.cuda_fine import FEAT, MAX_K
 
 _INV_SQRT_PI = 0.5641895835477563
-_I32_MAX = 2 ** 31 - 1
 
 
 def fold_weights_plain(length, act, dsd, w, g_w, ow: float):
@@ -127,49 +124,27 @@ def fold_weights(length, act, dsd, w, g_w, ow: float):
 fold_weights.launches = 0
 
 
-def _check_args(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
-                grads, bin_size, attrs, g_img):
-    B, H, W, K = idx.shape
-    BH2, BW2 = supertile_grid(H, W, bin_size)
-    nb, M = B * BH2 * BW2, table_c.shape[1]
-    if not 0 < K <= MAX_K:
-        raise NotImplementedError(f"K={K}: the backward kernel takes 1 <= K <= {MAX_K}")
-    check(rays, "rays", torch.float32, (B, H, W, 3))
-    check(table_c, "table_c", torch.float32, (nb, M, FEAT))
-    check(ids_c, "ids_c", torch.int32, (nb, M))
-    check(counts_c, "counts_c", torch.int32, (nb,))
-    check(idx, "idx", torch.int32)
-    for t, name in ((length, "len"), (act, "act"), (dsd, "dsd"), (w, "w")):
-        check(t, name, torch.float32, idx.shape)
-    for t, name in zip(grads, ("g_len", "g_act", "g_dsd", "g_w")):
-        if t is not None:
-            check(t, name, torch.float32, idx.shape)
-    if (attrs is None) != (g_img is None):
-        raise ValueError("attrs and g_img go together")
-    if attrs is not None:
-        check(attrs, "attrs", torch.float32)
-        if attrs.ndim != 2:
-            raise ValueError(f"attrs: expected (rows, d), got {tuple(attrs.shape)}")
-        check(g_img, "g_img", torch.float32, (B, H, W, attrs.shape[1]))
-    return B, H, W, K, BH2, BW2, nb, M
-
-
 def _slot_coefs(idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
                 agg_ow: float, attrs=None, g_img=None):
     """Per-slot chain-rule coefficients (g_d, c = g_len / ksk, g_a, l), each
     (..., K), zero on empty slots: the weight cotangent (plus, with
-    attributes, the fused image's d_w) folded into (g_len, g_act, g_dsd)."""
+    attributes, the fused image's d_w) folded into (g_len, g_act, g_dsd).
+    With neither ``g_w`` nor attributes there is nothing to fold (``act`` and
+    ``w`` may be None)."""
     zero = lambda g: torch.zeros_like(length) if g is None else g
-    gl, ga, gd, gw = (zero(g) for g in (g_len, g_act, g_dsd, g_w))
+    gl, ga, gd = (zero(g) for g in (g_len, g_act, g_dsd))
     valid = idx >= 0
-    if attrs is not None:
-        ok = valid & (idx < attrs.shape[0])
-        dw = (attrs[torch.where(ok, idx, 0).long()] * g_img[..., None, :]).sum(-1)
-        gw = gw + torch.where(ok, dw, 0.0)
-    dl, da, dd = fold_weights_plain(length, act, dsd, w, gw, agg_ow)
+    if g_w is not None or attrs is not None:
+        gw = zero(g_w)
+        if attrs is not None:
+            ok = valid & (idx < attrs.shape[0])
+            dw = (attrs[torch.where(ok, idx, 0).long()] * g_img[..., None, :]).sum(-1)
+            gw = gw + torch.where(ok, dw, 0.0)
+        dl, da, dd = fold_weights_plain(length, act, dsd, w, gw, agg_ow)
+        gl, ga, gd = gl + dl, ga + da, gd + dd
     vf = valid.to(length.dtype)
-    cl = (gl + dl) / torch.where(valid, dsd, 1.0) * vf
-    return (gd + dd) * vf, cl, (ga + da) * vf, torch.where(valid, length, 0.0)
+    cl = gl / torch.where(valid, dsd, 1.0) * vf
+    return gd * vf, cl, ga * vf, torch.where(valid, length, 0.0)
 
 
 def _slot_grads(feats, r, gd, cl, ga, lv, want_rays: bool):
@@ -193,106 +168,6 @@ def _slot_grads(feats, r, gd, cl, ga, lv, want_rays: bool):
     return g_mu, g_L, g_ray
 
 
-def fine_bwd_plain(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
-                   g_len, g_act, g_dsd, g_w, bin_size: int, agg_ow: float,
-                   attrs: Optional[torch.Tensor] = None,
-                   g_img: Optional[torch.Tensor] = None,
-                   want_rays: bool = True):
-    """Plain version of K3: dense tensor ops per slot and a segmented sum
-    (``index_add_``) per candidate row.  Same contract as :func:`fine_bwd`."""
-    B, H, W, K, BH2, BW2, nb, M = _check_args(
-        rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
-        (g_len, g_act, g_dsd, g_w), bin_size, attrs, g_img)
-    d = 0 if attrs is None else attrs.shape[1]
-    gd, cl, ga, lv = _slot_coefs(idx, length, act, dsd, w, g_len, g_act, g_dsd,
-                                 g_w, agg_ow, attrs, g_img)
-
-    # supertile layout: (nb, R, K) slots, (nb, R, 3) rays
-    st = lambda x, fill=0: _supertile(x, bin_size, fill)
-    idx_s = st(idx, -1)
-    R = idx_s.shape[1]
-    gd, cl, ga, lv, w_s = (st(x)[..., None] for x in (gd, cl, ga, lv, w))
-    r = st(rays)[:, :, None, :]                                  # (nb, R, 1, 3)
-    # each slot's candidate row: ids ascend along a row (slices of the sorted
-    # emission keys), padding sorts last
-    key = torch.where(ids_c >= 0, ids_c, _I32_MAX)
-    rank = torch.searchsorted(key, idx_s.reshape(nb, R * K)).reshape(nb, R, K)
-    rank_c = rank.clamp(max=M - 1)
-    found = (idx_s >= 0) & (key.gather(1, rank_c.reshape(nb, -1)).reshape(nb, R, K) == idx_s)
-    row = torch.arange(nb, device=idx.device)[:, None, None] * M + rank_c
-    flat = torch.where(found, row, nb * M).reshape(-1)
-    feats = torch.cat([table_c.reshape(nb * M, FEAT),
-                       table_c.new_zeros((1, FEAT))])[flat].reshape(nb, R, K, FEAT)
-    g_mu, g_L, g_ray = _slot_grads(feats, r, gd, cl, ga, lv, want_rays)
-    cols = [g_mu, g_L]
-    if d:
-        cols.append(w_s * st(g_img)[:, :, None, :])
-    vals = torch.cat(cols, dim=-1).reshape(-1, 12 + d)
-    rows = vals.new_zeros((nb * M + 1, 12 + d)).index_add_(0, flat, vals)
-    rows = rows[:nb * M].reshape(nb, M, 12 + d)
-
-    g_rays = None
-    if want_rays:
-        g_rays = _to_image(g_ray.sum(2), B, H, W, bin_size).contiguous()
-    return rows, g_rays
-
-
-def _kernel():
-    fn = load("fine_bwd").voge_fine_bwd
-    fn.argtypes = [VOIDP] * 18 + [LONG, LONG] + [INT] * 9 + [FLOAT, VOIDP]
-    fn.restype = INT
-    return fn
-
-
-def fine_bwd(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
-             g_len, g_act, g_dsd, g_w, bin_size: int, agg_ow: float,
-             attrs: Optional[torch.Tensor] = None,
-             g_img: Optional[torch.Tensor] = None, want_rays: bool = True):
-    """Backward of the select (K2) over the emission-compacted rows.
-
-    :param rays: (B, H, W, 3); :param table_c: (nb, M, 16) candidate rows
-    :param ids_c, counts_c: (nb, M) ascending ids (-1 pad) / (nb,) counts
-    :param idx, length, act, dsd, w: (B, H, W, K) the select's outputs
-    :param g_len, g_act, g_dsd, g_w: (B, H, W, K) cotangents, None for zero
-    :param agg_ow: occupation weight of the fused erf compositing
-    :param attrs, g_img: (rows, d) attributes indexed by id and the
-        (B, H, W, d) cotangent of the fused attribute image, or both None
-    :param want_rays: compute the ray gradient (else skip that reduction)
-    :return: (rows (nb, M, 12 + d) float32 per candidate row: grad mu (3),
-        grad Lambda (9, row-major), grad attrs (d); zero beyond each count;
-        g_rays (B, H, W, 3) float32 or None)
-    """
-    grads = (g_len, g_act, g_dsd, g_w)
-    if not on_cuda(rays, table_c, ids_c, counts_c, idx, length, act, dsd, w,
-                   *grads, attrs, g_img):
-        return fine_bwd_plain(rays, table_c, ids_c, counts_c, idx, length, act,
-                              dsd, w, *grads, bin_size, agg_ow, attrs, g_img,
-                              want_rays)
-    B, H, W, K, BH2, BW2, nb, M = _check_args(
-        rays, table_c, ids_c, counts_c, idx, length, act, dsd, w, grads,
-        bin_size, attrs, g_img)
-    dev = rays.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    d = 0 if attrs is None else attrs.shape[1]
-    coef = torch.empty((B, H, W, K, 4), **f32)
-    rows = torch.empty((nb, M, 12 + d), **f32)
-    g_rays = torch.empty((B, H, W, 3), **f32) if want_rays else None
-    n_rows = 0 if attrs is None else attrs.shape[0]
-    err = _kernel()(
-        ptr(rays), ptr(table_c), ptr(ids_c), ptr(counts_c), ptr(idx),
-        ptr(length), ptr(act), ptr(dsd), ptr(w), *(ptr(g) for g in grads),
-        ptr(attrs), ptr(g_img), ptr(coef), ptr(rows), ptr(g_rays),
-        B * H * W, n_rows, nb, H, W, bin_size, BW2, BH2 * BW2, M, K, d,
-        float(agg_ow), stream(dev),
-    )
-    raise_on_error(err, "fine_bwd")
-    fine_bwd.launches += 1
-    return rows, g_rays
-
-
-fine_bwd.launches = 0
-
-
 def _check_split(rays, table, idx, length, dsd, grads):
     """Shapes and types of a global-space backward's arguments; (rows of the
     table, K)."""
@@ -312,55 +187,145 @@ def _check_split(rays, table, idx, length, dsd, grads):
     return table.shape[0], K
 
 
-def _check_global(rays, table, idx, length, act, dsd, w, grads):
+def _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img):
+    """K3's arguments (:func:`fine_bwd`); (rows of the table, K, d)."""
     n_tab, K = _check_split(rays, table, idx, length, dsd, grads[:3])
     if K > MAX_K:
         raise NotImplementedError(f"K={K}: the backward kernel takes 1 <= K <= {MAX_K}")
     for t, name in ((act, "act"), (w, "w"), (grads[3], "g_w")):
         if t is not None:
             check(t, name, torch.float32, idx.shape)
-    return (*idx.shape, n_tab)
+    if (attrs is None) != (g_img is None):
+        raise ValueError("attrs and g_img go together")
+    if (grads[3] is not None or attrs is not None) and (act is None or w is None):
+        raise ValueError("the weight fold (g_w or attributes) needs act and w")
+    d = 0
+    if attrs is not None:
+        if attrs.ndim != 2:
+            raise ValueError(f"attrs: expected (rows, d), got {tuple(attrs.shape)}")
+        d = attrs.shape[1]
+        check(attrs, "attrs", torch.float32, (n_tab, d))
+        check(g_img, "g_img", torch.float32, idx.shape[:3] + (d,))
+    return n_tab, K, d
 
 
-def fine_bwd_global_plain(rays, table, idx, length, act, dsd, w, g_len, g_act,
-                          g_dsd, g_w, agg_ow: float, want_rays: bool = True):
-    """Plain version of K3's global entry: dense tensor ops per slot, each
-    slot's feature row read by its id, and a segmented sum (``index_add_``)
-    per Gaussian (``voge_tpu``'s entry-space backward, ``fine.py:259-329``,
-    in the residual form).  Same contract as :func:`fine_bwd_global`."""
-    B, H, W, K, n_tab = _check_global(rays, table, idx, length, act, dsd, w,
-                                      (g_len, g_act, g_dsd, g_w))
-    coefs = _slot_coefs(idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w, agg_ow)
+def fine_bwd_plain(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
+                   g_w, agg_ow: float, attrs: Optional[torch.Tensor] = None,
+                   g_img: Optional[torch.Tensor] = None, want_rays: bool = True):
+    """Plain version of K3: dense tensor ops per slot, each slot's feature
+    row read by its id, and a segmented sum (``index_add_``) per Gaussian
+    (``voge_tpu``'s entry-space backward, ``fine.py:259-329``, in the
+    residual form).  Same contract as :func:`fine_bwd`."""
+    grads = (g_len, g_act, g_dsd, g_w)
+    n_tab, K, d = _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img)
+    coefs = _slot_coefs(idx, length, act, dsd, w, *grads, agg_ow, attrs, g_img)
     ok = (idx >= 0) & (idx < n_tab)
     seg = torch.where(ok, idx, n_tab).long()                     # (B, H, W, K)
     feats = torch.cat([table, table.new_zeros((1, FEAT))])[seg]
     g_mu, g_L, g_ray = _slot_grads(feats, rays[..., None, :],
                                    *(c[..., None] for c in coefs), want_rays)
-    vals = torch.cat([g_mu, g_L], dim=-1).reshape(-1, 12)
-    rows = vals.new_zeros((n_tab + 1, 12)).index_add_(0, seg.reshape(-1), vals)
+    cols = [g_mu, g_L]
+    if d:
+        cols.append(w[..., None] * g_img[..., None, :])
+    vals = torch.cat(cols, dim=-1).reshape(-1, 12 + d)
+    rows = vals.new_zeros((n_tab + 1, 12 + d)).index_add_(0, seg.reshape(-1), vals)
     g_rays = None
     if want_rays:
         g_rays = torch.where(ok[..., None], g_ray, 0.0).sum(-2)
     return rows[:n_tab], g_rays
 
 
-def _kernel_global():
-    fn = load("fine_bwd").voge_fine_bwd_global
-    fn.argtypes = [VOIDP] * 16 + [LONG, LONG, INT, FLOAT, VOIDP]
-    fn.restype = INT
-    return fn
+def fine_bwd_global_plain(rays, table, idx, length, act, dsd, w, g_len, g_act,
+                          g_dsd, g_w, agg_ow: float, want_rays: bool = True):
+    """Plain version of K3's global entry: :func:`fine_bwd_plain` without
+    attributes.  Same contract as :func:`fine_bwd_global`."""
+    return fine_bwd_plain(rays, table, idx, length, act, dsd, w, g_len, g_act,
+                          g_dsd, g_w, agg_ow, None, None, want_rays)
+
+
+def _kernels():
+    lib = load("fine_bwd")
+    slots, runs = lib.voge_fine_bwd_slots, lib.voge_fine_bwd_runs
+    slots.argtypes = [VOIDP] * 15 + [LONG, LONG, INT, INT, FLOAT, VOIDP]
+    runs.argtypes = [VOIDP] * 8 + [LONG, INT, INT, VOIDP]
+    slots.restype = runs.restype = INT
+    return slots, runs
+
+
+def _slots_stage(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img,
+                 want_rays):
+    """K3's per-slot kernel on CUDA tensors: (coef (..., K, 4), g_rays or None)."""
+    K, d = idx.shape[-1], 0 if attrs is None else attrs.shape[1]
+    coef = torch.empty(idx.shape + (4,), dtype=torch.float32, device=rays.device)
+    g_rays = torch.empty_like(rays) if want_rays else None
+    err = _kernels()[0](
+        ptr(rays), ptr(table), ptr(idx), ptr(length), ptr(act), ptr(dsd), ptr(w),
+        *(ptr(g) for g in grads), ptr(attrs), ptr(g_img), ptr(coef), ptr(g_rays),
+        idx.numel() // K, table.shape[0], K, d, float(agg_ow), stream(rays.device))
+    raise_on_error(err, "fine_bwd (per-slot kernel)")
+    return coef, g_rays
+
+
+def _runs_stage(rays, table, coef, w, g_img, order, starts):
+    """K3's per-Gaussian kernel on CUDA tensors: rows (B * P, 12 + d)."""
+    K, d = coef.shape[-2], 0 if g_img is None else g_img.shape[-1]
+    rows = torch.empty((table.shape[0], 12 + d), dtype=torch.float32, device=rays.device)
+    err = _kernels()[1](
+        ptr(table), ptr(rays), ptr(coef), ptr(w), ptr(g_img), ptr(order), ptr(starts),
+        ptr(rows), table.shape[0], K, d, stream(rays.device))
+    raise_on_error(err, "fine_bwd (per-Gaussian kernel)")
+    return rows
+
+
+def _launch(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img, want_rays):
+    """K3 on CUDA tensors: the per-slot kernel, the stable sort of the slot
+    ids that groups each Gaussian's slots into a run in slot order (glue),
+    the per-Gaussian kernel."""
+    n_tab, _, _ = _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img)
+    coef, g_rays = _slots_stage(rays, table, idx, length, act, dsd, w, grads, agg_ow,
+                                attrs, g_img, want_rays)
+    order, starts = _slot_runs(idx, n_tab)
+    return _runs_stage(rays, table, coef, w, g_img, order, starts), g_rays
+
+
+def fine_bwd(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
+             agg_ow: float, attrs: Optional[torch.Tensor] = None,
+             g_img: Optional[torch.Tensor] = None, want_rays: bool = True):
+    """Backward of the select (K2) over the emission-compacted rows, with the
+    fused attribute image's VJP.
+
+    :param rays: (B, H, W, 3); :param table: (B * P, 16) feature rows,
+        indexed by the slots' ids (``ops.fine.feature_table``)
+    :param idx, length, act, dsd, w: (B, H, W, K) the select's outputs
+        (``act`` and ``w`` may be None when there is nothing to fold: no
+        ``g_w`` and no attributes)
+    :param g_len, g_act, g_dsd, g_w: (B, H, W, K) cotangents, None for zero
+    :param agg_ow: occupation weight of the fused erf compositing
+    :param attrs, g_img: (B * P, d) attributes indexed by id and the
+        (B, H, W, d) cotangent of the fused attribute image, or both None
+    :param want_rays: compute the ray gradient (else skip that reduction)
+    :return: (rows (B * P, 12 + d) float32 per Gaussian: grad mu (3), grad
+        Lambda (9, row-major), grad attrs (d), summed over the slots that hold
+        it; g_rays (B, H, W, 3) float32 or None)
+    """
+    grads = (g_len, g_act, g_dsd, g_w)
+    if not on_cuda(rays, table, idx, length, act, dsd, w, *grads, attrs, g_img):
+        return fine_bwd_plain(rays, table, idx, length, act, dsd, w, *grads, agg_ow,
+                              attrs, g_img, want_rays)
+    out = _launch(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img,
+                  want_rays)
+    fine_bwd.launches += 1
+    return out
+
+
+fine_bwd.launches = 0
 
 
 def fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
                     g_dsd, g_w, agg_ow: float, want_rays: bool = True):
-    """Backward of the select's global entry (``fine_select_global``).
+    """Backward of the select's global entries (``fine_select_global``,
+    ``fine_select_bins``): :func:`fine_bwd` without attributes.
 
-    :param rays: (B, H, W, 3); :param table: (B * P, 16) feature rows,
-        indexed by the slots' ids
-    :param idx, length, act, dsd, w: (B, H, W, K) the select's outputs
-    :param g_len, g_act, g_dsd, g_w: (B, H, W, K) cotangents, None for zero
-    :param agg_ow: occupation weight of the fused erf compositing
-    :param want_rays: compute the ray gradient (else skip that reduction)
     :return: (rows (B * P, 12) float32 per Gaussian: grad mu (3), grad
         Lambda (9, row-major); g_rays (B, H, W, 3) float32 or None)
     """
@@ -368,22 +333,10 @@ def fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
     if not on_cuda(rays, table, idx, length, act, dsd, w, *grads):
         return fine_bwd_global_plain(rays, table, idx, length, act, dsd, w, *grads,
                                      agg_ow, want_rays)
-    B, H, W, K, n_tab = _check_global(rays, table, idx, length, act, dsd, w, grads)
-    dev = rays.device
-    f32 = dict(dtype=torch.float32, device=dev)
-    # one stable sort groups each Gaussian's slots into a run in slot order
-    order, starts = _slot_runs(idx, n_tab)
-    coef = torch.empty((B, H, W, K, 4), **f32)
-    rows = torch.empty((n_tab, 12), **f32)
-    g_rays = torch.empty((B, H, W, 3), **f32) if want_rays else None
-    err = _kernel_global()(
-        ptr(rays), ptr(table), ptr(idx), ptr(length), ptr(act), ptr(dsd),
-        ptr(w), *(ptr(g) for g in grads), ptr(order), ptr(starts), ptr(coef),
-        ptr(rows), ptr(g_rays), B * H * W, n_tab, K, float(agg_ow), stream(dev),
-    )
-    raise_on_error(err, "fine_bwd_global")
+    out = _launch(rays, table, idx, length, act, dsd, w, grads, agg_ow, None, None,
+                  want_rays)
     fine_bwd_global.launches += 1
-    return rows, g_rays
+    return out
 
 
 fine_bwd_global.launches = 0

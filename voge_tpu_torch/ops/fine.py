@@ -4,14 +4,14 @@ two-stage tracer's second stage :func:`ray_tracing_fine`.
 
 - Emission-compacted (every ``max_points_per_bin`` but -1; the compacted
   branch, ``fine.py:1366-1455``, and the ``_rt_fine_kern_c`` custom VJP,
-  ``fine.py:969-1151``): K1 emits the per-supertile candidate rows and the
-  inverse emission map (``ops.coarse.emit_supertile_candidates``), the
+  ``fine.py:969-1151``): K1 emits the per-supertile candidate rows
+  (``ops.coarse.emit_supertile_candidates``), the
   Gaussian feature rows are gathered into a per-supertile table, and K2
   selects, weights and (given attributes) composites in one kernel.  The
-  backward runs K3 over the same rows and gathers each Gaussian's gradient
-  rows back through the inverse map.  Unlike ``voge_tpu`` on a TPU, the rows
-  are sized from the counts the sort produces, so no member is dropped for
-  capacity.
+  backward runs K3, whose rows are the Gaussians (a slot's id is its row of
+  the feature table), so nothing is gathered back through the inverse
+  emission map.  Unlike ``voge_tpu`` on a TPU, the rows are sized from the
+  counts the sort produces, so no member is dropped for capacity.
 - Global, no coarse stage (``max_points_per_bin == -1``; the mask branch,
   ``fine.py:1303-1338``, and the ``_rt_fine_kern`` custom VJP,
   ``fine.py:695-966``): no K1 and no sort; every Gaussian of an image is a
@@ -36,9 +36,8 @@ two-stage tracer's second stage :func:`ray_tracing_fine`.
   CUDA).
 
 The backward over the global space (the no-coarse path and the two-stage
-tracer) is :func:`global_backward`, which states once when it is the unified
-entry of K3 and when the fold's own entry followed by the two halves of
-``csrc/fine_bwd_split.cu``.
+tracer) is :func:`global_backward`: K3's global entry, or for a frozen scene
+the fold's own entry and the per-ray half of ``csrc/fine_bwd_split.cu``.
 
 All backward paths are free of float atomics, so gradients repeat to the
 bit.  K above 128 is not ported yet and raises.
@@ -60,16 +59,8 @@ from voge_tpu_torch.ops.cuda_fine import (
     FEAT, MAX_K, fine_select, fine_select_bins, fine_select_global,
 )
 from voge_tpu_torch.ops.cuda_fine_bwd import (
-    fine_bwd, fine_bwd_gauss, fine_bwd_global, fine_bwd_rays, fold_weights,
+    fine_bwd, fine_bwd_global, fine_bwd_rays, fold_weights,
 )
-
-# ``voge_tpu``'s own branch point (``fine.py:912``, a TPU VMEM limit), kept
-# for now so that both packages take the same backward on the same scene.
-# It has no measured ground on the H100, where fold + pair was the faster
-# at every shape timed (PERF.md section 7; ROADMAP.md queue 2 has the
-# decision to take).
-_SPLIT_MIN_GAUSS = 262_144
-
 
 def _ceil_to(x: int, m: int) -> int:
     return (x + m - 1) // m * m
@@ -126,13 +117,12 @@ def _gauss_feature_planes_batched(mus: torch.Tensor, isigmas: torch.Tensor):
 
 class Candidates(NamedTuple):
     """The coarse stage's output: what the select kernel takes besides rays,
-    features and attributes, and what the backward gathers back through."""
+    features and attributes."""
     pos_c: torch.Tensor       # (nb, M) int32 per-image Gaussian index
     bits_c: torch.Tensor      # (nb, M) int32 sub-bin bits
     ids_c: torch.Tensor       # (nb, M) int32 flattened ids, ascending, -1 pad
     counts_c: torch.Tensor    # (nb,) int32 occupied rows
     overflow_c: torch.Tensor  # (nb,) int32 members dropped
-    dst: tuple                # inverse emission map (ops.coarse)
     bin_size: int
     thr_act: float
 
@@ -142,8 +132,8 @@ def compact_candidates(R, T, focal, principal, points: torch.Tensor,
                        n_assign: int, bin_size: Optional[int] = None,
                        max_points_per_bin: Optional[int] = None) -> Candidates:
     """Coarse stage: the per-supertile candidate rows of camera-centred
-    ``points`` (B, P, 3) with precisions ``isigmas`` (B, P, 3, 3), and the
-    inverse emission map.  Discrete, so not differentiable."""
+    ``points`` (B, P, 3) with precisions ``isigmas`` (B, P, 3, 3).  Discrete,
+    so not differentiable."""
     B, P = points.shape[0], points.shape[1]
     H, W = int(image_size[0]), int(image_size[1])
     bs, mppb = production_bin_geometry((H, W), n_assign, P, bin_size,
@@ -163,12 +153,9 @@ def compact_candidates(R, T, focal, principal, points: torch.Tensor,
         # voge_tpu's padded Gaussian count (its chunk widths' lcm, 1024)
         P_pad = _ceil_to(max(P, 1024), 1024)
         M_floor = _pick_m_max(P_pad, nst, cc, 4 * mppb)
-    pos_c, bits_c, ids_c, counts_c, overflow_c, dst = emit_supertile_candidates(
-        R, T, focal, principal, points, isigmas, (H, W), thr, bs, M_floor,
-        row_align=cc, return_dst=True,
-    )
-    return Candidates(pos_c, bits_c, ids_c, counts_c, overflow_c, dst, bs,
-                      -math.log(thr + 1.0 / 1e10))
+    rows = emit_supertile_candidates(R, T, focal, principal, points, isigmas,
+                                     (H, W), thr, bs, M_floor, row_align=cc)
+    return Candidates(*rows, bs, -math.log(thr + 1.0 / 1e10))
 
 
 @torch.no_grad()
@@ -185,18 +172,23 @@ def candidate_table(points: torch.Tensor, isigmas: torch.Tensor,
                     pos_c: torch.Tensor) -> torch.Tensor:
     """(nb, M, 16) feature rows of every supertile's candidates (``pos_c``
     gathers them per image).  Built without autograd: the backward returns
-    the rows' gradients through the inverse emission map, never through the
-    gather (whose backward would be a float atomic scatter on CUDA)."""
-    B, P = points.shape[0], points.shape[1]
+    the Gaussians' gradients directly, never through the gather (whose
+    backward would be a float atomic scatter on CUDA)."""
+    return _gather_candidates(feature_table(points, isigmas), pos_c, points.shape[0])
+
+
+def _gather_candidates(table: torch.Tensor, pos_c: torch.Tensor, B: int) -> torch.Tensor:
+    """(nb, M, 16) rows of the (B * P, 16) ``table`` that ``pos_c`` names."""
     nb, M = pos_c.shape
-    table = feature_table(points, isigmas)
-    img_row = torch.arange(nb, device=points.device)[:, None] // (nb // B)
+    P = table.shape[0] // B
+    img_row = torch.arange(nb, device=table.device)[:, None] // (nb // B)
     return table[(img_row * P + pos_c).reshape(-1)].reshape(nb, M, FEAT).contiguous()
 
 
 def gather_back_rows(rows: torch.Tensor, dst) -> torch.Tensor:
     """Per-Gaussian sums of per-slot rows through the inverse emission map
-    (counterpart of ``voge_tpu.ops.pallas_attr.gather_back_rows``).
+    (counterpart of ``voge_tpu.ops.pallas_attr.gather_back_rows``).  No
+    main path takes it: K3's rows are the Gaussians already.
 
     :param rows: (nb * M, C) per-slot rows
     :param dst: ``(dst_l (B, P, E), dst_g (B, ng, nst), gpos (B, ng),
@@ -230,14 +222,16 @@ class FineSelect(torch.autograd.Function):
     ``_rt_fine_kern_c`` custom VJP.  Differentiable inputs: ``points``
     (B, P, 3), ``isigmas`` (B, P, 3, 3), ``rays`` (B, H, W, 3) and ``attrs``
     (B, P, d) or None; ``cand`` is the coarse stage's output.  The forward
-    gathers the candidate table under no autograd and runs K2; the backward
-    runs K3 and gathers the per-row gradients back to Gaussians by ``dst``.
-    The ray gradient (and its reduction) is skipped when ``camera_grad`` is
-    False or the rays need no gradient."""
+    builds the (B * P, 16) feature table and gathers the candidate rows from
+    it under no autograd, and runs K2; the backward runs K3 on the saved
+    table, whose per-Gaussian rows are the gradients.  The ray gradient (and
+    its reduction) is skipped when ``camera_grad`` is False or the rays need
+    no gradient."""
 
     @staticmethod
     def forward(ctx, points, isigmas, rays, attrs, cand, K, agg_ow, camera_grad):
-        table_c = candidate_table(points, isigmas, cand.pos_c)
+        table = feature_table(points, isigmas)
+        table_c = _gather_candidates(table, cand.pos_c, points.shape[0])
         attr_rows = None
         if attrs is not None:
             attr_rows = attrs.to(torch.float32).reshape(-1, attrs.shape[-1]).contiguous()
@@ -245,29 +239,27 @@ class FineSelect(torch.autograd.Function):
                           cand.thr_act, K, cand.bin_size, agg_ow, attr_rows)
         ctx.mark_non_differentiable(out[0])
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(rays, table_c, attr_rows, *out[:5])
-        ctx.cand, ctx.agg_ow, ctx.camera_grad = cand, agg_ow, camera_grad
+        ctx.save_for_backward(rays, table, attr_rows, *out[:5])
+        ctx.agg_ow, ctx.camera_grad = agg_ow, camera_grad
         ctx.attrs_shape = None if attrs is None else attrs.shape
         return out if attrs is not None else out[:5]
 
     @staticmethod
     def backward(ctx, _g_idx, g_len, g_act, g_dsd, g_w, g_img=None):
-        rays, table_c, attr_rows, idx, length, act, dsd, w = ctx.saved_tensors
-        c = ctx.cand
+        rays, table, attr_rows, idx, length, act, dsd, w = ctx.saved_tensors
         want_rays = bool(ctx.camera_grad) and ctx.needs_input_grad[2]
         cont = lambda g: None if g is None else g.contiguous()
         if g_img is None:
             attr_rows = None
         rows, g_rays = fine_bwd(
-            rays, table_c, c.ids_c, c.counts_c, idx, length, act, dsd, w,
-            cont(g_len), cont(g_act), cont(g_dsd), cont(g_w), c.bin_size,
-            ctx.agg_ow, attr_rows, cont(g_img), want_rays)
-        gg = gather_back_rows(rows.reshape(-1, rows.shape[-1]), c.dst)
-        B, P = gg.shape[0], gg.shape[1]
+            rays, table, idx, length, act, dsd, w, cont(g_len), cont(g_act),
+            cont(g_dsd), cont(g_w), ctx.agg_ow, attr_rows, cont(g_img), want_rays)
+        B = rays.shape[0]
+        rows = rows.reshape(B, -1, rows.shape[-1])
         g_attrs = None
         if attr_rows is not None and ctx.needs_input_grad[3]:
-            g_attrs = gg[..., 12:].reshape(ctx.attrs_shape)
-        return (gg[..., 0:3], gg[..., 3:12].reshape(B, P, 3, 3), g_rays, g_attrs,
+            g_attrs = rows[..., 12:].reshape(ctx.attrs_shape)
+        return (rows[..., 0:3], rows[..., 3:12].reshape(B, -1, 3, 3), g_rays, g_attrs,
                 None, None, None, None)
 
 
@@ -277,39 +269,34 @@ def global_backward(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
     (idx, len, act, dsd, w), each (B, H, W, K), and their cotangents (None
     for zero; ``w`` and ``g_w`` are None where the select has no weights).
 
-    - More than ``_SPLIT_MIN_GAUSS`` (262,144) Gaussians per image, or a
-      frozen scene (``want_scene`` False: only the rays need a gradient), at
-      any size: ``voge_tpu``'s order of operations on its split path
-      (``fine.py:861-862``, ``:924-929``).  ``fold_weights`` turns ``g_w``
-      into cotangents of len / act / dsd, which join the incoming ones; then
-      the per-Gaussian half (``fine_bwd_gauss``; skipped for a frozen scene,
-      and with it the sort of the slot ids) and, when ``want_rays``, the
-      per-ray half (``fine_bwd_rays``).
-    - Otherwise the unified entry ``fine_bwd_global`` (fold fused in).
-
-    On a TPU the branch point is where the unified kernel's output block
-    outgrows VMEM; the card has no such limit, and the constant is kept only
-    so that both packages take the same branch on the same scene.
+    - The scene needs a gradient: K3's unified entry ``fine_bwd_global``
+      (the fold fused in, skipped without a weight cotangent), at every
+      size.  ``voge_tpu`` splits the backward past 262,144 Gaussians an
+      image (``fine.py:912-931``: the unified kernel's output block outgrows
+      a TPU's VMEM); the card has no such limit, and on it the unified entry
+      was as fast as or faster than the fold's entry followed by the two
+      halves of ``csrc/fine_bwd_split.cu``, with equal bits, at the 300K
+      cloud, the ShapeFitting and the two-stage shapes (PERF.md section 6).
+    - A frozen scene (``want_scene`` False: only the rays need a
+      gradient): ``fold_weights`` turns ``g_w`` into cotangents of len /
+      act / dsd, which join the incoming ones, and the per-ray half
+      ``fine_bwd_rays`` sums the ray gradient; no sort of the slot ids.
 
     :return: (rows (B * P, 12) per Gaussian: grad mu (3), grad Lambda (9),
         or None when ``want_scene`` is False; g_rays (B, H, W, 3) or None)
     """
     cont = lambda g: None if g is None else g.contiguous()
     g_len, g_act, g_dsd, g_w = (cont(g) for g in (g_len, g_act, g_dsd, g_w))
-    split = table.shape[0] // rays.shape[0] > _SPLIT_MIN_GAUSS
-    if want_scene and not split:
-        if w is None:
-            w = torch.zeros_like(length)
+    if want_scene:
         return fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
                                g_dsd, g_w, agg_ow, want_rays)
+    if not want_rays:
+        return None, None
     if g_w is not None:
         folded = fold_weights(length, act, dsd, w, g_w, agg_ow)
         g_len, g_act, g_dsd = (d if g is None else g + d
                                for g, d in zip((g_len, g_act, g_dsd), folded))
-    halves = (rays, table, idx, length, dsd, g_len, g_act, g_dsd)
-    rows = fine_bwd_gauss(*halves) if want_scene else None
-    g_rays = fine_bwd_rays(*halves) if want_rays else None
-    return rows, g_rays
+    return None, fine_bwd_rays(rays, table, idx, length, dsd, g_len, g_act, g_dsd)
 
 
 class FineSelectGlobal(torch.autograd.Function):
