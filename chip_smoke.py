@@ -45,7 +45,13 @@ Run from the root of a checkout.  Phases:
      the coarse path's selections on the whole image, and the whole image
      equal to the bit to the same kernel walking every Gaussian (no cone
      cull); K1 at 100,000 points
-     exact;
+     exact; the grouping of slots by id (``slot_runs``, which rows 10 and
+     11 and K3 take) against its plain version, torch.sort + searchsorted,
+     on the slot ids of every main path (headline, ShapeFitting, texture,
+     two-stage, pose B = 8, 300K: one to three radix passes) and on edge
+     cases (every slot empty, one id in every slot, 1, 256, 257, 65,536 and
+     65,537 ids): run starts and order equal bit for bit, two runs equal,
+     timed beside the plain version;
   3. the main paths, each with every launch counter set to 0 just before it
      and read just after (the two glue kernels of K2's global entry counted
      too: one launch each a launch of the entry):
@@ -93,7 +99,7 @@ Run from the root of a checkout.  Phases:
        the bit;
      - a frozen-scene step on the same cloud (``ray_tracing`` on constant
        points, only the cameras need a gradient): the fold and the per-ray
-       half, no per-Gaussian half and no sort of the slot ids;
+       half, no per-Gaussian half and no grouping of the slot ids;
      - pose estimation on ``bench.py:324-361``'s batched shape (the 10K
        cuboid, 8 cameras, 256x256, K = 20, features = colours):
        ``PoseHypothesisScorer.score`` of 8 hypotheses in one chunk and three
@@ -109,8 +115,8 @@ Run from the root of a checkout.  Phases:
      is dense over rays x Gaussians and cannot exist at that size), of the
      fold + pair against the unified entry on the same cotangents at the
      300K cloud, the ShapeFitting and the two-stage shapes (the split
-     question), of K3's three parts apart (the per-slot kernel, the sort of
-     the slot ids, the per-Gaussian kernel), of pose
+     question), of K3's three parts apart (the per-slot kernel, the grouping
+     of the slot ids beside its plain version, the per-Gaussian kernel), of pose
      scoring and a refinement step, and of each kernel against its plain version and, where
      one PyTorch call computes the same function, that call; each kernel's
      bound (the larger of its bytes over the card's memory rate and its
@@ -120,7 +126,8 @@ Run from the root of a checkout.  Phases:
      K2's compacted entry at the 100K cloud, the rows' gather, the global
      entry's glue, and the global entry with and without its cull in turns;
      torch.profiler traces of five kernel-path steps of each path give the
-     device's busy share and the time by kernel.
+     device's busy share and the time by kernel, and of ten calls of each
+     kernel its device time beside its CUDA-event time.
 
 Any failed check raises, so the exit code is nonzero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it a JSON line of the
@@ -129,6 +136,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import re
@@ -181,6 +189,10 @@ KERNELS = {  # name -> (library, source, replaced TPU kernel)
                        "voge_tpu/ops/pallas_bwd.py:162"),
     "fine_bwd_rays": ("fine_bwd_split", "voge_tpu_torch/csrc/fine_bwd_split.cu",
                       "voge_tpu/ops/pallas_bwd.py:213"),
+    # the grouping of slots by id that rows 10, 11 (and K3) take: part of the
+    # port of the scatter kernel, whose one-hot match it replaces
+    "slot_runs": ("slot_runs", "voge_tpu_torch/csrc/slot_runs.cu",
+                  "voge_tpu/ops/pallas_attr.py:168"),
 }
 # The card's published peaks (H100 SXM): device memory 3.35 TB/s, FP32
 # outside the tensor cores 67 TFLOP/s.  A kernel's bound is the larger of its
@@ -275,6 +287,22 @@ def cuda_ms(fn, n):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / n
+
+
+def device_ms(fn, n):
+    """Device milliseconds a call of ``fn`` (its kernels and memsets), from a
+    torch.profiler trace of ``n`` calls: what the wrapper's host work hides
+    when back-to-back calls outrun the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ev.self_device_time_total for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
 
 
 @contextmanager
@@ -579,7 +607,7 @@ def main():
     from voge_tpu_torch.ops import coarse, fine
     from voge_tpu_torch.ops.cuda_attr import (
         attr_dw, attr_dw_plain, attr_merge, attr_merge_bwd, attr_merge_bwd_plain,
-        attr_merge_plain, attr_scatter, attr_scatter_plain,
+        attr_merge_plain, attr_scatter, attr_scatter_plain, slot_runs, slot_runs_plain,
     )
     from voge_tpu_torch.ops.cuda_coarse import emit_keys, emit_keys_plain
     from voge_tpu_torch.aggregation import expend_sigma
@@ -605,7 +633,8 @@ def main():
                  "fine_select_global": fine_select_global,
                  "fine_bwd_global": fine_bwd_global, "attr_scatter": attr_scatter,
                  "attr_dw": attr_dw, "fine_select_bins": fine_select_bins,
-                 "fine_bwd_gauss": fine_bwd_gauss, "fine_bwd_rays": fine_bwd_rays}
+                 "fine_bwd_gauss": fine_bwd_gauss, "fine_bwd_rays": fine_bwd_rays,
+                 "slot_runs": slot_runs}
 
     # the two small kernels behind K2's global entry (its cone cull's glue):
     # counted like the entries, and held to one launch each a launch of it
@@ -831,6 +860,7 @@ def main():
                 (rays_b, fine.feature_table(points_b, isig_b), *sel[:5], *g_cot, 1.0,
                  attrs_b if with_attrs else None,
                  seeded(rays_b.shape, dev, 114) if with_attrs else None, True))
+    head["pose_ids"] = (sel[0], rays_b.shape[0] * head["P"])
     print(f"K3 / fold at K = 5, 40, 80, 128 on the 1K scene and at B = {POSE_B} on the headline "
           f"scene: max_err/max|plain| K3 {err['fine_bwd']:.3e} fold {err['fold_weights']:.3e}; "
           "two runs equal to the bit")
@@ -1075,6 +1105,48 @@ def main():
     del want, got, sel_r
     torch.cuda.synchronize()
 
+    # 2e. the grouping of slots by id (rows 10 and 11, K3) against its plain
+    # version, torch.sort + searchsorted: starts and the valid prefix of order
+    # equal to the bit, on the slot ids of every main path and on edge cases
+    passes = _build.load("slot_runs").voge_slot_runs_passes
+    passes.argtypes, passes.restype = [ctypes.c_longlong], ctypes.c_int
+
+    def hold_runs(tag, idx, n_rows):
+        order, starts = slot_runs(idx, n_rows)
+        p_order, p_starts = slot_runs_plain(idx, n_rows)
+        again = slot_runs(idx, n_rows)
+        v = int(p_starts[-1])
+        need(torch.equal(starts, p_starts) and torch.equal(order[:v], p_order[:v]),
+             f"slot_runs {tag}: not the plain version's grouping")
+        need(torch.equal(again[1], starts) and torch.equal(again[0][:v], order[:v]),
+             f"slot_runs {tag}: two runs differ")
+        return dict(slots=idx.numel(), valid=v, n_rows=n_rows, passes=passes(n_rows))
+
+    runs_ids = {"headline": (head["k3"][0], head["P"]),
+                "shapefit": (sel_sf[0], table_sf.shape[0]),
+                "texture": (idx_tx, N_tx),
+                "two_stage": (sel_bins[0], table_h.shape[0]),
+                "pose_b8": head["pose_ids"],
+                "cloud_300k": (sel_c[0], P_c)}
+    gen = torch.Generator(dev).manual_seed(70)
+    rand_ids = lambda n, hi: torch.randint(-(hi // 3) - 1, hi + 3, (n,), dtype=torch.int32,
+                                           device=dev, generator=gen).clamp(min=-1)
+    edge = {"all_empty": (torch.full((1 << 20,), -1, dtype=torch.int32, device=dev), 1000),
+            "one_id": (torch.full((1 << 20,), 5, dtype=torch.int32, device=dev), 10),
+            **{f"n_rows={n}": (rand_ids(1 << 20, n), n) for n in (1, 256, 257, 65536, 65537)}}
+    grouping = {}
+    for tag, (ids, n_rows) in {**runs_ids, **edge}.items():
+        grouping[tag] = hold_runs(tag, ids, n_rows)
+        if tag in runs_ids:
+            grouping[tag].update(ms=cuda_ms(lambda: slot_runs(ids, n_rows), 20),
+                                 plain_ms=cuda_ms(lambda: slot_runs_plain(ids, n_rows), 20))
+        print(f"slot_runs {tag}: " + ", ".join(f"{k} {v:.4f}" if isinstance(v, float) else
+                                               f"{k} {v}" for k, v in grouping[tag].items()))
+    print("slot_runs on every main path's ids and the edge cases: starts and order equal to the "
+          "plain version's bit for bit; two runs equal")
+    details["slot_runs"] = grouping    # integers, held equal: err["slot_runs"] stays 0
+    torch.cuda.synchronize()
+
     # ---- 3. the main paths --------------------------------------------
     g, cams, colors = head["scene"]
     R, T, focal, principal = cams
@@ -1119,7 +1191,7 @@ def main():
     frag_s, loss, params = fitting_step(g, cams, colors, hw, ctx)
     grads = torch.autograd.grad(loss, params, retain_graph=True)
     grads2 = torch.autograd.grad(loss, params)
-    add(read_counts("fitting step", ("emit_keys", "fine_select", "fine_bwd")))
+    add(read_counts("fitting step", ("emit_keys", "fine_select", "fine_bwd", "slot_runs")))
     need(vt.get_overflow_points(frag_s) == 0, "fitting step overflow_points != 0")
     for name, a, b in zip(("verts", "sigmas", "colors"), grads, grads2):
         need(bool(torch.isfinite(a).all()), f"non-finite {name} gradient")
@@ -1165,7 +1237,7 @@ def main():
     zero_counts()
     wg = white_step()
     add(read_counts("white background", ("emit_keys", "fine_select", "fine_bwd",
-                                          "attr_merge", "attr_merge_bwd")))
+                                          "attr_merge", "attr_merge_bwd", "slot_runs")))
     with plain_path():
         wp = white_step()
     white_err = {n: grad_err(a, b, f"white-background grad {n}")
@@ -1201,7 +1273,8 @@ def main():
     details["quickstart"] = dict(weight_sum=wsum, silhouette=sil)
 
     # 3d. the ShapeFitting step (slice 3) and three ShapeFitter steps
-    no_coarse = ("fine_select_global", "fine_bwd_global", "attr_merge", "attr_merge_bwd")
+    no_coarse = ("fine_select_global", "fine_bwd_global", "attr_merge", "attr_merge_bwd",
+                 "slot_runs")
 
     def compacted_unused(counts, path):
         need(all(counts[k] == 0 for k in ("emit_keys", "fine_select", "fine_bwd")),
@@ -1257,7 +1330,7 @@ def main():
     with no_plain_version():
         frag_t, wsum_t, tex_t, img_t = texture_chain(verts_tx, isig_tx, cams_tx, image_tx, ctx_tx)
     counts = read_counts("texture extraction",
-                         ("emit_keys", "fine_select", "attr_scatter", "attr_merge"))
+                         ("emit_keys", "fine_select", "attr_scatter", "attr_merge", "slot_runs"))
     add(counts)
     need(vt.get_overflow_points(frag_t) == 0, "texture overflow_points != 0")
     need(img_t.shape == (1,) + TEX_HW + (3,) and bool(torch.isfinite(img_t).all())
@@ -1297,7 +1370,7 @@ def main():
     zero_counts()
     with no_plain_version():
         sg, sg2 = sampler_grads()
-    add(read_counts("sampler backward", ("attr_scatter", "attr_dw", "attr_merge")))
+    add(read_counts("sampler backward", ("attr_scatter", "attr_dw", "attr_merge", "slot_runs")))
     with plain_path():
         sp, _ = sampler_grads()
     samp_err = {}
@@ -1328,7 +1401,7 @@ def main():
     with no_plain_version():
         sel_2, gr_2 = two_stage(points_h)
         _, gr_2b = two_stage(points_h)
-    counts = read_counts("two-stage tracer", ("fine_select_bins", "fine_bwd_global"))
+    counts = read_counts("two-stage tracer", ("fine_select_bins", "fine_bwd_global", "slot_runs"))
     need(all(counts[k] == 0 for k in ("emit_keys", "fine_select", "fine_select_global")),
          "two-stage tracer: another path's select ran")
     add(counts)
@@ -1409,7 +1482,7 @@ def main():
         gr = torch.autograd.grad(loss_c, leaves_c, retain_graph=True)
         gr2 = torch.autograd.grad(loss_c, leaves_c)
     counts = read_counts("point cloud 300K step", ("fine_select_global", "attr_merge", "attr_dw",
-                                                   "fine_bwd_global"))
+                                                   "fine_bwd_global", "slot_runs"))
     need(all(counts[k] == 0 for k in ("fold_weights", "fine_bwd_gauss", "fine_bwd_rays")),
          "300K step: the split backward ran")
     compacted_unused(counts, "point cloud 300K step")
@@ -1441,12 +1514,6 @@ def main():
 
     # 3i. a frozen scene on the same cloud: only the cameras need a gradient
     cw_c = seeded(sel_c[4].shape, dev, 95)
-    sorts = {"n": 0}
-    real_runs = cuda_fine_bwd._slot_runs
-
-    def counted_runs(*a, **k):
-        sorts["n"] += 1
-        return real_runs(*a, **k)
 
     def frozen_step(frozen):
         Rl, Tl = (x.detach().clone().requires_grad_(True) for x in cams_c[:2])
@@ -1458,22 +1525,17 @@ def main():
         return torch.autograd.grad(loss, (Rl, r))     # (T moves the origins, not the rays)
 
     zero_counts()
-    cuda_fine_bwd._slot_runs = counted_runs
-    try:
-        with no_plain_version():
-            fz = frozen_step(True)
-        counts = read_counts("frozen scene", ("fine_select_global", "fold_weights",
-                                              "fine_bwd_rays"))
-        need(counts["fine_bwd_gauss"] == 0 and counts["fine_bwd_global"] == 0
-             and sorts["n"] == 0, f"frozen scene: a per-Gaussian pass or a sort ran ({sorts})")
-        add(counts)
-        full = frozen_step(False)
-        need(sorts["n"] == 1, "the per-Gaussian half did not sort")
-    finally:
-        cuda_fine_bwd._slot_runs = real_runs
+    with no_plain_version():
+        fz = frozen_step(True)
+    counts = read_counts("frozen scene", ("fine_select_global", "fold_weights", "fine_bwd_rays"))
+    need(counts["fine_bwd_gauss"] == 0 and counts["fine_bwd_global"] == 0
+         and counts["slot_runs"] == 0, "frozen scene: a per-Gaussian pass or a grouping ran")
+    add(counts)
+    full = frozen_step(False)
+    need(slot_runs.launches == 1, "the full step's per-Gaussian pass did not group the slots")
     need(all(bool(torch.isfinite(x).all()) for x in fz), "frozen scene: non-finite gradient")
     need(torch.equal(fz[1], full[1]), "frozen scene: the ray gradient is not the full step's")
-    print(f"frozen scene 300K: fold + per-ray half alone, no sort; |g_R| {fz[0].norm().item():.4e} "
+    print(f"frozen scene 300K: fold + per-ray half alone, no grouping; |g_R| {fz[0].norm().item():.4e} "
           f"|g_rays| {fz[1].norm().item():.4e}; ray gradient equal to the full backward's")
 
     # 3j. pose scoring and refinement on the batched shape (slice 5)
@@ -1500,7 +1562,8 @@ def main():
     with no_plain_version():
         sc_k, pose_k, sim_k = pose_run()
     # (the features are constants, so the merge's backward is its d_w half alone)
-    add(read_counts("pose", ("emit_keys", "fine_select", "fine_bwd", "attr_merge", "attr_dw")))
+    add(read_counts("pose", ("emit_keys", "fine_select", "fine_bwd", "attr_merge", "attr_dw",
+                             "slot_runs")))
     with plain_path():
         sc_p, pose_p, sim_p = pose_run()
     e_sc = (sc_k - sc_p).abs().max().item()
@@ -1693,7 +1756,8 @@ def main():
     gauss_ms = dict(real=cuda_ms(lambda: fine_bwd_gauss(*halves_c), 20),
                     all_empty=cuda_ms(lambda: fine_bwd_gauss(*halves_c[:2], empty_idx,
                                                              *halves_c[3:]), 20),
-                    sort=cuda_ms(lambda: cuda_fine_bwd._slot_runs(halves_c[2], P_c), 20))
+                    grouping=cuda_ms(lambda: slot_runs(halves_c[2], P_c), 20),
+                    grouping_plain=cuda_ms(lambda: slot_runs_plain(halves_c[2], P_c), 20))
     details["split_vs_unified_300k_ms"] = dict(turns, fold=cuda_ms(lambda: fold_weights(
         *k3c[3:7], k3c[10], 1.0), 20), **gauss_ms)
     details["split_vs_unified_below_ms"] = below
@@ -1706,20 +1770,22 @@ def main():
           f"{turns['unified'][1]:.4f} ms; fold alone "
           f"{details['split_vs_unified_300k_ms']['fold']:.4f} ms; fine_bwd_gauss "
           f"{gauss_ms['real']:.4f} ms on the render's slots, {gauss_ms['all_empty']:.4f} ms with "
-          f"all {P_c} runs empty, of which the sort + searchsorted {gauss_ms['sort']:.4f} ms")
+          f"all {P_c} runs empty, of which the grouping {gauss_ms['grouping']:.4f} ms (plain "
+          f"torch.sort + searchsorted {gauss_ms['grouping_plain']:.4f} ms)")
 
-    # K3's three parts apart: the per-slot kernel, the stable sort of the slot
-    # ids (glue) and the per-Gaussian kernel, at the headline (compacted
+    # K3's three parts apart: the per-slot kernel, the grouping of the slot
+    # ids (beside its plain version) and the per-Gaussian kernel, at the headline (compacted
     # entry, attributes, with and without rays) and the ShapeFitting shapes
     # (global entry, only g_w, as the trainer's loss gives it)
     def k3_parts(k3, attrs, g_img):
         rays, table, idx = k3[0], k3[1], k3[2]
         parts = (rays, table, idx, *k3[3:7], k3[7:11], k3[11], attrs, g_img)
         coef, _ = cuda_fine_bwd._slots_stage(*parts, k3[-1])
-        order, starts = cuda_fine_bwd._slot_runs(idx, table.shape[0])
+        order, starts = slot_runs(idx, table.shape[0])
         return dict(
             slots=cuda_ms(lambda: cuda_fine_bwd._slots_stage(*parts, k3[-1]), 50),
-            sort=cuda_ms(lambda: cuda_fine_bwd._slot_runs(idx, table.shape[0]), 50),
+            grouping=cuda_ms(lambda: slot_runs(idx, table.shape[0]), 50),
+            grouping_plain=cuda_ms(lambda: slot_runs_plain(idx, table.shape[0]), 50),
             runs=cuda_ms(lambda: cuda_fine_bwd._runs_stage(rays, table, coef, k3[6], g_img,
                                                           order, starts), 50))
     k3b_rays = head["k3b"][:-1] + (True,)
@@ -1727,7 +1793,8 @@ def main():
              "headline_rays": k3_parts(k3b_rays, *head["k3b"][12:14]),
              "shapefit": k3_parts(head["k3g"], None, None)}
     for tag, v in k3_ms.items():
-        print(f"K3 parts {tag}: per-slot kernel {v['slots']:.4f} ms, sort {v['sort']:.4f} ms, "
+        print(f"K3 parts {tag}: per-slot kernel {v['slots']:.4f} ms, grouping {v['grouping']:.4f} "
+              f"ms (plain {v['grouping_plain']:.4f}), "
               f"per-Gaussian kernel {v['runs']:.4f} ms")
     details["k3_parts_ms"] = k3_ms
 
@@ -1764,6 +1831,8 @@ def main():
                            lambda: fine_bwd_gauss_plain(*halves_c)),
         "fine_bwd_rays": (lambda: fine_bwd_rays(*halves_c),
                           lambda: fine_bwd_rays_plain(*halves_c)),
+        "slot_runs": (lambda: slot_runs(head["scatter"][0], N_tx),
+                      lambda: slot_runs_plain(head["scatter"][0], N_tx)),
     }
 
     # Bounds: bytes each input is read once and each output written once
@@ -1843,6 +1912,8 @@ def main():
             outs=4),
         "fine_bwd_gauss": half_bound(halves_c, True),
         "fine_bwd_rays": half_bound(halves_c, False),
+        # the grouping: idx read once, starts and the valid slots' order written once
+        "slot_runs": bound_ms(nbytes(head["scatter"][0]) + (N_tx + 1) * 8 + sc_valid * 4, 0.0),
     }
 
     # one PyTorch call that computes the same function, where there is one,
@@ -1855,31 +1926,35 @@ def main():
     bag_idx = torch.where(k3[0] >= 0, k3[0], k3[2].shape[0]).long().reshape(-1, k3[0].shape[-1])
     bag_w = k3[1].reshape(bag_idx.shape)
     bag_rows = torch.cat([k3[2], torch.zeros_like(k3[2][:1])])
+    key_s = torch.where(ok_s, idx_s, N_tx).reshape(-1)
+    edges_s = torch.arange(N_tx + 1, dtype=key_s.dtype, device=dev)
     library = {
         "attr_scatter": lambda: acc_s.zero_().index_add_(0, seg_s, vals_s),
         "attr_merge": lambda: torch.nn.functional.embedding_bag(
             bag_idx, bag_rows, per_sample_weights=bag_w, mode="sum",
             padding_idx=k3[2].shape[0]),
+        "slot_runs": lambda: torch.searchsorted(torch.sort(key_s, stable=True)[0], edges_s),
     }
     e = (library["attr_scatter"]()[:N_tx] - attr_scatter(*head["scatter"])).abs().max().item()
     need(e <= GRAD_TOL * acc_s.abs().max().item(), f"index_add_ vs attr_scatter {e}")
     e = (library["attr_merge"]().reshape(k3[0].shape[:-1] + (-1,)) - attr_merge(*k3)).abs().max().item()
     need(e <= 1e-5, f"embedding_bag vs attr_merge {e}")
-    from voge_tpu_torch.ops.cuda_attr import _slot_runs
-
-    sort_ms = cuda_ms(lambda: _slot_runs(idx_s, N_tx), 20)
-    print(f"attr_scatter glue: the stable sort of {idx_s.numel()} slot ids and the searchsorted "
-          f"take {sort_ms:.4f} ms of the wrapper's time")
-    details["attr_scatter_sort_ms"] = sort_ms
+    sort_ms = cuda_ms(lambda: slot_runs(idx_s, N_tx), 20)
+    sort_plain_ms = cuda_ms(lambda: slot_runs_plain(idx_s, N_tx), 20)
+    print(f"attr_scatter's grouping of {idx_s.numel()} slot ids (slot_runs) takes {sort_ms:.4f} ms "
+          f"of the wrapper's time; its plain version (torch.sort + searchsorted) {sort_plain_ms:.4f} ms")
+    details["attr_scatter_sort_ms"] = dict(kernel=sort_ms, plain=sort_plain_ms)
 
     kern = []
+    details["kernels_device_ms"] = {}
     for name, (kfn, pfn) in per.items():
         ms = cuda_ms(kfn, 50)
         plain_ms = cuda_ms(pfn, 5 if name.startswith(("fine_select", "fine_bwd")) else 20)
         lib_ms = cuda_ms(library[name], 20) if name in library else None
         b_ms, b_by = bounds[name]
-        print(f"kernel {name}: {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by "
-              f"{b_by} (share {b_ms / ms:.4f}), library "
+        dev_ms = details["kernels_device_ms"][name] = device_ms(kfn, 10)
+        print(f"kernel {name}: {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.5f} ms by {b_by} (share {b_ms / ms:.4f}), library "
               + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
               + f", launches on the main paths {launches[name]}")
         _, src, rep = KERNELS[name]
@@ -1888,7 +1963,7 @@ def main():
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
     details["kernels"] = kern
-    need(len(kern) == len(KERNELS) == 13, "the kernels line lists every entry")
+    need(len(kern) == len(KERNELS) == 14, "the kernels line lists every entry")
 
     # K2's global entry and the unified backward once more, at the 300K
     # shapes (the lines above hold them at the ShapeFitting shapes)

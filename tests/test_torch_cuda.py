@@ -1036,3 +1036,123 @@ def test_cull_glue_kernels_match_plain(stage, tile):
     assert torch.isnan(cones[:, 3]).any() and not torch.isnan(cones[:, 3]).all()
     ok = ~torch.isnan(want[:, 3])
     torch.testing.assert_close(cones[ok], want[ok], rtol=0, atol=1e-6)
+
+
+def _hold_runs(idx, n_rows):
+    """``slot_runs`` against its plain version (torch.sort + searchsorted):
+    the run starts and the valid prefix of ``order`` equal to the bit, one
+    launch a call, two runs equal."""
+    from voge_tpu_torch.ops.cuda_attr import slot_runs, slot_runs_plain
+
+    before = slot_runs.launches
+    order, starts = slot_runs(idx, n_rows)
+    again = slot_runs(idx, n_rows)
+    p_order, p_starts = slot_runs_plain(idx, n_rows)
+    torch.cuda.synchronize()
+    assert slot_runs.launches == before + 2
+    assert order.dtype == torch.int32 and starts.dtype == torch.int64
+    v = int(p_starts[-1])
+    assert torch.equal(starts, p_starts) and torch.equal(order[:v], p_order[:v])
+    assert torch.equal(again[1], starts) and torch.equal(again[0][:v], order[:v])
+    return v
+
+
+@pytest.mark.parametrize("K", [1, 20, 80, 128])
+@pytest.mark.parametrize("n_rows", [1, 255, 256, 257, 65535, 65536, 65537, 300000])
+def test_slot_runs_kernel_equals_plain(dev, n_rows, K):
+    """Random ids (a third empty, some at or above ``n_rows``) at one, two
+    and three radix passes, more than one tile of 2,048 slots."""
+    gen = torch.Generator(dev).manual_seed(n_rows + K)
+    idx = torch.randint(-(n_rows // 2) - 1, n_rows + 4, (max(1, 300_000 // K), K),
+                        dtype=torch.int32, device=dev, generator=gen).clamp(min=-1)
+    assert _hold_runs(idx, n_rows) == int(((idx >= 0) & (idx < n_rows)).sum())
+
+
+@pytest.mark.parametrize("kind", ["all_empty", "one_id", "all_beyond", "one_slot", "texture"])
+def test_slot_runs_kernel_edge_cases(dev, kind):
+    """Every slot empty, one id in every slot, every id out of range, one
+    slot, and the texture shapes' 13.76 M slots on 10,242 ids."""
+    gen = torch.Generator(dev).manual_seed(8)
+    full = lambda v: torch.full((4099, 20), v, dtype=torch.int32, device=dev)
+    idx, n_rows = {
+        "all_empty": lambda: (full(-1), 1000), "one_id": lambda: (full(5), 10),
+        "all_beyond": lambda: (full(300), 300),
+        "one_slot": lambda: (torch.full((1, 1), 7, dtype=torch.int32, device=dev), 8),
+        "texture": lambda: (torch.randint(-4000, 10242, (1, 256, 672, 80), dtype=torch.int32,
+                                          device=dev, generator=gen).clamp(min=-1), 10242),
+    }[kind]()
+    v = _hold_runs(idx, n_rows)
+    assert v == {"all_empty": 0, "one_id": idx.numel(), "all_beyond": 0,
+                 "one_slot": 1}.get(kind, v)
+
+
+def test_run_kernels_keep_their_bits_with_the_plain_grouping(stage, monkeypatch):
+    """``attr_scatter``, K4b and K3's two entries (and the per-Gaussian half)
+    give the same bits with the grouping kernel as with the plain grouping
+    handed to the same run kernels."""
+    from voge_tpu_torch.ops import cuda_fine_bwd
+    from voge_tpu_torch.ops.cuda_attr import attr_scatter, slot_runs_plain
+
+    rays, table, args = _global_select(stage, 25, "none")
+    sel = fine_select_global(*args)
+    cots = _cotangents(sel[1].shape, rays.device, 4, 21)
+    attrs = torch.rand(table.shape[0], 5, device=rays.device,
+                       generator=torch.Generator(rays.device).manual_seed(22))
+    g_img = _cotangents(rays.shape[:3] + (5,), rays.device, 1, 23)[0]
+
+    def run_all():
+        return (attr_scatter(sel[0], sel[4], g_img, table.shape[0]),
+                *attr_merge_bwd(sel[0], sel[4], attrs, g_img),
+                *fine_bwd(rays, table, *sel, *cots, 0.9, attrs, g_img, True),
+                *fine_bwd_global(rays, table, *sel, *cots, 0.9, True),
+                fine_bwd_gauss(rays, table, sel[0], sel[1], sel[3], *cots[:3]))
+
+    kernel = run_all()
+    monkeypatch.setattr(cuda_attr, "slot_runs", slot_runs_plain)
+    monkeypatch.setattr(cuda_fine_bwd, "slot_runs", slot_runs_plain)
+    plain = run_all()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(kernel, plain))
+
+
+def test_attr_scatter_warp_and_block_runs(dev):
+    """Runs a warp sums (empty, 1, 33, 127, 128 slots) beside runs a whole
+    block sums (129, 512, 5,000 slots) in one call: against the plain
+    version, and every row equal to the bit to the same row scattered
+    alone."""
+    from voge_tpu_torch.ops.cuda_attr import attr_scatter, attr_scatter_plain
+
+    lens = [0, 1, 33, 127, 128, 129, 5000, 0, 512, 2]
+    n_rows, K, d = len(lens), 8, 11
+    gen = torch.Generator(dev).manual_seed(30)
+    ids = torch.cat([torch.full((n,), j, dtype=torch.int32) for j, n in enumerate(lens)])
+    ids = ids[torch.randperm(ids.numel(), generator=torch.Generator().manual_seed(31))]
+    n_pix = -(-ids.numel() // K) + 3
+    idx = torch.full((n_pix * K,), -1, dtype=torch.int32)
+    pos = torch.randperm(n_pix * K, generator=torch.Generator().manual_seed(32))[:ids.numel()]
+    idx[pos.sort().values] = ids
+    idx = idx.reshape(n_pix, K).to(dev)
+    w = torch.rand((n_pix, K), device=dev, generator=gen)
+    g = torch.randn((n_pix, d), device=dev, generator=gen)
+    out = attr_scatter(idx, w, g, n_rows)
+    _close(out, attr_scatter_plain(idx, w, g, n_rows))
+    assert torch.equal(out, attr_scatter(idx, w, g, n_rows))
+    assert not out[0].any() and not out[7].any()
+    for j in range(n_rows):   # row j alone: the other ids moved out of range
+        alone = attr_scatter(torch.where(idx == j, idx, n_rows + 1), w, g, n_rows)
+        assert torch.equal(alone[j], out[j]), j
+
+
+def test_slot_runs_checks_its_inputs(dev):
+    """On the card the grouping takes int32 ids and a positive row count, or
+    raises; it never falls back to its plain version."""
+    from voge_tpu_torch.ops.cuda_attr import slot_runs
+
+    idx = torch.zeros((4, 5), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        slot_runs(idx.long(), 10)
+    for n_rows in (0, -3):
+        with pytest.raises(ValueError):
+            slot_runs(idx, n_rows)
+    with pytest.raises(ValueError):
+        slot_runs(idx[:0], 10)

@@ -33,8 +33,9 @@
 //       component) sums the K terms from shared memory in ascending slot
 //       order: the order of the split per-ray half (fine_bwd_split.cu).
 //  2. per Gaussian (fine_bwd_runs_kernel, pallas_bwd.py:835-881): the caller
-//     sorts the flattened slot ids with one stable sort and passes each id's
-//     run (order, starts), as K4b does; one warp walks one run, lane l
+//     groups the flattened slot ids by id (slot_runs.cu: the valid slots in
+//     slot order) and passes each id's run (order, starts), as K4b does; one
+//     warp walks one run, lane l
 //     taking slots l, l + 32, ... in run (= slot) order, and a fixed shuffle
 //     tree sums the lanes:
 //       g_mu     = sum g_msk Lambda r + g_msm (Lambda + Lambda^T) mu
@@ -57,12 +58,13 @@
 //
 // What bounds it on the H100.  Step 1 is arithmetic: 2 K^2 exp and K^2 erf a
 // ray, over the occupied slots (headline: 65,536 rays, K = 20), spread over
-// one thread a slot.  Step 2 reads 8 bytes of `order`, 16 of coefficients and
+// one thread a slot.  Step 2 reads 4 bytes of `order`, 16 of coefficients and
 // 12 of the ray a slot, scattered, and 64 bytes of table a Gaussian.
 // Measured by chip_smoke.py on an H100 80GB HBM3 at 700 W: 40 and 56
-// registers, no spills; at the headline 0.040 ms for step 1, 0.139 for the
-// sort (torch, in the wrapper: the largest part) and 0.020 for step 2; at
-// the ShapeFitting shapes 0.083, 0.191 and 0.021.
+// registers, no spills; at the headline 0.040 ms for step 1 and 0.020 for
+// step 2, at the ShapeFitting shapes 0.083 and 0.021.  The grouping between
+// them (slot_runs.cu, called by the wrapper) is timed beside them in PERF.md
+// section 6.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -158,7 +160,7 @@ __global__ void __launch_bounds__(VOGE_SLOT_THREADS) fine_bwd_slots_kernel(const
 __global__ void __launch_bounds__(GAUSS_THREADS) fine_bwd_runs_kernel(
     const float* __restrict__ table, const float* __restrict__ rays,
     const float4* __restrict__ coef, const float* __restrict__ w,
-    const float* __restrict__ g_img, const long long* __restrict__ order,
+    const float* __restrict__ g_img, const int* __restrict__ order,
     const long long* __restrict__ starts, float* __restrict__ out, long long n_tab,
     int K, int d) {
   const long long j = ((long long)blockIdx.x * GAUSS_THREADS + threadIdx.x) >> 5;
@@ -265,9 +267,9 @@ extern "C" int voge_fine_bwd_slots(
   return (int)cudaGetLastError();
 }
 
-// Step 2.  ``order`` / ``starts`` are the stable sort of the flattened idx
-// (n_pix * K, int64) and each id's run start (n_tab + 1, int64; slots that
-// hold no row sort behind the last run); ``coef`` is step 1's; ``w`` and
+// Step 2.  ``order`` / ``starts`` are the flattened idx's valid slots
+// grouped by id in slot order (int32) and each id's run start (n_tab + 1,
+// int64), from slot_runs.cu; ``coef`` is step 1's; ``w`` and
 // ``g_img`` (n_pix, d) are read only when d > 0; ``o_rows`` (n_tab, 12 + d).
 extern "C" int voge_fine_bwd_runs(
     const void* table, const void* rays, const void* coef, const void* w,
@@ -279,7 +281,7 @@ extern "C" int voge_fine_bwd_runs(
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   fine_bwd_runs_kernel<<<(unsigned)blocks, GAUSS_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)rays, (const float4*)coef, (const float*)w,
-      (const float*)g_img, (const long long*)order, (const long long*)starts,
+      (const float*)g_img, (const int*)order, (const long long*)starts,
       (float*)o_rows, n_tab, K, d);
   return (int)cudaGetLastError();
 }

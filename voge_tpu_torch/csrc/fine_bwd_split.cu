@@ -35,12 +35,12 @@
 // ray slot against every Gaussian of a chunk (O(P R K): 6e11 compares at
 // 300,000 Gaussians, 102,400 rays and K = 20).
 //
-// Per Gaussian.  The caller sorts the flattened slot ids with one stable sort
-// (glue, as for the unified entry) and passes each id's run (order, starts).
+// Per Gaussian.  The caller groups the flattened slot ids by id (slot_runs.cu,
+// as for the unified entry) and passes each id's run (order, starts).
 // One warp takes one Gaussian: lane l sums slots l, l + 32, ... of the run in
 // run order, a fixed shuffle tree sums the lanes, lane 0 writes the row.  No
 // float atomics; the order is fixed, so two runs give the same bits.
-// What bounds it: bytes and latency.  A slot costs 8 bytes of `order`, five
+// What bounds it: bytes and latency.  A slot costs 4 bytes of `order`, five
 // 4-byte reads scattered by slot, 12 bytes of its ray and ~100 operations; a
 // Gaussian 64 bytes of its table row and 48 of its output row.
 // Empty runs: on a 300,000-point cloud seen at 320x320 with K = 20, two
@@ -53,11 +53,10 @@
 // touches the feature table, so the empty runs cost ~8 MB of traffic and no
 // arithmetic.  A compacted list of the occupied ids would save those warps
 // only by adding a pass over `starts` and a separate zero fill of the rows.
-// Measured there on an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.38 ms for
-// the entry, of which 0.21 the sort and the searchsorted and 0.18 this kernel
-// (64 registers); 0.30 ms with every slot empty (the sort's 0.21 plus at most
-// 0.09 for 300,000 empty runs), so the sort is what a faster entry would have
-// to shrink.  The plain version: 5.3 ms.
+// Measured there on an H100 80GB HBM3 at 700 W (chip_smoke.py): 0.18 ms for
+// this kernel (64 registers), at most 0.09 of it for 300,000 empty runs when
+// every slot is empty; the entry's grouping (slot_runs.cu) is timed in
+// PERF.md section 6.  The plain version: 5.3 ms.
 //
 // Per ray.  One thread per ray walks its K slots in order and reads each
 // slot's feature row by id (64 scattered bytes; neighbouring rays select
@@ -85,7 +84,7 @@ struct Slots {
 
 __global__ void __launch_bounds__(GAUSS_THREADS) bwd_gauss_kernel(
     const float* __restrict__ table, const float* __restrict__ rays, const Slots s,
-    const long long* __restrict__ order, const long long* __restrict__ starts,
+    const int* __restrict__ order, const long long* __restrict__ starts,
     float* __restrict__ out, long long n_tab, int K) {
   const long long j = ((long long)blockIdx.x * GAUSS_THREADS + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -159,9 +158,8 @@ Slots slots(const void* len, const void* dsd, const void* g_len, const void* g_a
 }  // namespace
 
 // ``table`` (n_tab, 16) is indexed by slot id; ``order`` / ``starts`` are the
-// stable sort of the flattened slot ids (n_pix * K, int64) and each id's run
-// start (n_tab + 1, int64; slots that hold no Gaussian sort behind the last
-// run); ``o_rows`` (n_tab, 12).
+// flattened slot ids' valid slots grouped by id in slot order (int32) and each
+// id's run start (n_tab + 1, int64), from slot_runs.cu; ``o_rows`` (n_tab, 12).
 extern "C" int voge_fine_bwd_gauss(
     const void* rays, const void* table, const void* len, const void* dsd,
     const void* g_len, const void* g_act, const void* g_dsd, const void* order,
@@ -171,7 +169,7 @@ extern "C" int voge_fine_bwd_gauss(
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   bwd_gauss_kernel<<<(unsigned)blocks, GAUSS_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const float*)rays, slots(len, dsd, g_len, g_act, g_dsd),
-      (const long long*)order, (const long long*)starts, (float*)o_rows, n_tab, K);
+      (const int*)order, (const long long*)starts, (float*)o_rows, n_tab, K);
   return (int)cudaGetLastError();
 }
 

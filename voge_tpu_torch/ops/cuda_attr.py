@@ -11,19 +11,24 @@ plain PyTorch version.
   function with K2's fused attribute image.
 - :func:`attr_dw`: ``d_w[..., k] = attrs[idx[..., k]] . g`` (replaces
   ``_bwd_w_kernel``), a gather, one thread per slot.
+- :func:`slot_runs` (``csrc/slot_runs.cu``): the grouping every run kernel
+  takes, the valid slots of the flattened ids grouped by id in slot order
+  (``order``) and each id's run start (``starts``), by a stable radix sort of
+  the valid slots on the bits the ids have; equal to the bit to the stable
+  ``torch.sort`` + ``searchsorted`` of :func:`slot_runs_plain`.
 - :func:`attr_scatter`: ``out[j]`` = the sum of ``w * g`` over the slots
-  holding ``j`` (replaces ``_bwd_attr_kernel``).  One stable sort of the slot
-  ids (PyTorch glue) groups each row's slots into a run in slot order; a block
-  per row sums its run in a fixed order, without float atomics.  It is the
-  d_attr half of the merge's VJP and, with an image as ``g``, the texture
+  holding ``j`` (replaces ``_bwd_attr_kernel``).  :func:`slot_runs` groups
+  each row's slots into a run in slot order; a warp per short run and a
+  block per long one sum it in one fixed order, without float atomics.  It is
+  the d_attr half of the merge's VJP and, with an image as ``g``, the texture
   sampler's forward (``voge_tpu_torch.sampler``).
 - :func:`attr_merge_bwd` (K4b, replaces ``_bwd_unified_kernel``): both halves
   in one call over the same device kernels; asked for one half it hands over
   to that half's entry.
 
 Bound on the H100: memory (a few MB at the 10K-Gaussian headline, where
-launch latency dominates; ~110 MB of slots at the texture shapes, where the
-sort of the slot ids costs more than the kernel).
+launch latency dominates; ~110 MB of slots at the texture shapes, of which
+the grouping reads the ids and writes the valid slots' order).
 
 :class:`AttrMerge` wraps K3f as an autograd node whose backward is
 :func:`attr_merge_bwd`.
@@ -127,16 +132,56 @@ def _check_attrs(attrs, d: int):
     return attrs.shape[0]
 
 
-def _slot_runs(idx, n_rows: int):
-    """(order, starts): a stable sort of the flattened slot ids groups each
-    row's slots into a run ``order[starts[j]:starts[j + 1]]`` in slot order;
-    empty and out-of-range slots sort behind the last run."""
+def slot_runs_plain(idx, n_rows: int):
+    """Plain version of :func:`slot_runs`: a stable ``torch.sort`` of the
+    flattened ids (out-of-range ones keyed ``n_rows``, behind the last run)
+    and a ``searchsorted`` of the run edges; ``order`` as int32."""
     flat = idx.reshape(-1)
     key = torch.where((flat >= 0) & (flat < n_rows), flat, n_rows)
     key_s, order = torch.sort(key, stable=True)
     starts = torch.searchsorted(
         key_s, torch.arange(n_rows + 1, dtype=key_s.dtype, device=idx.device))
+    return order.to(torch.int32), starts.to(torch.int64)
+
+
+def _runs_kernel():
+    lib = load("slot_runs")
+    fn, scratch = lib.voge_slot_runs, lib.voge_slot_runs_scratch
+    fn.argtypes = [VOIDP] * 4 + [LONG, LONG, VOIDP]
+    fn.restype = INT
+    scratch.argtypes, scratch.restype = [LONG], LONG
+    return fn, scratch
+
+
+def slot_runs(idx: torch.Tensor, n_rows: int):
+    """Group the flattened slots by the id they hold.
+
+    :param idx: (..., K) int32 ids; ids outside ``[0, n_rows)`` hold nothing
+    :param n_rows: the number of ids
+    :return: (order (idx.numel(),) int32, starts (n_rows + 1,) int64): the
+        slots holding ``j`` are ``order[starts[j]:starts[j + 1]]`` in
+        ascending slot order; ``order[starts[n_rows]:]`` is unspecified
+    """
+    if not on_cuda(idx):
+        return slot_runs_plain(idx, n_rows)
+    check(idx, "idx", torch.int32)
+    n = idx.numel()
+    if not 0 < n < 2 ** 31:
+        raise ValueError(f"idx: expected 1 to 2^31 - 1 slots, got {n}")
+    if not 0 < n_rows < 2 ** 31 - 1:
+        raise ValueError(f"n_rows: expected 1 to 2^31 - 2, got {n_rows}")
+    fn, scratch_len = _runs_kernel()
+    dev = idx.device
+    scratch = torch.empty(scratch_len(n), dtype=torch.int32, device=dev)
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    starts = torch.empty(n_rows + 1, dtype=torch.int64, device=dev)
+    err = fn(ptr(idx), ptr(order), ptr(starts), ptr(scratch), n, n_rows, stream(dev))
+    raise_on_error(err, "slot_runs")
+    slot_runs.launches += 1
     return order, starts
+
+
+slot_runs.launches = 0
 
 
 def _dw_kernel():
@@ -170,7 +215,7 @@ attr_dw.launches = 0
 
 def _scatter_kernel():
     fn = load("attr_merge_bwd").voge_attr_scatter
-    fn.argtypes = [VOIDP] * 5 + [LONG, INT, INT, LONG, VOIDP]
+    fn.argtypes = [VOIDP] * 6 + [LONG, INT, INT, LONG, VOIDP]
     fn.restype = INT
     return fn
 
@@ -191,9 +236,10 @@ def attr_scatter(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     n_pix, K, d = _check_slots(idx, g, w)
     if n_rows <= 0:
         raise ValueError(f"n_rows: expected a positive count, got {n_rows}")
-    order, starts = _slot_runs(idx, n_rows)
+    order, starts = slot_runs(idx, n_rows)
     out = torch.empty((n_rows, d), dtype=torch.float32, device=idx.device)
-    err = _scatter_kernel()(ptr(order), ptr(starts), ptr(w), ptr(g), ptr(out),
+    rows = torch.empty(n_rows + 1, dtype=torch.int32, device=idx.device)
+    err = _scatter_kernel()(ptr(order), ptr(starts), ptr(w), ptr(g), ptr(out), ptr(rows),
                             n_pix, K, d, n_rows, stream(idx.device))
     raise_on_error(err, "attr_scatter")
     attr_scatter.launches += 1
@@ -205,7 +251,7 @@ attr_scatter.launches = 0
 
 def _bwd_kernel():
     fn = load("attr_merge_bwd").voge_attr_merge_bwd
-    fn.argtypes = [VOIDP] * 8 + [LONG, INT, INT, LONG, VOIDP]
+    fn.argtypes = [VOIDP] * 9 + [LONG, INT, INT, LONG, VOIDP]
     fn.restype = INT
     return fn
 
@@ -227,11 +273,12 @@ def attr_merge_bwd(idx: torch.Tensor, w: torch.Tensor, attrs: torch.Tensor,
     n_pix, K, d = _check_slots(idx, g, w)
     n_rows = _check_attrs(attrs, d)
     dev = idx.device
-    order, starts = _slot_runs(idx, n_rows)
+    order, starts = slot_runs(idx, n_rows)
     d_w = torch.empty_like(w)
     d_attr = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
+    rows = torch.empty(n_rows + 1, dtype=torch.int32, device=dev)
     err = _bwd_kernel()(ptr(idx), ptr(w), ptr(attrs), ptr(g), ptr(order),
-                        ptr(starts), ptr(d_w), ptr(d_attr), n_pix, K, d,
+                        ptr(starts), ptr(d_w), ptr(d_attr), ptr(rows), n_pix, K, d,
                         n_rows, stream(dev))
     raise_on_error(err, "attr_merge_bwd")
     attr_merge_bwd.launches += 1

@@ -12,8 +12,8 @@ From the select's saved image-layout outputs (idx, len, act, dsd, w) and
 their cotangents, one thread per slot folds the weight cotangent (and, with
 attributes, the attribute image's weight cotangent) into the len / act / dsd
 cotangents and applies the entry-space chain rule; per ray it sums the ray
-gradient (3); per Gaussian, over each Gaussian's run of a stable sort of the
-slot ids, one warp sums the gradients of mu (3), Lambda (9) and the
+gradient (3); per Gaussian, over each Gaussian's run of the slot ids grouped
+by id (``cuda_attr.slot_runs``), one warp sums the gradients of mu (3), Lambda (9) and the
 attributes (d) in a fixed order.  A slot's id ``b * P + p`` is its row of the
 (B * P, 16) feature table and of the output, so both entries return
 per-Gaussian rows: no float atomics, two runs give the same bits.
@@ -59,7 +59,7 @@ from voge_tpu_torch._build import load
 from voge_tpu_torch.ops._dispatch import (
     FLOAT, INT, LONG, VOIDP, check, on_cuda, ptr, raise_on_error, stream,
 )
-from voge_tpu_torch.ops.cuda_attr import _slot_runs
+from voge_tpu_torch.ops.cuda_attr import slot_runs
 from voge_tpu_torch.ops.cuda_fine import FEAT, MAX_K
 
 _INV_SQRT_PI = 0.5641895835477563
@@ -278,13 +278,13 @@ def _runs_stage(rays, table, coef, w, g_img, order, starts):
 
 
 def _launch(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img, want_rays):
-    """K3 on CUDA tensors: the per-slot kernel, the stable sort of the slot
-    ids that groups each Gaussian's slots into a run in slot order (glue),
-    the per-Gaussian kernel."""
+    """K3 on CUDA tensors: the per-slot kernel, the grouping of each
+    Gaussian's slots into a run in slot order (:func:`slot_runs`), the
+    per-Gaussian kernel."""
     n_tab, _, _ = _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img)
     coef, g_rays = _slots_stage(rays, table, idx, length, act, dsd, w, grads, agg_ow,
                                 attrs, g_img, want_rays)
-    order, starts = _slot_runs(idx, n_tab)
+    order, starts = slot_runs(idx, n_tab)
     return _runs_stage(rays, table, coef, w, g_img, order, starts), g_rays
 
 
@@ -398,8 +398,8 @@ def fine_bwd_gauss(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
     if not on_cuda(rays, table, idx, length, dsd, *grads):
         return fine_bwd_gauss_plain(rays, table, idx, length, dsd, *grads)
     n_tab, K = _check_split(rays, table, idx, length, dsd, grads)
-    # one stable sort groups each Gaussian's slots into a run in slot order
-    order, starts = _slot_runs(idx, n_tab)
+    # each Gaussian's slots as one run in slot order
+    order, starts = slot_runs(idx, n_tab)
     rows = torch.empty((n_tab, 12), dtype=torch.float32, device=rays.device)
     err = _kernel_gauss()(
         ptr(rays), ptr(table), ptr(length), ptr(dsd), *(ptr(g) for g in grads),

@@ -280,7 +280,7 @@ def global_backward(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
     - A frozen scene (``want_scene`` False: only the rays need a
       gradient): ``fold_weights`` turns ``g_w`` into cotangents of len /
       act / dsd, which join the incoming ones, and the per-ray half
-      ``fine_bwd_rays`` sums the ray gradient; no sort of the slot ids.
+      ``fine_bwd_rays`` sums the ray gradient; no grouping of the slot ids.
 
     :return: (rows (B * P, 12) per Gaussian: grad mu (3), grad Lambda (9),
         or None when ``want_scene`` is False; g_rays (B, H, W, 3) or None)
