@@ -12,8 +12,8 @@ Run from the root of a checkout.  Phases:
      shared memory per instantiation and its resident blocks by K; K3's
      per-slot and per-Gaussian kernels' and the fold's registers and spills);
   2. each kernel against its plain PyTorch version on the card, on a 1K
-     scene at 128x128 and on the 10K-Gaussian headline at 256x256: K1
-     exact; K2 at K = 5 and 20, with and without attributes, and all three
+     scene at 128x128 and on the 10K-Gaussian headline at 256x256: K2 at
+     K = 5 and 20, with and without attributes, and all three
      of its entries at K = 5, 8, 16, 20, 25, 32, 64, 80 and 128 on the 1K
      scene (selections, len, act, dsd equal bit for bit, with and without a
      random bits plane, two runs equal); K3f; the fold,
@@ -44,17 +44,25 @@ Run from the root of a checkout.  Phases:
      there against its plain version on a 32x32 crop of the rays and against
      the coarse path's selections on the whole image, and the whole image
      equal to the bit to the same kernel walking every Gaussian (no cone
-     cull); K1 at 100,000 points
-     exact; the grouping of slots by id (``slot_runs``, which rows 10 and
+     cull); the grouping of slots by id (``slot_runs``, which rows 10 and
      11 and K3 take) against its plain version, torch.sort + searchsorted,
      on the slot ids of every main path (headline, ShapeFitting, texture,
      two-stage, pose B = 8, 300K: one to three radix passes) and on edge
      cases (every slot empty, one id in every slot, 1, 256, 257, 65,536 and
      65,537 ids): run starts and order equal bit for bit, two runs equal,
-     timed beside the plain version;
+     timed beside the plain version; the coarse stage (K1 ``emit_rows``,
+     the grouping, ``coarse_globals``, ``coarse_rows``) at the headline,
+     quickstart, texture (its re-emission at the 3x3 window), 100K and pose
+     B = 8 shapes: each kernel against its plain version at every window
+     the render emitted with, the rows with and without the inverse map,
+     and the whole stage (``compact_candidates`` and the inverse map)
+     against its int64 route (one torch.sort of int64 keys, searchsorted,
+     row slicing), bit for bit;
   3. the main paths, each with every launch counter set to 0 just before it
      and read just after (the two glue kernels of K2's global entry counted
-     too: one launch each a launch of the entry):
+     too: one launch each a launch of the entry; "K1" below stands for the
+     coarse stage's three kernels and its grouping, none of which a path
+     without a coarse stage launches):
      - the forward at the headline, through ``render_pipeline(attrs=)`` and
        ``GaussianRenderer`` + ``to_white_background`` (K1, K2, K3f), the
        renderer also with numpy ``R``, ``T`` beside cameras on the card;
@@ -127,7 +135,13 @@ Run from the root of a checkout.  Phases:
      entry's glue, and the global entry with and without its cull in turns;
      torch.profiler traces of five kernel-path steps of each path give the
      device's busy share and the time by kernel, and of ten calls of each
-     kernel its device time beside its CUDA-event time.
+     kernel its device time beside its CUDA-event time; the coarse stage
+     alone (``compact_candidates``) at its five shapes, staged kernels
+     against the int64 route in turns (CUDA-event ms; from a profile the
+     device ms, kernel launches, memsets and host reads a call: one read a
+     render, two at the texture shapes, which re-emit), and the headline
+     step, the texture chain, the 100K forward and pose scoring on either
+     route in turns.
 
 Any failed check raises, so the exit code is nonzero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it a JSON line of the
@@ -144,7 +158,7 @@ import statistics
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -162,9 +176,19 @@ TEX_HW, TEX_K = (256, 672), 80          # texture extraction (bench.py:189-231)
 CLOUD_HW, CLOUD_K = (320, 320), 20      # the point-cloud render (bench.py:108-137)
 POSE_B, POSE_HW = 8, (256, 256)         # batched pose hypotheses (bench.py:324-361)
 OUT_DIR = ROOT / "chiprun_out"
+# the coarse stage's kernels, which no other path launches, and with the
+# grouping its launchers (PERF.md row 1)
+COARSE_KERNELS = ("emit_rows", "coarse_globals", "coarse_rows")
+COARSE = COARSE_KERNELS + ("slot_runs",)
 KERNELS = {  # name -> (library, source, replaced TPU kernel)
-    "emit_keys": ("emit", "voge_tpu_torch/csrc/emit.cu",
+    # the coarse stage: K1 and the two kernels that, with slot_runs, replace
+    # the XLA sort and row slicing around it (voge_tpu/ops/coarse.py:417-440)
+    "emit_rows": ("emit", "voge_tpu_torch/csrc/emit.cu",
                   "voge_tpu/ops/pallas_coarse.py:38"),
+    "coarse_globals": ("emit", "voge_tpu_torch/csrc/emit.cu",
+                       "voge_tpu/ops/pallas_coarse.py:38"),
+    "coarse_rows": ("emit", "voge_tpu_torch/csrc/emit.cu",
+                    "voge_tpu/ops/pallas_coarse.py:38"),
     "fine_select": ("fine_select", "voge_tpu_torch/csrc/fine_select.cu",
                     "voge_tpu/ops/pallas_fine2.py:89"),
     "attr_merge": ("attr_merge", "voge_tpu_torch/csrc/attr_merge.cu",
@@ -215,8 +239,12 @@ FOLD_FLOPS = 18
 SLOT_BWD_FLOPS = 150
 SLOT_GAUSS_FLOPS, SLOT_RAY_FLOPS = 110, 40
 # K1, per Gaussian: projection 15, the rotated 2x2 block 108, radii and
-# window 40, plus ~5 per bin-axis test and ~10 per key.
+# window 40, plus ~5 per bin-axis test and ~10 per window cell;
 EMIT_FLOPS = 163
+# a global member's bits in one supertile (4 origins, 8 bounds, 12 tests).
+GLOBAL_FLOPS = 24
+# The coarse stage's launches a call (the profiler's kernels, memsets and
+# device-to-host copies of one compact_candidates) are counted, not bounded.
 # tolerances (tests/test_parity_full.py:22-49): selections equal but for
 # knife-edge pixels (< 0.1% flipped); len/act/dsd rtol 1e-5 atol 1e-5;
 # weights and images atol 1e-4 on agreeing pixels (kernel vs plain, and the
@@ -305,6 +333,47 @@ def device_ms(fn, n):
                if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
 
 
+def launch_profile(fn, n):
+    """Per call of ``fn``, from a torch.profiler trace of ``n`` calls: device
+    ms, kernel launches, memsets, device-to-host copies (host reads) and
+    host-to-device copies."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    out = dict(device_ms=0.0, kernels=0, memsets=0, host_reads=0, host_writes=0)
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        out["device_ms"] += ev.self_device_time_total / 1e3
+        key = ev.key.lower()
+        kind = ("host_reads" if "dtoh" in key else "host_writes" if "htod" in key
+                else "memsets" if "memset" in key else "kernels" if "memcpy" not in key
+                else None)
+        if kind:
+            out[kind] += ev.count
+    return {k: v / n for k, v in out.items()}
+
+
+@contextmanager
+def sorted_route():
+    """The coarse stage by its int64 route (one torch.sort of int64 keys,
+    searchsorted, row slicing: ``ops.coarse._emit_candidates_sorted``), the
+    reference and the library comparator of its kernels."""
+    from voge_tpu_torch.ops import coarse
+
+    saved = coarse._emit_candidates
+    coarse._emit_candidates = coarse._emit_candidates_sorted
+    try:
+        yield
+    finally:
+        coarse._emit_candidates = saved
+
+
 @contextmanager
 def plain_path():
     """Route a render and its backward through the plain versions on CUDA
@@ -312,7 +381,10 @@ def plain_path():
     from voge_tpu_torch import sampler
     from voge_tpu_torch.ops import coarse, cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd, fine
 
-    swaps = [(coarse, "emit_keys", cuda_coarse.emit_keys_plain),
+    swaps = [(coarse, "emit_rows", cuda_coarse.emit_rows_plain),
+             (coarse, "slot_runs", cuda_attr.slot_runs_plain),
+             (coarse, "coarse_globals", cuda_coarse.coarse_globals_plain),
+             (coarse, "coarse_rows", cuda_coarse.coarse_rows_plain),
              (fine, "fine_select_bins", cuda_fine.fine_select_bins_plain),
              (sampler, "attr_scatter", cuda_attr.attr_scatter_plain),
              (sampler, "attr_dw", cuda_attr.attr_dw_plain),
@@ -337,9 +409,9 @@ def plain_path():
 
 @contextmanager
 def no_plain_version():
-    """Make every kernel's plain version raise: a main path inside it ran
-    on the kernels alone."""
-    from voge_tpu_torch.ops import cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd
+    """Make every kernel's plain version, and the coarse stage's int64 route,
+    raise: a main path inside it ran on the kernels alone."""
+    from voge_tpu_torch.ops import coarse, cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd
 
     def refuse(name):
         def fn(*_a, **_k):
@@ -348,6 +420,7 @@ def no_plain_version():
 
     saved = [(m, n, getattr(m, n)) for m in (cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd)
              for n in dir(m) if n.endswith("_plain")]
+    saved.append((coarse, "_emit_candidates_sorted", coarse._emit_candidates_sorted))
     try:
         for m, n, _ in saved:
             setattr(m, n, refuse(n))
@@ -609,7 +682,10 @@ def main():
         attr_dw, attr_dw_plain, attr_merge, attr_merge_bwd, attr_merge_bwd_plain,
         attr_merge_plain, attr_scatter, attr_scatter_plain, slot_runs, slot_runs_plain,
     )
-    from voge_tpu_torch.ops.cuda_coarse import emit_keys, emit_keys_plain
+    from voge_tpu_torch.ops.cuda_coarse import (
+        coarse_globals, coarse_globals_plain, coarse_rows, coarse_rows_plain, emit_rows,
+        emit_rows_plain,
+    )
     from voge_tpu_torch.aggregation import expend_sigma
     from voge_tpu_torch.ops.cuda_fine import (
         fine_select, fine_select_bins, fine_select_bins_plain, fine_select_global,
@@ -627,7 +703,8 @@ def main():
     dev = torch.device("cuda")
     OUT_DIR.mkdir(exist_ok=True)
     details = {}
-    launchers = {"emit_keys": emit_keys, "fine_select": fine_select,
+    launchers = {"emit_rows": emit_rows, "coarse_globals": coarse_globals,
+                 "coarse_rows": coarse_rows, "fine_select": fine_select,
                  "attr_merge": attr_merge, "fold_weights": fold_weights,
                  "fine_bwd": fine_bwd, "attr_merge_bwd": attr_merge_bwd,
                  "fine_select_global": fine_select_global,
@@ -728,13 +805,6 @@ def main():
         g, cams, colors = scene(n, hw, focal, dev)
         rays, points, isig = stage_inputs(g, cams, hw)
         P = points.shape[1]
-        bs, _ = fine.production_bin_geometry(hw, 20, P, None, None)
-        k1_args = (*cams, points, isig, 0.01, bs, hw,
-                   *coarse.emission_geometry(P, hw, bs))
-        got, want = emit_keys(*k1_args), emit_keys_plain(*k1_args)
-        for a, b in zip(got, want):
-            need(torch.equal(a, b), f"K1 {tag}: kernel and plain differ")
-        print(f"K1 {tag}: P={P} keys and aux planes equal bit for bit")
         for K in (5, 20):
             c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
             need(int(c.overflow_c.sum()) == 0, f"{tag} overflow")
@@ -783,8 +853,7 @@ def main():
         err["attr_merge_bwd"] = max(err["attr_merge_bwd"], e)
         print(f"K3f {tag}: max_err={err['attr_merge']:.3e}; K4b max_err/max|plain|={e:.3e}")
         if tag == "headline":
-            head.update(k1=k1_args, scene=(g, cams, colors), P=P,
-                        k4b=(idx, w, attrs, g_att))
+            head.update(scene=(g, cams, colors), P=P, k4b=(idx, w, attrs, g_att))
     torch.cuda.synchronize()
 
     # 2a. every entry of K2 at every K the kernel takes (one code path, the
@@ -1147,6 +1216,114 @@ def main():
     details["slot_runs"] = grouping    # integers, held equal: err["slot_runs"] stays 0
     torch.cuda.synchronize()
 
+    # 2f. the coarse stage (K1, the grouping, the globals and rows kernels) at
+    # every main path's shapes: each kernel against its plain version and the
+    # whole stage against the int64 route, bit for bit
+    verts_p, isig_p, cams_p = cloud_scene(100_000, dev)
+    P_p = verts_p.shape[0]
+    _, origins_p = camera_rays(*cams_p, CLOUD_HW)
+    points_p = verts_p[None] - origins_p[:, None, :]
+    isg_p = (2.0 * expend_sigma(isig_p))[None]
+    g_q, cams_q, _ = scene(1000, (256, 256), 300.0, dev)
+    _, points_q, isig_q = stage_inputs(g_q, cams_q, (256, 256))
+    coarse_cells = {"headline": (cams_h, points_h, isig_h, (256, 256), 20),
+                    "quickstart": (cams_q, points_q, isig_q, (256, 256), 20),
+                    "texture": (cams_tx, points_tx, isg_tx, TEX_HW, TEX_K),
+                    "cloud_100k": (cams_p, points_p, isg_p, CLOUD_HW, CLOUD_K),
+                    "pose_b8": (cams_b, points_b, isig_b, POSE_HW, 20)}
+
+    def hold_coarse(tag, cams, points, isig, hw, K):
+        """The stage through ``compact_candidates`` (and with the inverse
+        map) against the int64 route; then each kernel against its plain
+        version at every window the render emitted with, the rows at the
+        render's width."""
+        B, P = points.shape[:2]
+        c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
+        with sorted_route():
+            ref = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
+        need(all(torch.equal(a, b) for a, b in zip(c[:5], ref[:5])),
+             f"coarse stage {tag}: not the int64 route's rows")
+        need(int(c.overflow_c.sum()) == 0, f"coarse stage {tag}: overflow")
+        bs = c.bin_size
+        kw = dict(row_align=fine._pick_cand_chunk(P), return_dst=True)
+        d_new = coarse.emit_supertile_candidates(*cams, points, isig, hw, 0.01, bs, 0, **kw)
+        with sorted_route():
+            d_ref = coarse.emit_supertile_candidates(*cams, points, isig, hw, 0.01, bs, 0, **kw)
+        need(all(torch.equal(a, b) for a, b in zip(d_new[:5], c[:5]))
+             and all(torch.equal(a, b) for a, b in zip(d_new[5], d_ref[5])),
+             f"coarse stage {tag}: the inverse map is not the int64 route's")
+        nst, BH2, BW2, S, win0 = coarse.emission_geometry(P, hw, bs)
+        win = math.isqrt(d_new[5][0].shape[-1])
+        M = c.pos_c.shape[1]
+        for w in sorted({win0, win}):
+            k1 = (*cams, points, isig, 0.01, bs, hw, nst, BH2, BW2, w)
+            em = emit_rows(*k1)
+            need(all(torch.equal(a, b) for a, b in zip(em, emit_rows_plain(*k1))),
+                 f"K1 {tag} win {w}: kernel and plain differ")
+            rid, bits, planes, over, info = em
+            order, starts = slot_runs(rid, B * nst)
+            info_p = info.clone()
+            g_args = (over, planes, starts, info, min(64, P), nst, BW2, bs, hw)
+            glob = coarse_globals(*g_args)
+            want = coarse_globals_plain(*g_args[:3], info_p, *g_args[4:])
+            need(all(torch.equal(a, b) for a, b in zip(glob, want)) and torch.equal(info, info_p),
+                 f"coarse_globals {tag} win {w}: kernel and plain differ")
+            r_args = (order, starts, bits, glob[0], glob[2], glob[3], M, nst)
+            for with_dst in (False, True):
+                rows = coarse_rows(*r_args, with_dst)
+                need(all(torch.equal(a, b)
+                         for a, b in zip(rows, coarse_rows_plain(*r_args, with_dst))),
+                     f"coarse_rows {tag} win {w} dst={with_dst}: kernel and plain differ")
+        need(all(torch.equal(a, b) for a, b in zip(rows[:5], c[:5])),
+             f"coarse_rows {tag}: not the stage's rows")
+        densest, dropped, wider = info.tolist()
+        # bounds on this cell's inputs (the render's final emission): bytes of
+        # each input read once and each output written once, operations as
+        # counted at the top; the stage reads the Gaussians and cameras and
+        # writes the rows and counts
+        n_valid, n_glob = int(starts[-1]), int(glob[1].sum())
+        in_bytes = nbytes(points, isig) + B * 13 * 4
+        emit_ops = B * P * (EMIT_FLOPS + 10 * win + 10 * win * win)
+        glob_ops = n_glob * nst * GLOBAL_FLOPS
+        bounds = dict(
+            emit_rows=bound_ms(in_bytes + nbytes(*em), emit_ops),
+            coarse_globals=bound_ms(nbytes(over, starts, info, *glob) + 16 * n_glob, glob_ops),
+            coarse_rows=bound_ms(5 * n_valid + nbytes(starts, *glob, *rows[:5]), 0.0),
+            stage=bound_ms(in_bytes + nbytes(*c[:5]), emit_ops + glob_ops))
+        # the int64 keys the route sorts (local cells, then global members)
+        idx = torch.arange(P, device=dev)[:, None]
+        big = B * nst * S * 16
+        gpos, g_valid, bits_g, _ = glob
+        kg = ((torch.arange(B * nst, device=dev).reshape(B, 1, nst) * S + gpos.long()[..., None])
+              * 16 + bits_g.long())
+        keys = torch.cat([torch.where(rid >= 0, (rid.long() * S + idx) * 16 + bits.long(),
+                                      big).reshape(-1),
+                          torch.where((bits_g != 0) & g_valid[..., None], kg, big).reshape(-1)])
+        out = dict(B=B, P=P, bin_size=bs, windows=sorted({win0, win}), rows=B * nst, width=M,
+                   densest=densest, memberships=int(c.counts_c.sum()),
+                   globals=int(g_valid.sum()), dropped_first=win != win0,
+                   stage_bound_ms=bounds["stage"][0], stage_bound_by=bounds["stage"][1])
+        print(f"coarse stage {tag}: " + ", ".join(f"{k} {v}" for k, v in out.items())
+              + "; K1, the globals and rows kernels equal to their plain versions, the rows "
+              "and the inverse map equal to the int64 route's, bit for bit")
+        edges = torch.arange(B * nst + 1, device=dev) * (S * 16)
+        need(torch.equal(torch.searchsorted(torch.sort(keys)[0], edges).diff(),
+                         c.counts_c.long()), f"coarse stage {tag}: the int64 keys' runs")
+        out.update(k1=k1, glob=g_args, rows_args=r_args, c=c, keys=keys, edges=edges,
+                   bounds=bounds)
+        return out
+
+    coarse_held = {tag: hold_coarse(tag, *cell) for tag, cell in coarse_cells.items()}
+    need(coarse_held["texture"]["dropped_first"]
+         and not any(v["dropped_first"] for k, v in coarse_held.items() if k != "texture"),
+         "the texture scene alone re-emits")
+    head["coarse"] = coarse_held["headline"]
+    details["coarse_stage"] = {tag: {k: v for k, v in h.items()
+                                     if k not in ("k1", "glob", "rows_args", "c", "keys", "edges",
+                                                  "bounds")}
+                               for tag, h in coarse_held.items()}
+    torch.cuda.synchronize()
+
     # ---- 3. the main paths --------------------------------------------
     g, cams, colors = head["scene"]
     R, T, focal, principal = cams
@@ -1171,7 +1348,7 @@ def main():
     need(frag_np.vert_index.is_cuda and torch.equal(frag_np.vert_index, frag2.vert_index)
          and torch.equal(frag_np.vert_weight, frag2.vert_weight),
          "GaussianRenderer with numpy R, T differs from the call with card tensors")
-    add(read_counts("forward", ("emit_keys", "fine_select", "attr_merge")))
+    add(read_counts("forward", (*COARSE, "fine_select", "attr_merge")))
     for f in (frag, frag2):
         need(vt.get_overflow_points(f) == 0, "headline overflow_points != 0")
         need(torch.isfinite(f.vert_weight).all().item(), "non-finite weights")
@@ -1191,7 +1368,7 @@ def main():
     frag_s, loss, params = fitting_step(g, cams, colors, hw, ctx)
     grads = torch.autograd.grad(loss, params, retain_graph=True)
     grads2 = torch.autograd.grad(loss, params)
-    add(read_counts("fitting step", ("emit_keys", "fine_select", "fine_bwd", "slot_runs")))
+    add(read_counts("fitting step", (*COARSE, "fine_select", "fine_bwd")))
     need(vt.get_overflow_points(frag_s) == 0, "fitting step overflow_points != 0")
     for name, a, b in zip(("verts", "sigmas", "colors"), grads, grads2):
         need(bool(torch.isfinite(a).all()), f"non-finite {name} gradient")
@@ -1236,8 +1413,8 @@ def main():
 
     zero_counts()
     wg = white_step()
-    add(read_counts("white background", ("emit_keys", "fine_select", "fine_bwd",
-                                          "attr_merge", "attr_merge_bwd", "slot_runs")))
+    add(read_counts("white background", (*COARSE, "fine_select", "fine_bwd",
+                                          "attr_merge", "attr_merge_bwd")))
     with plain_path():
         wp = white_step()
     white_err = {n: grad_err(a, b, f"white-background grad {n}")
@@ -1277,7 +1454,7 @@ def main():
                  "slot_runs")
 
     def compacted_unused(counts, path):
-        need(all(counts[k] == 0 for k in ("emit_keys", "fine_select", "fine_bwd")),
+        need(all(counts[k] == 0 for k in (*COARSE_KERNELS, "fine_select", "fine_bwd")),
              f"{path}: the compacted path's kernels ran on the no-coarse path")
 
     gold = np.load(GOLDEN_SF)
@@ -1330,7 +1507,7 @@ def main():
     with no_plain_version():
         frag_t, wsum_t, tex_t, img_t = texture_chain(verts_tx, isig_tx, cams_tx, image_tx, ctx_tx)
     counts = read_counts("texture extraction",
-                         ("emit_keys", "fine_select", "attr_scatter", "attr_merge", "slot_runs"))
+                         (*COARSE, "fine_select", "attr_scatter", "attr_merge"))
     add(counts)
     need(vt.get_overflow_points(frag_t) == 0, "texture overflow_points != 0")
     need(img_t.shape == (1,) + TEX_HW + (3,) and bool(torch.isfinite(img_t).all())
@@ -1402,7 +1579,7 @@ def main():
         sel_2, gr_2 = two_stage(points_h)
         _, gr_2b = two_stage(points_h)
     counts = read_counts("two-stage tracer", ("fine_select_bins", "fine_bwd_global", "slot_runs"))
-    need(all(counts[k] == 0 for k in ("emit_keys", "fine_select", "fine_select_global")),
+    need(all(counts[k] == 0 for k in (*COARSE_KERNELS, "fine_select", "fine_select_global")),
          "two-stage tracer: another path's select ran")
     add(counts)
     need(int(cnt_h.max()) <= mppb_h, "two-stage tracer: a bin was truncated")
@@ -1429,8 +1606,6 @@ def main():
 
 
     # 3g. the published-size point-cloud forward (slice 5): 100,000 points
-    verts_p, isig_p, cams_p = cloud_scene(100_000, dev)
-    P_p = verts_p.shape[0]
     ctx_p = vt.precompute_camera_ctx(*cams_p, CLOUD_HW, P_p, max_assign=CLOUD_K)
 
     def cloud_forward(v):
@@ -1440,19 +1615,14 @@ def main():
     zero_counts()
     with no_plain_version():
         frag_p = cloud_forward(verts_p)
-    counts = read_counts("point cloud 100K forward", ("emit_keys", "fine_select"))
+    counts = read_counts("point cloud 100K forward", (*COARSE, "fine_select"))
     need(counts["fine_select_global"] == 0, "point cloud forward: the global select ran")
     add(counts)
     need(vt.get_overflow_points(frag_p) == 0, "point cloud 100K overflow_points != 0")
     need(frag_p.vert_weight.shape == (1,) + CLOUD_HW + (CLOUD_K,)
          and bool(torch.isfinite(frag_p.vert_weight).all()), "point cloud 100K weights")
-    points_p = verts_p[None] - ctx_p.origins[:, None, :]
-    isg_p = (2.0 * expend_sigma(isig_p))[None]
+    need(torch.equal(ctx_p.origins, origins_p), "point cloud 100K: the camera context's origins")
     bs_p, _ = fine.production_bin_geometry(CLOUD_HW, CLOUD_K, P_p, None, None)
-    k1p = (*cams_p, points_p, isg_p, 0.01, bs_p, CLOUD_HW,
-           *coarse.emission_geometry(P_p, CLOUD_HW, bs_p))
-    for a, b in zip(emit_keys(*k1p), emit_keys_plain(*k1p)):
-        need(torch.equal(a, b), "K1 100K: kernel and plain differ")
     sel_g = fine_select_global(ctx_p.rays, fine.feature_table(points_p, isg_p), None, thr_act,
                                CLOUD_K, bs_p, 1.0)
     agree = (frag_p.vert_index == sel_g[0]).all(-1)
@@ -1465,7 +1635,7 @@ def main():
           f"{(frag_p.valid_num > 0).float().mean().item():.4f}, valid slots "
           f"{int((frag_p.vert_index >= 0).sum())}, rows of {c_p.pos_c.shape[1]} in "
           f"{c_p.pos_c.shape[0]} supertiles (densest {int(c_p.counts_c.max())}, memberships "
-          f"{int(c_p.counts_c.sum())}); K1 exact; vs K2 global flips={flips_p:.2e} "
+          f"{int(c_p.counts_c.sum())}); the coarse stage exact (2f); vs K2 global flips={flips_p:.2e} "
           f"max_err(w)={e:.3e}")
     details["cloud_100k"] = dict(flips_vs_global=flips_p, weight_err=e,
                                  row_width=c_p.pos_c.shape[1], densest=int(c_p.counts_c.max()),
@@ -1562,8 +1732,7 @@ def main():
     with no_plain_version():
         sc_k, pose_k, sim_k = pose_run()
     # (the features are constants, so the merge's backward is its d_w half alone)
-    add(read_counts("pose", ("emit_keys", "fine_select", "fine_bwd", "attr_merge", "attr_dw",
-                             "slot_runs")))
+    add(read_counts("pose", (*COARSE, "fine_select", "fine_bwd", "attr_merge", "attr_dw")))
     with plain_path():
         sc_p, pose_p, sim_p = pose_run()
     e_sc = (sc_k - sc_p).abs().max().item()
@@ -1808,9 +1977,68 @@ def main():
     details["pose_score"] = in_turns("pose score B=8", pose_score, [range(5)] * 4)
     details["pose_refine_step"] = in_turns("pose refine step", pose_refine, [range(5)] * 4)
 
+    # the coarse stage alone (compact_candidates), staged kernels against the
+    # int64 route in turns, at every main path's shapes: CUDA-event ms of
+    # back-to-back calls, and from a profile the device ms, kernel launches,
+    # memsets and host reads a call
+    stage_t = {}
+    for tag, (cams_s, pts_s, isg_s, hw_s, K_s) in coarse_cells.items():
+        def call(cams_s=cams_s, pts_s=pts_s, isg_s=isg_s, hw_s=hw_s, K_s=K_s):
+            return fine.compact_candidates(*cams_s, pts_s, isg_s, hw_s, 0.01, K_s)
+
+        ms = {"staged": [], "sorted": []}
+        for route in ("staged", "sorted", "sorted", "staged"):
+            with sorted_route() if route == "sorted" else nullcontext():
+                ms[route].append(cuda_ms(call, 20))
+        prof = {}
+        for route in ("staged", "sorted"):
+            with sorted_route() if route == "sorted" else nullcontext():
+                prof[route] = launch_profile(call, 10)
+        b_ms, b_by = coarse_held[tag]["bounds"]["stage"]
+        stage_t[tag] = dict(ms=ms, profile=prof, bound_ms=b_ms, bound_by=b_by)
+        print(f"coarse stage {tag} (compact_candidates): staged {ms['staged'][0]:.4f} / "
+              f"{ms['staged'][1]:.4f} ms, int64 route {ms['sorted'][0]:.4f} / "
+              f"{ms['sorted'][1]:.4f} ms; bound {b_ms:.5f} ms by {b_by}; a call: "
+              + "; ".join(f"{r} device {p['device_ms']:.4f} ms, kernels {p['kernels']:.1f}, "
+                          f"memsets {p['memsets']:.1f}, host reads {p['host_reads']:.1f}, "
+                          f"host writes {p['host_writes']:.1f}" for r, p in prof.items()))
+        need(prof["staged"]["host_reads"] == (2 if tag == "texture" else 1),
+             f"coarse stage {tag}: not one host read a render (two when it re-emits)")
+    details["coarse_stage_ms"] = stage_t
+
+    def routes(label, fn, args):
+        """``fn`` over ``args`` on the staged coarse stage and on the int64
+        route in turns (staged, int64, int64, staged): the stats by route."""
+        fn(args[0])
+        with sorted_route():
+            fn(args[0])
+        runs = {"staged": [], "sorted": []}
+        for route in ("staged", "sorted", "sorted", "staged"):
+            with sorted_route() if route == "sorted" else nullcontext():
+                runs[route] += timed(fn, args)
+        out = {r: dict(median_ms=statistics.median(v), min_ms=min(v), max_ms=max(v), n=len(v))
+               for r, v in runs.items()}
+        print(f"{label} by coarse route: " + ", ".join(
+            f"{r} median {v['median_ms']:.3f} ms (min {v['min_ms']:.3f}, max {v['max_ms']:.3f})"
+            for r, v in out.items()))
+        return out
+
+    details["e2e_by_coarse_route"] = {
+        "headline_step": routes("headline fwd+bwd", fwd_bwd, inputs[4:14]),
+        "texture_chain": routes("texture extraction", tex_chain, tex_inputs[4:14]),
+        "cloud_100k_forward": routes("point cloud 100K forward", cloud_forward,
+                                     [verts_p * (1.0 + 1e-4 * i) for i in range(10)]),
+        "pose_score": routes("pose score B=8", pose_score, range(5)),
+    }
+
     k2, k3 = head["k2"], head["k3"]
+    hc = head["coarse"]
     per = {
-        "emit_keys": (lambda: emit_keys(*head["k1"]), lambda: emit_keys_plain(*head["k1"])),
+        "emit_rows": (lambda: emit_rows(*hc["k1"]), lambda: emit_rows_plain(*hc["k1"])),
+        "coarse_globals": (lambda: coarse_globals(*hc["glob"]),
+                           lambda: coarse_globals_plain(*hc["glob"])),
+        "coarse_rows": (lambda: coarse_rows(*hc["rows_args"]),
+                        lambda: coarse_rows_plain(*hc["rows_args"])),
         "fine_select": (lambda: fine_select(*k2), lambda: fine_select_plain(*k2)),
         "attr_merge": (lambda: attr_merge(*k3), lambda: attr_merge_plain(*k3)),
         "fold_weights": (lambda: fold_weights(*head["fold"]),
@@ -1875,8 +2103,6 @@ def main():
                     needed=select_bound(rays, nbytes(table), idx, stats["passing_pairs"]),
                     cone_tests_ms=stats["block_pairs"] * CULL_FLOPS / FP32_FLOP_S * 1e3)
 
-    k1 = head["k1"]
-    P1, win1 = k1[4].shape[1], k1[-1]
     sel_h = fine_select(*k2)
     occupied = int(k2[4].sum())
     k3b, k3g, k2g, k2b = head["k3b"], head["k3g"], head["k2g"], head["k2b"]
@@ -1887,9 +2113,7 @@ def main():
     idx4, w4, attrs4, g4 = head["k4b"]
     v4, v4_sq = slot_counts(idx4)
     bounds = {
-        "emit_keys": bound_ms(nbytes(k1[0], k1[2], k1[3], k1[4], k1[5])
-                              + P1 * (win1 * win1 * 8 + 24),
-                              P1 * (EMIT_FLOPS + 10 * win1 + 10 * win1 * win1)),
+        **{k: hc["bounds"][k] for k in COARSE_KERNELS},
         "fine_select": select_bound(
             k2[0], occupied * 72 + nbytes(k2[4], k2[9]), sel_h[0],
             compacted_pairs(k2[2], k2[4], 256, 256, k2[7]), d=k2[9].shape[1]),
@@ -1934,6 +2158,9 @@ def main():
             bag_idx, bag_rows, per_sample_weights=bag_w, mode="sum",
             padding_idx=k3[2].shape[0]),
         "slot_runs": lambda: torch.searchsorted(torch.sort(key_s, stable=True)[0], edges_s),
+        # the int64 route's sort of the stage's keys and search of its row
+        # edges, which slot_runs and the rows kernel replace
+        "coarse_rows": lambda: torch.searchsorted(torch.sort(hc["keys"])[0], hc["edges"]),
     }
     e = (library["attr_scatter"]()[:N_tx] - attr_scatter(*head["scatter"])).abs().max().item()
     need(e <= GRAD_TOL * acc_s.abs().max().item(), f"index_add_ vs attr_scatter {e}")
@@ -1963,7 +2190,7 @@ def main():
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                          library_ms=lib_ms))
     details["kernels"] = kern
-    need(len(kern) == len(KERNELS) == 14, "the kernels line lists every entry")
+    need(len(kern) == len(KERNELS) == 16, "the kernels line lists every entry")
 
     # K2's global entry and the unified backward once more, at the 300K
     # shapes (the lines above hold them at the ShapeFitting shapes)
@@ -2092,6 +2319,9 @@ def main():
     details["profile_cloud_300k"] = profiled(
         "point cloud 300K step", cloud300, range(6, 11),
         details["cloud_300k_step"]["median_ms"], "profile_cloud_300k.txt")
+    details["profile_pose_score"] = profiled(
+        "pose score B=8", pose_score, range(5), details["pose_score"]["kernel"]["median_ms"],
+        "profile_pose_score.txt")
     details["profile_pose_refine"] = profiled(
         "pose refine step", pose_refine, range(5),
         details["pose_refine_step"]["kernel"]["median_ms"], "profile_pose_refine.txt")

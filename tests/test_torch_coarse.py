@@ -17,7 +17,7 @@ from voge_tpu.ops import coarse as jcoarse
 from voge_tpu.ops.pallas_attr import gather_back_rows as j_gather_back_rows
 from voge_tpu.rays import camera_rays
 from voge_tpu_torch.ops import coarse as tcoarse
-from voge_tpu_torch.ops.cuda_coarse import emit_keys, emit_keys_plain
+from voge_tpu_torch.ops.cuda_coarse import emit_rows, emit_rows_plain
 from voge_tpu_torch.ops.fine import gather_back_rows
 
 torch.set_num_threads(2)
@@ -78,17 +78,18 @@ def test_rows_grow_to_the_densest_supertile():
 
 
 def test_emit_keys_dispatch_on_cpu_is_the_plain_version():
-    """On CPU tensors the K1 wrapper runs the plain version, launches
-    nothing, and the keys are int64."""
+    """On CPU tensors the K1 wrapper (``emit_rows``) runs the plain version,
+    launches nothing, and writes int32 row ids and uint8 bits."""
     cams, pts, isig, hw = _inputs("plain", B=2)
     args = ([torch.as_tensor(c) for c in cams]
             + [torch.as_tensor(pts), torch.as_tensor(isig), 0.01, 10, hw,
-               6, 2, 3, 64, 3])
-    before = emit_keys.launches
-    a = emit_keys(*args)
-    b = emit_keys_plain(*args)
-    assert emit_keys.launches == before
-    assert a[0].dtype == torch.int64
+               6, 2, 3, 3])
+    before = emit_rows.launches
+    a = emit_rows(*args)
+    b = emit_rows_plain(*args)
+    assert emit_rows.launches == before
+    assert a[0].dtype == torch.int32 and a[1].dtype == torch.uint8
+    assert a[0].shape == (2, pts.shape[1], 9) and int((a[0] >= 0).sum()) > 0
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

@@ -33,7 +33,10 @@ from voge_tpu_torch.ops import coarse, cuda_attr, fine
 from voge_tpu_torch.ops.cuda_attr import (
     attr_merge, attr_merge_bwd, attr_merge_bwd_plain, attr_merge_plain,
 )
-from voge_tpu_torch.ops.cuda_coarse import emit_keys, emit_keys_plain
+from voge_tpu_torch.ops.cuda_coarse import (
+    coarse_globals, coarse_globals_plain, coarse_rows, coarse_rows_plain, emit_rows,
+    emit_rows_plain,
+)
 from voge_tpu_torch.ops.cuda_fine import (
     fine_select, fine_select_global, fine_select_global_plain, fine_select_plain,
 )
@@ -86,15 +89,91 @@ def stage(request, dev):
 def test_emit_kernel_equals_plain(stage):
     cams, hw, _, points, isig, _ = stage
     bs = 10
-    args = (*cams, points, isig, 0.01, bs, hw,
-            *coarse.emission_geometry(points.shape[1], hw, bs))
-    before = emit_keys.launches
-    got = emit_keys(*args)
-    want = emit_keys_plain(*args)
+    nst, BH2, BW2, _, win = coarse.emission_geometry(points.shape[1], hw, bs)
+    args = (*cams, points, isig, 0.01, bs, hw, nst, BH2, BW2, win)
+    before = emit_rows.launches
+    got = emit_rows(*args)
+    want = emit_rows_plain(*args)
     torch.cuda.synchronize()
-    assert emit_keys.launches == before + 1
+    assert emit_rows.launches == before + 1
     for x, y in zip(got, want):
-        assert torch.equal(x, y)
+        assert x.dtype == y.dtype and torch.equal(x, y)
+
+
+def _coarse_scene(dev, kind):
+    """(cameras, camera-centred points, precisions, image size, n_globals,
+    M, row_align) of a random anisotropic scene: 'globals' (B = 2, three
+    oversize Gaussians), 'overflow' (fixed rows of 8), 'reemit' (two
+    oversize Gaussians and one global slot: the render emits again with a
+    wider window), 'b8' (eight cameras)."""
+    rng = np.random.RandomState({"globals": 5, "overflow": 6, "reemit": 7, "b8": 8}[kind])
+    B = 8 if kind == "b8" else 2
+    P = 3000 if kind == "b8" else 700
+    verts = torch.as_tensor(rng.uniform(-1, 1, (P, 3)).astype(np.float32), device=dev)
+    a = rng.uniform(-1, 1, (P, 3, 3)).astype(np.float32)
+    isig = (np.einsum("pij,pkj->pik", a, a) + 2 * np.eye(3, dtype=np.float32)) * 300.0
+    for p in {"globals": (3, 300, 301), "reemit": (11, 400), "b8": (9,)}.get(kind, ()):
+        isig[p] = np.eye(3, dtype=np.float32) * (4.0 if kind == "reemit" else 1e-3)
+    R, T = vt.look_at_view_transform(dist=list(np.linspace(3.5, 5.0, B)),
+                                     elev=list(np.linspace(-20, 40, B)),
+                                     azim=list(np.linspace(-80, 80, B)), device=dev)
+    hw = (96, 128)
+    cams = (R, T, torch.full((B, 2), 90.0, device=dev),
+            torch.tensor([[64.0, 48.0]] * B, device=dev))
+    _, origins = camera_rays(*cams, hw)
+    points = verts[None] - origins[:, None, :]
+    isg = torch.as_tensor(isig, device=dev)[None].expand(B, P, 3, 3).contiguous()
+    ng, M, align = {"globals": (64, 0, 8), "overflow": (64, 8, 0), "reemit": (1, 0, 8),
+                    "b8": (64, 0, 8)}[kind]
+    return cams, points, isg, hw, ng, M, align
+
+
+@pytest.mark.parametrize("kind", ["globals", "overflow", "reemit", "b8"])
+def test_coarse_stage_kernels_equal_plain(dev, kind):
+    """The emission, the globals and the rows kernels against their plain
+    versions on the same inputs, bit for bit (the rows with and without
+    the inverse map), and the whole stage against the int64 route."""
+    cams, points, isg, hw, ng, M, align = _coarse_scene(dev, kind)
+    B, P = points.shape[:2]
+    bs = 8
+    nst, BH2, BW2, _, win = coarse.emission_geometry(P, hw, bs)
+    em = emit_rows(*cams, points, isg, 0.01, bs, hw, nst, BH2, BW2, win)
+    for x, y in zip(em, emit_rows_plain(*cams, points, isg, 0.01, bs, hw, nst, BH2, BW2, win)):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    rid, bits, planes, over, info = em
+    order, starts = cuda_attr.slot_runs(rid, B * nst)
+    ng = min(ng, P)
+    info_p = info.clone()
+    glob = coarse_globals(over, planes, starts, info, ng, nst, BW2, bs, hw)
+    glob_p = coarse_globals_plain(over, planes, starts, info_p, ng, nst, BW2, bs, hw)
+    for x, y in zip(glob, glob_p):
+        assert x.dtype == y.dtype and torch.equal(x, y)
+    assert torch.equal(info, info_p)
+    densest, dropped, wider = info.tolist()
+    assert densest > 0 and (dropped > 0) == (kind == "reemit")
+    if kind == "reemit":
+        assert wider > win
+    width = M or -(-densest // 8) * 8
+    for with_dst in (False, True):
+        rows = coarse_rows(order, starts, bits, glob[0], glob[2], glob[3], width, nst, with_dst)
+        want = coarse_rows_plain(order, starts, bits, glob[0], glob[2], glob[3], width, nst,
+                                 with_dst)
+        for x, y in zip(rows, want):
+            assert x.dtype == y.dtype and torch.equal(x, y)
+    assert (int(rows[4].sum()) > 0) == (kind in ("overflow", "reemit"))
+    for with_dst in (False, True):
+        a = coarse.emit_supertile_candidates(*cams, points, isg, hw, 0.01, bs, M, ng, align,
+                                             with_dst)
+        win0 = coarse.emission_geometry(P, hw, bs)[-1]
+        b = coarse._emit_candidates_sorted(*cams, points, isg, hw, 0.01, bs, M, ng, align,
+                                           with_dst, win0)
+        for x, y in zip(a[:5], b[:5]):
+            assert torch.equal(x, y)
+        if with_dst:
+            for x, y in zip(a[5], b[5]):
+                assert torch.equal(x, y)
+    if kind == "reemit":
+        assert int(a[4].sum()) == 0 and a[5][0].shape[-1] > win * win
 
 
 @pytest.mark.parametrize("K", [5, 20, 40, 80])
@@ -243,7 +322,10 @@ class _PlainPath:
     def __enter__(self):
         from voge_tpu_torch.ops import cuda_coarse
 
-        self.saved = [(coarse, "emit_keys", cuda_coarse.emit_keys_plain),
+        self.saved = [(coarse, "emit_rows", cuda_coarse.emit_rows_plain),
+                      (coarse, "slot_runs", cuda_attr.slot_runs_plain),
+                      (coarse, "coarse_globals", cuda_coarse.coarse_globals_plain),
+                      (coarse, "coarse_rows", cuda_coarse.coarse_rows_plain),
                       (fine, "fine_select", fine_select_plain),
                       (fine, "fine_bwd", fine_bwd_plain),
                       (fine, "fine_select_global", fine_select_global_plain),
@@ -409,11 +491,11 @@ def test_shape_fitter_kernel_path_matches_plain_path(dev):
         return losses, {k: p.detach() for k, p in fitter.params.items()}
 
     before = {fn: fn.launches for fn in (fine_select_global, fine_bwd_global, attr_merge,
-                                         attr_merge_bwd, emit_keys)}
+                                         attr_merge_bwd, emit_rows)}
     lk, pk = run()
     torch.cuda.synchronize()
     for fn, n in before.items():
-        assert (fn.launches > n) == (fn is not emit_keys), fn.__name__
+        assert (fn.launches > n) == (fn is not emit_rows), fn.__name__
     with _PlainPath():
         lp, pp = run()
     for a, b in zip(lk, lp):
@@ -636,12 +718,8 @@ def test_texture_scale_coarse_stage_reemits(dev):
                                              row_align=256, return_dst=True)
     assert int(c.overflow_c.sum()) == 0 and again[5][0].shape[-1] == 9
     assert all(torch.equal(a, b) for a, b in zip(again[:5], c[:5]))
-    saved = coarse.emit_keys
-    coarse.emit_keys = emit_keys_plain
-    try:
+    with _PlainPath():
         p = fine.compact_candidates(*cams, points, isg, hw, 0.01, 80)
-    finally:
-        coarse.emit_keys = saved
     for a, b in zip(c[:5], p[:5]):
         assert torch.equal(a, b)
 
@@ -791,10 +869,10 @@ def test_pose_kernel_path_matches_plain_path(dev):
         params, sim = vt.refine_pose(scorer, target, (6.0, 0.25, 0.95, 0.0), steps=3, lr=0.01)
         return scores, torch.stack([params[k] for k in ("dist", "elev", "azim", "theta")]), sim
 
-    before = (emit_keys.launches, fine_select.launches, fine_bwd.launches, attr_merge.launches)
+    before = (emit_rows.launches, fine_select.launches, fine_bwd.launches, attr_merge.launches)
     sk, pk, simk = run()
     torch.cuda.synchronize()
-    after = (emit_keys.launches, fine_select.launches, fine_bwd.launches, attr_merge.launches)
+    after = (emit_rows.launches, fine_select.launches, fine_bwd.launches, attr_merge.launches)
     ran = [a - b for a, b in zip(after, before)]
     assert ran[0] >= 5 and ran[1:] == [5, 3, 5]               # 2 chunks + 3 steps
     with _PlainPath():

@@ -2,19 +2,25 @@
 emission-compacted per-supertile candidate rows of the render path, and the
 per-bin candidate lists of the two-stage public tracer.
 
-Emission.  Every Gaussian emits up to win x win sort keys, one per supertile
-(2x2 bins) of the window covering its pixel-space ellipse bound, with the
-four sub-bin membership bits in the key's low 4 bits (kernel K1,
-``ops/cuda_coarse.py``).  One flat sort groups the keys by supertile in
-ascending Gaussian index, and each supertile's contiguous run becomes one
-candidate row.  Gaussians whose bound spans more than the window are
-"global": the first ``n_globals`` of them (by index) emit one key per
-supertile they overlap, the rest are dropped and counted.  A render asks for
-exact rows (``row_align``): the rows grow to the densest supertile, and when
-more Gaussians than ``n_globals`` outgrow the window, the emission runs once
-more with the window those Gaussians need, so that only bounds wider than
-K1's largest window can be dropped.  The sort, ``searchsorted`` and row
-slicing are PyTorch ops.  Keys are int64 on every device.
+Emission.  Every Gaussian is a candidate of up to win x win supertiles (2x2
+bins each), the cells of the window covering its pixel-space ellipse bound,
+with four sub-bin membership bits per cell.  Gaussians whose bound spans more
+than the window are "global": the first ``n_globals`` of them (by index) are
+members of every supertile they overlap, the rest are dropped and counted.
+Each supertile's members, ascending by Gaussian index, form one candidate
+row.  The stage runs in the hand-written kernels of ``csrc/emit.cu``
+(``ops/cuda_coarse.py``: the emission K1 writes each window cell's row id,
+the globals kernel finds and bins the global members, the rows kernel merges
+each row's local run with its global members) around ``cuda_attr.slot_runs``,
+which groups the window cells by row id; on CPU tensors each runs its plain
+version.  A render asks for exact rows (``row_align``): the rows grow to the
+densest supertile, and when more Gaussians than ``n_globals`` outgrow the
+window, the emission runs once more with the window those Gaussians need, so
+that only bounds wider than K1's largest window can be dropped.  That takes
+one host read a render (two when it re-emits).  The port's first route (an
+int64 sort key per window cell, one ``torch.sort``, ``searchsorted`` and row
+slicing) stays as :func:`_emit_candidates_sorted`: the reference the rows are
+held to, bit for bit, and the library comparator; no main path takes it.
 
 Lists.  :func:`rasterize_coarse` tests every (bin, Gaussian) pair
 (:func:`overlap_mask`) and compacts each bin's members into an ascending,
@@ -29,14 +35,18 @@ from typing import Optional
 
 import torch
 
+from voge_tpu_torch.ops.cuda_attr import slot_runs
 from voge_tpu_torch.ops.cuda_coarse import (  # noqa: F401  (re-exported)
+    MAX_WIN,
     _camera_planes,
     _pixel_radii_planes,
-    emit_keys,
+    coarse_globals,
+    coarse_rows,
+    emit_rows,
+    supertile_bits,
     supertile_window,
+    unpack_flags,
 )
-
-MAX_WIN = 8     # the widest emission window K1 is built for
 
 
 def coarse_bin_config(image_size, n_assign: int, n_points: int,
@@ -48,21 +58,6 @@ def coarse_bin_config(image_size, n_assign: int, n_points: int,
     if max_points_per_bin is None:
         max_points_per_bin = min(int(max(n_assign * 10, n_points / 10)), n_points)
     return int(bin_size), int(max_points_per_bin)
-
-
-def _bits(u, v, rx, ry, sxf, syf, fb: float, H: int, W: int):
-    """Sub-bin membership bits (bit 2i + j: y sub-bin i, x sub-bin j) of a
-    supertile with pixel origin (sxf, syf)."""
-    bits = torch.zeros(torch.broadcast_shapes(u.shape, sxf.shape),
-                       dtype=torch.int64, device=u.device)
-    for i in range(2):
-        byi = syf + i * fb
-        yo = (v - ry <= byi + fb) & (byi < v + ry) & (byi < H)
-        for j in range(2):
-            bxj = sxf + j * fb
-            xo = (u - rx <= bxj + fb) & (bxj < u + rx) & (bxj < W)
-            bits = bits | ((yo & xo).to(torch.int64) << (2 * i + j))
-    return bits
 
 
 def supertile_grid(H: int, W: int, bin_size: int):
@@ -127,6 +122,42 @@ def _emit_candidates(R, T, focal, principal, points, isigmas, image_size,
     """:func:`emit_supertile_candidates` with the emission window ``win``."""
     B, P = points.shape[0], points.shape[1]
     H, W = int(image_size[0]), int(image_size[1])
+    nst, BH2, BW2, _, _ = emission_geometry(P, (H, W), bin_size)
+    nb = B * nst
+    rid, bits, planes, over, info = emit_rows(
+        R, T, focal, principal, points.detach(), isigmas.detach(), thr,
+        bin_size, (H, W), nst, BH2, BW2, win,
+    )
+    order, starts = slot_runs(rid, nb)
+    gpos, g_valid, bits_g, gstat = coarse_globals(
+        over, planes, starts, info, min(int(n_globals), P), nst, BW2, bin_size, (H, W))
+    if row_align > 0 and nb:
+        densest, dropped, wider = info.tolist()   # the render's one host read
+        if dropped and win < MAX_WIN and wider > win:
+            # more Gaussians outgrow the window than the global list holds:
+            # emit once more with the window the finite ones need
+            return _emit_candidates(
+                R, T, focal, principal, points, isigmas, image_size, thr,
+                bin_size, M_max, n_globals, row_align, return_dst, wider)
+        M_max = max(int(M_max), -(-densest // row_align) * row_align)
+    rows = coarse_rows(order, starts, bits, gpos, bits_g, gstat, int(M_max), nst,
+                       return_dst)
+    if not return_dst:
+        return rows
+    return rows[:5] + ((rows[5], rows[6], gpos, g_valid),)
+
+
+def _emit_candidates_sorted(R, T, focal, principal, points, isigmas, image_size,
+                            thr, bin_size, M_max, n_globals, row_align,
+                            return_dst, win: int):
+    """:func:`_emit_candidates` by the port's first route: an int64 sort key
+    ``((img * nst + st) * S + idx) * 16 + bits`` per window cell and per
+    global member's supertile, one ``torch.sort``, ``searchsorted`` of the
+    row edges and row slicing, in PyTorch.  The reference the staged route is
+    held to, bit for bit, and its library comparator; no main path takes
+    it."""
+    B, P = points.shape[0], points.shape[1]
+    H, W = int(image_size[0]), int(image_size[1])
     fb = float(bin_size)
     st = 2.0 * fb
     nst, BH2, BW2, S, _ = emission_geometry(P, (H, W), bin_size)
@@ -134,23 +165,26 @@ def _emit_candidates(R, T, focal, principal, points, isigmas, image_size,
     dev = points.device
     i64 = torch.int64
     big = nb * S * 16                          # above every valid key
-    keys, u, v, rx, ry, _z, oversize = emit_keys(
+    rid, bits_l, planes, over, _ = emit_rows(
         R, T, focal, principal, points.detach(), isigmas.detach(), thr,
-        bin_size, (H, W), nst, BH2, BW2, S, win,
+        bin_size, (H, W), nst, BH2, BW2, win,
     )
+    idx = torch.arange(P, device=dev, dtype=i64)
+    keys = torch.where(rid >= 0, (rid.to(i64) * S + idx[:, None]) * 16 + bits_l.to(i64), big)
+    u, v, rx, ry = planes.unbind(1)
+    oversize = unpack_flags(over, P)
 
     # global members: the first n_globals oversize Gaussians by index emit
     # one key per supertile they overlap
     n_globals = min(int(n_globals), P)
-    idx = torch.arange(P, device=dev, dtype=i64)
     g_take = torch.where(oversize, idx, P).sort(dim=1).values[:, :n_globals]
     g_valid = g_take < P
     gpos = torch.where(g_valid, g_take, 0)
     ga = lambda p: p.gather(1, gpos)[..., None]
     s_all = torch.arange(nst, device=dev, dtype=i64)
-    bits_g = _bits(ga(u), ga(v), ga(rx), ga(ry),
-                   (s_all % BW2).to(torch.float32) * st,
-                   (s_all // BW2).to(torch.float32) * st, fb, H, W)
+    bits_g = supertile_bits(ga(u), ga(v), ga(rx), ga(ry),
+                            (s_all % BW2).to(torch.float32) * st,
+                            (s_all // BW2).to(torch.float32) * st, fb, H, W)
     valid_g = g_valid[..., None] & (bits_g != 0)
     g_over = (oversize.sum(dim=1) - n_globals).clamp(min=0)
     img = torch.arange(B, device=dev, dtype=i64)[:, None, None]
@@ -164,15 +198,13 @@ def _emit_candidates(R, T, focal, principal, points, isigmas, image_size,
     if row_align > 0 and nb:
         densest, dropped = torch.stack([counts_full.max(), g_over.max()]).tolist()
         if dropped and win < MAX_WIN:
-            # more Gaussians outgrow the window than the global list holds:
-            # emit once more with the window the finite ones need
             st_t = torch.tensor(st, dtype=torch.float32, device=dev)
             _, wx, finx = supertile_window(u, rx, fb, st_t)
             _, wy, finy = supertile_window(v, ry, fb, st_t)
             fits = oversize & finx & finy & (wx <= MAX_WIN) & (wy <= MAX_WIN)
             wider = int(torch.where(fits, torch.maximum(wx, wy), 0).max())
             if wider > win:
-                return _emit_candidates(
+                return _emit_candidates_sorted(
                     R, T, focal, principal, points, isigmas, image_size, thr,
                     bin_size, M_max, n_globals, row_align, return_dst, wider)
         M_max = max(int(M_max), -(-densest // row_align) * row_align)
