@@ -10,7 +10,8 @@ Run from the root of a checkout.  Phases:
      ``voge_tpu_torch/csrc``, one ``nvcc`` per source, all at once (build
      seconds, ptxas register / spill report; K2's registers, spills and
      shared memory per instantiation and its resident blocks by K; K3's
-     per-slot and per-Gaussian kernels' and the fold's registers and spills);
+     per-slot kernel's, its per-Gaussian kernel's at each lane width and the
+     fold's registers and spills);
   2. each kernel against its plain PyTorch version on the card, on a 1K
      scene at 128x128 and on the 10K-Gaussian headline at 256x256: K2 at
      K = 5 and 20, with and without attributes, and all three
@@ -18,7 +19,10 @@ Run from the root of a checkout.  Phases:
      scene (selections, len, act, dsd equal bit for bit, with and without a
      random bits plane, two runs equal); K3f; the fold,
      K3 (per-Gaussian rows; with and without attributes, with and without
-     ray gradients, two runs equal to the bit) and K4b with cotangents from
+     ray gradients, on the compacted entry each ray's mean-gradient sums
+     (the camera centres' gradient), two runs equal to the bit; wherever it sums the ray
+     gradient, the per-ray half on the same arguments, the fold and any d_w
+     fused in, equal to it to the bit) and K4b with cotangents from
      a seeded ``torch.Generator``; K3 and the fold also at K = 5, 40, 80 and
      128 on the 1K scene and on the headline scene seen by 8 cameras (the
      pose batch, ray gradients); then, at the
@@ -40,7 +44,9 @@ Run from the root of a checkout.  Phases:
      ``fine_bwd_rays``) at the ShapeFitting shapes and on the 300,000-point
      cloud (320x320, K = 20) with seeded cotangents: each half against its
      plain version, the fold's entry + the pair against K3's unified global
-     entry on the same inputs, two runs equal to the bit; K2's global entry
+     entry on the same inputs (the same kernels: equal to the bit where the
+     per-Gaussian kernel takes 32 lanes a Gaussian), two runs equal to the
+     bit; K2's global entry
      there against its plain version on a 32x32 crop of the rays and against
      the coarse path's selections on the whole image, and the whole image
      equal to the bit to the same kernel walking every Gaussian (no cone
@@ -106,13 +112,18 @@ Run from the root of a checkout.  Phases:
        on the fold's entry and the two halves, two backward runs equal to
        the bit;
      - a frozen-scene step on the same cloud (``ray_tracing`` on constant
-       points, only the cameras need a gradient): the fold and the per-ray
-       half, no per-Gaussian half and no grouping of the slot ids;
+       points, only the cameras need a gradient): one launch of the per-ray
+       half with the fold fused in, no per-Gaussian half and no grouping of
+       the slot ids;
      - pose estimation on ``bench.py:324-361``'s batched shape (the 10K
        cuboid, 8 cameras, 256x256, K = 20, features = colours):
        ``PoseHypothesisScorer.score`` of 8 hypotheses in one chunk and three
-       ``refine_pose`` steps (K1, K2, K3 with the ray gradient, K3f, K4b's d_w half),
-       kernel path against plain path;
+       ``refine_pose`` steps (K1, K2, K3f, K4b's d_w half, and, the scene
+       being frozen, K3's per-ray half alone: no grouping outside the coarse
+       stage, no per-Gaussian kernel), kernel path against plain path, and
+       the steps equal to the bit to the same steps with K3 whole; one
+       step's camera gradients (R, T and the four pose scalars) held to the
+       plain path's and equal to the bit to K3 whole's;
      then the 1K forward against its golden file and the quickstart bounds;
   4. CUDA-event timings of the headline forward and fitting step, of the
      ShapeFitting step, of the texture chain (and its three stages, and K2
@@ -124,8 +135,14 @@ Run from the root of a checkout.  Phases:
      fold + pair against the unified entry on the same cotangents at the
      300K cloud, the ShapeFitting and the two-stage shapes (the split
      question), of K3's three parts apart (the per-slot kernel, the grouping
-     of the slot ids beside its plain version, the per-Gaussian kernel), of pose
-     scoring and a refinement step, and of each kernel against its plain version and, where
+     of the slot ids beside its plain version, the per-Gaussian kernel at
+     the rule's lane width and at 4, 8, 16 and 32 lanes a Gaussian) at the
+     300K, headline and ShapeFitting shapes, of rows 6 and 7 at the 300K
+     cloud by lane width and by route (a frozen scene's backward fused
+     against the fold's entry + the unfused per-ray launch, in turns), of pose
+     scoring and a refinement step (and the step by backward route: the
+     per-ray half against K3 whole, in turns, with device ms and launches a
+     step), and of each kernel against its plain version and, where
      one PyTorch call computes the same function, that call; each kernel's
      bound (the larger of its bytes over the card's memory rate and its
      operations over the card's FP32 rate, counted from this run's inputs;
@@ -138,8 +155,10 @@ Run from the root of a checkout.  Phases:
      kernel its device time beside its CUDA-event time; the coarse stage
      alone (``compact_candidates``) at its five shapes, staged kernels
      against the int64 route in turns (CUDA-event ms; from a profile the
-     device ms, kernel launches, memsets and host reads a call: one read a
-     render, two at the texture shapes, which re-emit), and the headline
+     device ms, kernel launches, memsets and host reads a call; each call's
+     host reads also counted on the host by torch's sync debug mode, and
+     required: one read a render, two at the texture shapes, which
+     re-emit), and the headline
      step, the texture chain, the 100K forward and pose scoring on either
      route in turns.
 
@@ -158,6 +177,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
@@ -209,9 +229,11 @@ KERNELS = {  # name -> (library, source, replaced TPU kernel)
                 "voge_tpu/ops/pallas_attr.py:190"),
     "fine_select_bins": ("fine_select", "voge_tpu_torch/csrc/fine_select.cu",
                          "voge_tpu/ops/pallas_fine.py:64"),
-    "fine_bwd_gauss": ("fine_bwd_split", "voge_tpu_torch/csrc/fine_bwd_split.cu",
+    # the global backward's two halves: K3's kernels with the fold off (the
+    # per-Gaussian half) and its per-slot kernel alone (the per-ray half)
+    "fine_bwd_gauss": ("fine_bwd", "voge_tpu_torch/csrc/fine_bwd.cu",
                        "voge_tpu/ops/pallas_bwd.py:162"),
-    "fine_bwd_rays": ("fine_bwd_split", "voge_tpu_torch/csrc/fine_bwd_split.cu",
+    "fine_bwd_rays": ("fine_bwd", "voge_tpu_torch/csrc/fine_bwd.cu",
                       "voge_tpu/ops/pallas_bwd.py:213"),
     # the grouping of slots by id that rows 10, 11 (and K3) take: part of the
     # port of the scatter kernel, whose one-hot match it replaces
@@ -317,6 +339,25 @@ def cuda_ms(fn, n):
     return t0.elapsed_time(t1) / n
 
 
+def on_card(ev):
+    """A profiler event on the device timeline: work on the card or a
+    user-annotated range there."""
+    return ev.device_type == torch.autograd.DeviceType.CUDA
+
+
+def on_device(ev):
+    """A profiler event of work on the card: a kernel, memset or copy, not a
+    user-annotated range (an optimizer's step is traced as the span of its
+    kernels on the device timeline, which counts them, and the gaps between
+    them, twice).  Fails where the profiler does not mark such ranges, rather
+    than count them."""
+    if not on_card(ev):
+        return False
+    need(hasattr(ev, "is_user_annotation"), "the profiler's events do not mark "
+         "user-annotated ranges: device totals would count them on top of their kernels")
+    return not ev.is_user_annotation
+
+
 def device_ms(fn, n):
     """Device milliseconds a call of ``fn`` (its kernels and memsets), from a
     torch.profiler trace of ``n`` calls: what the wrapper's host work hides
@@ -329,8 +370,7 @@ def device_ms(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return sum(ev.self_device_time_total for ev in prof.key_averages()
-               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / n
+    return sum(ev.self_device_time_total for ev in prof.key_averages() if on_device(ev)) / 1e3 / n
 
 
 def launch_profile(fn, n):
@@ -347,7 +387,7 @@ def launch_profile(fn, n):
         torch.cuda.synchronize()
     out = dict(device_ms=0.0, kernels=0, memsets=0, host_reads=0, host_writes=0)
     for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if not on_device(ev):
             continue
         out["device_ms"] += ev.self_device_time_total / 1e3
         key = ev.key.lower()
@@ -357,6 +397,29 @@ def launch_profile(fn, n):
         if kind:
             out[kind] += ev.count
     return {k: v / n for k, v in out.items()}
+
+
+def host_syncs(fn, n):
+    """Host reads of device data in each of ``n`` calls of ``fn``: the
+    synchronizing CUDA calls (a copy to the host, ``item``, ``tolist``)
+    that torch's sync debug mode reports, counted on the host.  Exact for
+    every call, where a profiler trace (:func:`launch_profile`) averages
+    over its calls and may lose a copy's record."""
+    fn()
+    torch.cuda.synchronize()
+    saved = torch.cuda.get_sync_debug_mode()
+    counts = []
+    try:
+        torch.cuda.set_sync_debug_mode("warn")
+        for _ in range(n):
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                fn()
+            counts.append(sum("synchronizing CUDA operation" in str(w.message)
+                              for w in caught))
+    finally:
+        torch.cuda.set_sync_debug_mode(saved)
+    return counts
 
 
 @contextmanager
@@ -393,7 +456,6 @@ def plain_path():
              (fine, "fine_bwd", cuda_fine_bwd.fine_bwd_plain),
              (fine, "fine_select_global", cuda_fine.fine_select_global_plain),
              (fine, "fine_bwd_global", cuda_fine_bwd.fine_bwd_global_plain),
-             (fine, "fold_weights", cuda_fine_bwd.fold_weights_plain),
              (fine, "fine_bwd_rays", cuda_fine_bwd.fine_bwd_rays_plain),
              (cuda_attr, "attr_merge", cuda_attr.attr_merge_plain),
              (cuda_attr, "attr_merge_bwd", cuda_attr.attr_merge_bwd_plain)]
@@ -695,6 +757,7 @@ def main():
     from voge_tpu_torch.ops.cuda_fine_bwd import (
         fine_bwd, fine_bwd_gauss, fine_bwd_gauss_plain, fine_bwd_global, fine_bwd_global_plain,
         fine_bwd_plain, fine_bwd_rays, fine_bwd_rays_plain, fold_weights, fold_weights_plain,
+        group_width,
     )
     from voge_tpu_torch.rays import camera_rays
 
@@ -738,8 +801,11 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     details["card"] = smi
+    libs = dict.fromkeys(lib for lib, _, _ in KERNELS.values())
+    for lib in libs:    # built in this run, so that its time and ptxas report are this run's
+        (_build.BUILD_DIR / f"lib{lib}.so").unlink(missing_ok=True)
     t0 = time.perf_counter()
-    _build.load_all(dict.fromkeys(lib for lib, _, _ in KERNELS.values()))
+    _build.load_all(libs)
     build_s = time.perf_counter() - t0
     print(f"build: {build_s:.1f} s wall, in parallel: " + ", ".join(
         f"{k} {v[0]:.1f} s" for k, v in _build.build_info.items()))
@@ -768,9 +834,11 @@ def main():
           f"a block reserved; of 65,536 registers at {k2_regs} a thread): " + ", ".join(
               f"K={K} {k2_smem(K)} B -> {k2_blocks(K)}" for K in (5, 20, 25, 32, 64, 80, 128)))
     details["k2_blocks_an_sm"] = {K: k2_blocks(K) for K in (5, 20, 25, 32, 64, 80, 128)}
-    # K3's two kernels and the fold: one code path at every K (no K bucket)
+    # K3's two kernels (the per-Gaussian one at each lane width) and the
+    # fold: one code path at every K (no K bucket)
     details["ptxas_k3"] = {}
-    for lib, kname in (("fine_bwd", "fine_bwd_slots_kernel"), ("fine_bwd", "fine_bwd_runs_kernel"),
+    for lib, kname in (("fine_bwd", "fine_bwd_slots_kernel"),
+                       *(("fine_bwd", f"fine_bwd_runs_kernelILi{G}E") for G in (4, 8, 16, 32)),
                        ("fold_weights", "fold_kernel")):
         lines = _build.build_info[lib][1].splitlines()
         at = next(i for i, line in enumerate(lines) if kname in line and "Compiling" in line)
@@ -784,17 +852,46 @@ def main():
     def hold_k3(tag, name, b_args):
         """K3's entry ``name`` against its plain version (each output within
         GRAD_TOL of the plain one's largest entry) and two runs equal to the
-        bit."""
+        bit; on the compacted entry also with the per-ray mean-gradient sums
+        (``return_mu``: the camera centres' gradient) held the same way, the
+        other outputs equal to the bit to the call without them.  Where it
+        sums the ray gradient, the per-ray half on the same arguments (one
+        launch, the fold and any d_w fused in: a frozen scene's backward),
+        with and without the mean sums, equal to the entry to the bit and
+        held to its plain version."""
         kfn, pfn = ((fine_bwd, fine_bwd_plain) if name == "fine_bwd"
                     else (fine_bwd_global, fine_bwd_global_plain))
+        same = lambda a, b: (a is None and b is None) or torch.equal(a, b)
         kb, again, pb = kfn(*b_args), kfn(*b_args), pfn(*b_args)
         need(kb[0].shape == pb[0].shape == (b_args[1].shape[0], kb[0].shape[1]),
              f"K3 {tag}: not one row per Gaussian")
         e = grad_err(kb[0], pb[0], f"K3 rows {tag}")
         need(torch.equal(kb[0], again[0]), f"K3 {tag}: two runs differ")
+        k_mu = None
+        if name == "fine_bwd":
+            km, km2 = kfn(*b_args, return_mu=True), kfn(*b_args, return_mu=True)
+            need(same(km[0], kb[0]) and same(km[1], kb[1]),
+                 f"K3 {tag}: the mean sums change the rows or the ray gradient")
+            need(torch.equal(km[2], km2[2]), f"K3 {tag}: two runs of g_mu differ")
+            e = max(e, grad_err(km[2], pfn(*b_args, return_mu=True)[2], f"K3 g_mu {tag}"))
+            k_mu = km[2]
         if b_args[-1]:
             e = max(e, grad_err(kb[1], pb[1], f"K3 rays {tag}"))
             need(torch.equal(kb[1], again[1]), f"K3 {tag}: two runs differ")
+            rays, table, idx, length, act, dsd, w, gl, ga, gd, gw, ow = b_args[:12]
+            extra = dict(attrs=b_args[12], g_img=b_args[13]) if name == "fine_bwd" else {}
+            halves = (rays, table, idx, length, dsd, gl, ga, gd)
+            kw = dict(act=act, w=w, g_w=gw, agg_ow=ow, **extra)
+            fr = fine_bwd_rays(*halves, **kw)
+            fr_m, fr_mu = fine_bwd_rays(*halves, **kw, return_mu=True)
+            need(torch.equal(fr, kb[1]) and torch.equal(fr_m, kb[1]),
+                 f"K3 {tag}: the per-ray half differs from the entry")
+            need(k_mu is None or torch.equal(fr_mu, k_mu),
+                 f"K3 {tag}: the per-ray half's g_mu differs from the entry's")
+            pr, pr_mu = fine_bwd_rays_plain(*halves, **kw, return_mu=True)
+            err["fine_bwd_rays"] = max(err["fine_bwd_rays"],
+                                       grad_err(fr, pr, f"fine_bwd_rays fused {tag}"),
+                                       grad_err(fr_mu, pr_mu, f"fine_bwd_rays g_mu {tag}"))
         else:
             need(kb[1] is None and pb[1] is None, f"K3 {tag}: unasked ray gradient")
         err[name] = max(err[name], e)
@@ -1080,10 +1177,13 @@ def main():
     # shapes and on the 300,000-point cloud; K2's global entry there
     def hold_halves(tag, rays, table, sel, cots):
         """Each half against its plain version, the fold's entry + the pair
-        against the unified entry, two runs equal to the bit; the halves'
-        inputs with only g_w set (what a render's loss gives them)."""
+        against the unified entry (the same kernels: equal to the bit where
+        the per-Gaussian kernel takes 32 lanes at either; within PAIR_TOL
+        elsewhere), two runs equal to the bit; the halves' inputs with only
+        g_w set (what a render's loss gives them)."""
         idx, length, act, dsd, w = sel
-        kept, pair = None, 0.0
+        kept, pair, same = None, 0.0, True
+        warp = group_width(idx.numel(), table.shape[0]) == 32
         for kind, (gl, ga, gd, gw) in (("all", cots), ("no g_w", (*cots[:3], None)),
                                        ("only g_w", (None, None, None, cots[3]))):
             u_rows, u_rays = fine_bwd_global(rays, table, *sel, gl, ga, gd, gw, 1.0, True)
@@ -1101,12 +1201,17 @@ def main():
                 g_rays, fine_bwd_rays_plain(*kept), f"fine_bwd_rays {tag} {kind}"))
             e = max(rel_t(rows, u_rows), rel_t(g_rays, u_rays))
             need(e <= PAIR_TOL, f"fold + pair vs unified entry {tag} {kind}: {e:.3e}")
-            pair = max(pair, e)
+            equal = torch.equal(rows, u_rows) and torch.equal(g_rays, u_rays)
+            need(equal or not warp, f"fold + pair vs unified entry {tag} {kind}: not equal "
+                                    "to the bit at 32 lanes a Gaussian")
+            pair, same = max(pair, e), same and equal
         ok = (idx >= 0) & (idx < table.shape[0])
         print(f"split halves {tag}: {int(ok.sum())} valid slots of {idx.numel()} on "
-              f"{torch.unique(idx[ok]).numel()} of {table.shape[0]} Gaussians; max_err/max|plain| "
+              f"{torch.unique(idx[ok]).numel()} of {table.shape[0]} Gaussians, "
+              f"{group_width(idx.numel(), table.shape[0])} lanes a Gaussian; max_err/max|plain| "
               f"gauss {err['fine_bwd_gauss']:.3e} rays {err['fine_bwd_rays']:.3e}; fold + pair vs "
-              f"the unified entry (normwise) {pair:.3e}; two runs equal to the bit")
+              f"the unified entry (normwise) {pair:.3e}, equal to the bit: {same}; two runs "
+              "equal to the bit")
         return kept, pair
 
     def fold_then_pair(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
@@ -1697,7 +1802,9 @@ def main():
     zero_counts()
     with no_plain_version():
         fz = frozen_step(True)
-    counts = read_counts("frozen scene", ("fine_select_global", "fold_weights", "fine_bwd_rays"))
+    counts = read_counts("frozen scene", ("fine_select_global", "fine_bwd_rays"))
+    need(counts["fine_bwd_rays"] == 1 and counts["fold_weights"] == 0,
+         "frozen scene: the backward was not one launch of the per-ray half")
     need(counts["fine_bwd_gauss"] == 0 and counts["fine_bwd_global"] == 0
          and counts["slot_runs"] == 0, "frozen scene: a per-Gaussian pass or a grouping ran")
     add(counts)
@@ -1705,8 +1812,9 @@ def main():
     need(slot_runs.launches == 1, "the full step's per-Gaussian pass did not group the slots")
     need(all(bool(torch.isfinite(x).all()) for x in fz), "frozen scene: non-finite gradient")
     need(torch.equal(fz[1], full[1]), "frozen scene: the ray gradient is not the full step's")
-    print(f"frozen scene 300K: fold + per-ray half alone, no grouping; |g_R| {fz[0].norm().item():.4e} "
-          f"|g_rays| {fz[1].norm().item():.4e}; ray gradient equal to the full backward's")
+    print(f"frozen scene 300K: one launch of the per-ray half (the fold fused in), no grouping; "
+          f"|g_R| {fz[0].norm().item():.4e} |g_rays| {fz[1].norm().item():.4e}; ray gradient "
+          "equal to the full backward's")
 
     # 3j. pose scoring and refinement on the batched shape (slice 5)
     Rh, Th = vt.look_at_view_transform(dist=[6.0] * POSE_B, elev=list(np.linspace(5, 25, POSE_B)),
@@ -1731,8 +1839,27 @@ def main():
     zero_counts()
     with no_plain_version():
         sc_k, pose_k, sim_k = pose_run()
-    # (the features are constants, so the merge's backward is its d_w half alone)
-    add(read_counts("pose", (*COARSE, "fine_select", "fine_bwd", "attr_merge", "attr_dw")))
+    # (the features are constants, so the merge's backward is its d_w half
+    # alone; the scene is frozen, so K3's backward is its per-ray half alone,
+    # once a refinement step, and the only grouping is the coarse stage's)
+    counts = read_counts("pose", (*COARSE, "fine_select", "fine_bwd_rays", "attr_merge",
+                                  "attr_dw"))
+    need(counts["fine_bwd"] == 0 and counts["fine_bwd_gauss"] == 0
+         and counts["fine_bwd_rays"] == 3, "pose refinement: K3's per-Gaussian pass ran")
+    need(counts["slot_runs"] == counts["emit_rows"],
+         "pose refinement: a grouping ran outside the coarse stage")
+    add(counts)
+    # the same three steps with K3 whole (the scene's verts made to need a
+    # gradient, which is then unused): the same bits
+    scorer.verts.requires_grad_(True)
+    try:
+        before = fine_bwd.launches
+        _, pose_f, sim_f = pose_run()
+        need(fine_bwd.launches == before + 3, "pose refinement: K3 did not run whole")
+    finally:
+        scorer.verts.requires_grad_(False)
+    need(torch.equal(pose_k, pose_f) and sim_k == sim_f,
+         "pose refinement: the per-ray route differs from K3 whole")
     with plain_path():
         sc_p, pose_p, sim_p = pose_run()
     e_sc = (sc_k - sc_p).abs().max().item()
@@ -1743,9 +1870,41 @@ def main():
          f"pose refinement kernel vs plain path {e_po:.3e}")
     print(f"pose B={POSE_B}: overflow 0, scores {[round(x, 5) for x in sc_k.tolist()]} (true "
           f"hypothesis 3), kernel vs plain path scores {e_sc:.3e}, parameters after 3 steps "
-          f"{e_po:.3e} ({[round(x, 5) for x in pose_k.tolist()]}), similarity {sim_k:.6f}")
+          f"{e_po:.3e} ({[round(x, 5) for x in pose_k.tolist()]}), similarity {sim_k:.6f}; "
+          "the per-ray route and K3 whole equal to the bit")
+
+    def pose_grads():
+        """One refinement step's gradients from ``init_pose``: the camera's
+        (R, T), then the four pose scalars' through ``pose_matrices``."""
+        params = [torch.tensor(v, dtype=torch.float32, device=dev, requires_grad=True)
+                  for v in init_pose]
+        R, T = vt.models.pose_matrices(*(p[None] for p in params))
+        R_l, T_l = R.detach().requires_grad_(True), T.detach().requires_grad_(True)
+        pred, _ = scorer.render_features(R_l, T_l)
+        loss = -vt.models.feature_similarity(pred, target_pose[None])[0]
+        g_R, g_T = torch.autograd.grad(loss, (R_l, T_l))
+        g_p = torch.autograd.grad((R * g_R).sum() + (T * g_T).sum(), params)
+        return g_R, g_T, torch.stack(g_p)
+
+    # the camera's gradients of one step: held to the plain path (each within
+    # GRAD_TOL of its largest entry), and equal to the bit to K3 whole
+    with no_plain_version():
+        gr_k = pose_grads()
+    scorer.verts.requires_grad_(True)
+    try:
+        gr_f = pose_grads()
+    finally:
+        scorer.verts.requires_grad_(False)
+    need(all(torch.equal(a, b) for a, b in zip(gr_k, gr_f)),
+         "pose refinement: the camera gradients of the per-ray route differ from K3 whole")
+    with plain_path():
+        gr_p = pose_grads()
+    pose_grad_err = {n: grad_err(a, b, f"pose refinement camera gradient {n}")
+                     for n, a, b in zip(("R", "T", "pose"), gr_k, gr_p)}
+    print(f"pose refinement, one step's camera gradients kernel vs plain path: {pose_grad_err}; "
+          "the per-ray route equal to the bit to K3 whole")
     details["pose"] = dict(scores=sc_k.tolist(), score_err=e_sc, pose_err=e_po,
-                           pose=pose_k.tolist(), similarity=sim_k)
+                           pose=pose_k.tolist(), similarity=sim_k, grad_err=pose_grad_err)
 
     # ---- 4. timings -----------------------------------------------------
     inputs = [g.verts.detach() * (1.0 + 1e-5 * i) for i in range(24)]
@@ -1942,6 +2101,67 @@ def main():
           f"all {P_c} runs empty, of which the grouping {gauss_ms['grouping']:.4f} ms (plain "
           f"torch.sort + searchsorted {gauss_ms['grouping_plain']:.4f} ms)")
 
+    # rows 6 and 7 at the 300K cloud by lane width and by route: the
+    # per-Gaussian half (its per-slot pass, grouping and per-Gaussian kernel)
+    # at 4, 8, 16 and 32 lanes a Gaussian; the per-ray half; a frozen scene's
+    # backward as one launch with the fold fused in against the fold's entry
+    # followed by the unfused per-ray launch (the route before), in turns
+    idx_c, len_c, act_c, dsd_c, w_c = sel_c
+
+    def gauss_half(G):
+        """``fine_bwd_gauss``'s stages, composed as it composes them, at G
+        lanes a Gaussian."""
+        rays, table, idx, length, dsd = halves_c[:5]
+        coef = cuda_fine_bwd._slots_stage(rays, table, idx, length, None, dsd, None,
+                                          (*halves_c[5:], None), 1.0, None, None, True,
+                                          False)[0]
+        order, starts = slot_runs(idx, table.shape[0])
+        return cuda_fine_bwd._runs_stage(rays, table, coef, None, None, order, starts, G)
+
+    need(torch.equal(gauss_half(group_width(idx_c.numel(), P_c)), fine_bwd_gauss(*halves_c)),
+         "row 6 at 300K: the composed stages differ from fine_bwd_gauss")
+    half_by_lanes = {G: dict(ms=cuda_ms(lambda G=G: gauss_half(G), 20),
+                             device_ms=device_ms(lambda G=G: gauss_half(G), 10))
+                     for G in (4, 8, 16, 32)}
+    frozen_c = (rays_c, table_cl, idx_c, len_c, dsd_c, None, None, None)
+
+    def fused():
+        return fine_bwd_rays(*frozen_c, act=act_c, w=w_c, g_w=g_c[3], agg_ow=1.0)
+
+    def fold_then_rays():
+        return fine_bwd_rays(*frozen_c[:5], *fold_weights(len_c, act_c, dsd_c, w_c, g_c[3], 1.0))
+
+    need(torch.equal(fused(), fold_then_rays()), "frozen 300K backward: the fused launch "
+                                                 "differs from the fold + the per-ray half")
+    routes_ms = {"fused": [], "fold_then_rays": []}
+    for name in ("fused", "fold_then_rays", "fold_then_rays", "fused"):
+        routes_ms[name].append(cuda_ms(fused if name == "fused" else fold_then_rays, 20))
+    v_c, v_sq_c = slot_counts(idx_c)
+    occupied_c = torch.unique(idx_c[idx_c >= 0]).numel()
+    frozen_bound = bound_ms(nbytes(rays_c, idx_c, len_c, act_c, dsd_c, w_c, g_c[3])
+                            + occupied_c * 64 + nbytes(rays_c),
+                            v_sq_c * FOLD_FLOPS + v_c * SLOT_RAY_FLOPS)
+    frozen_t = dict(ms=routes_ms, bound_ms=frozen_bound[0], bound_by=frozen_bound[1],
+                    profile={k: launch_profile(f, 10) for k, f in (("fused", fused),
+                                                                   ("fold_then_rays",
+                                                                    fold_then_rays))},
+                    rays_only_ms=cuda_ms(lambda: fine_bwd_rays(*halves_c), 20),
+                    rays_only_device_ms=device_ms(lambda: fine_bwd_rays(*halves_c), 10))
+    details["rows_6_7_300k"] = dict(gauss_by_lanes=half_by_lanes, frozen_backward=frozen_t,
+                                    lanes=group_width(idx_c.numel(), P_c))
+    print(f"row 6 at the 300K cloud (fine_bwd_gauss, grouping included) by lanes a Gaussian "
+          f"(the rule takes {group_width(idx_c.numel(), P_c)}): " + ", ".join(
+              f"{G}: {v['ms']:.4f} ms (device {v['device_ms']:.4f})"
+              for G, v in half_by_lanes.items()))
+    print(f"row 7 at the 300K cloud: rays-only launch {frozen_t['rays_only_ms']:.4f} ms (device "
+          f"{frozen_t['rays_only_device_ms']:.4f}); frozen backward fused "
+          f"{routes_ms['fused'][0]:.4f} / {routes_ms['fused'][1]:.4f} ms, fold + per-ray half "
+          f"{routes_ms['fold_then_rays'][0]:.4f} / {routes_ms['fold_then_rays'][1]:.4f} ms, "
+          f"equal to the bit; bound of the fused launch {frozen_bound[0]:.5f} ms by "
+          f"{frozen_bound[1]}; a call: " + "; ".join(
+              f"{k} device {p['device_ms']:.4f} ms, kernels {p['kernels']:.1f}"
+              for k, p in frozen_t["profile"].items()))
+
     # K3's three parts apart: the per-slot kernel, the grouping of the slot
     # ids (beside its plain version) and the per-Gaussian kernel, at the headline (compacted
     # entry, attributes, with and without rays) and the ShapeFitting shapes
@@ -1949,22 +2169,28 @@ def main():
     def k3_parts(k3, attrs, g_img):
         rays, table, idx = k3[0], k3[1], k3[2]
         parts = (rays, table, idx, *k3[3:7], k3[7:11], k3[11], attrs, g_img)
-        coef, _ = cuda_fine_bwd._slots_stage(*parts, k3[-1])
+        coef = cuda_fine_bwd._slots_stage(*parts, True, k3[-1])[0]
         order, starts = slot_runs(idx, table.shape[0])
+        runs = lambda G=None: cuda_fine_bwd._runs_stage(rays, table, coef, k3[6], g_img, order,
+                                                         starts, G)
         return dict(
-            slots=cuda_ms(lambda: cuda_fine_bwd._slots_stage(*parts, k3[-1]), 50),
+            slots=cuda_ms(lambda: cuda_fine_bwd._slots_stage(*parts, True, k3[-1]), 50),
             grouping=cuda_ms(lambda: slot_runs(idx, table.shape[0]), 50),
             grouping_plain=cuda_ms(lambda: slot_runs_plain(idx, table.shape[0]), 50),
-            runs=cuda_ms(lambda: cuda_fine_bwd._runs_stage(rays, table, coef, k3[6], g_img,
-                                                          order, starts), 50))
+            runs=cuda_ms(runs, 50), lanes=group_width(idx.numel(), table.shape[0]),
+            runs_by_lanes={G: cuda_ms(lambda G=G: runs(G), 50) for G in (4, 8, 16, 32)},
+            runs_device_by_lanes={G: device_ms(lambda G=G: runs(G), 10) for G in (4, 8, 16, 32)})
     k3b_rays = head["k3b"][:-1] + (True,)
-    k3_ms = {"headline": k3_parts(head["k3b"], *head["k3b"][12:14]),
+    k3_ms = {"cloud_300k": k3_parts(head["k3c"], None, None),
+             "headline": k3_parts(head["k3b"], *head["k3b"][12:14]),
              "headline_rays": k3_parts(k3b_rays, *head["k3b"][12:14]),
              "shapefit": k3_parts(head["k3g"], None, None)}
     for tag, v in k3_ms.items():
         print(f"K3 parts {tag}: per-slot kernel {v['slots']:.4f} ms, grouping {v['grouping']:.4f} "
-              f"ms (plain {v['grouping_plain']:.4f}), "
-              f"per-Gaussian kernel {v['runs']:.4f} ms")
+              f"ms (plain {v['grouping_plain']:.4f}), per-Gaussian kernel {v['runs']:.4f} ms at "
+              f"{v['lanes']} lanes a Gaussian; by lanes " + ", ".join(
+                  f"{G}: {v['runs_by_lanes'][G]:.4f} (device {v['runs_device_by_lanes'][G]:.4f})"
+                  for G in (4, 8, 16, 32)))
     details["k3_parts_ms"] = k3_ms
 
     # pose: scoring 8 hypotheses in one chunk, and one refinement step
@@ -1974,13 +2200,38 @@ def main():
     def pose_refine(_):
         return vt.refine_pose(scorer, target_pose, init_pose, steps=1, lr=0.01)
 
+    def pose_refine_whole(_):
+        """A refinement step with K3 whole: the scene's verts made to need a
+        gradient, which is then unused (the route before the per-ray half)."""
+        scorer.verts.requires_grad_(True)
+        try:
+            return pose_refine(_)
+        finally:
+            scorer.verts.requires_grad_(False)
+
     details["pose_score"] = in_turns("pose score B=8", pose_score, [range(5)] * 4)
     details["pose_refine_step"] = in_turns("pose refine step", pose_refine, [range(5)] * 4)
+    by_route = {"per_ray": [], "k3_whole": []}
+    pose_refine_whole(0)
+    torch.cuda.synchronize()
+    for name in ("per_ray", "k3_whole", "k3_whole", "per_ray"):
+        by_route[name] += timed(pose_refine if name == "per_ray" else pose_refine_whole,
+                                range(5))
+    route_prof = {k: launch_profile(lambda f=f: f(0), 5)
+                  for k, f in (("per_ray", pose_refine), ("k3_whole", pose_refine_whole))}
+    details["pose_refine_by_route"] = dict(
+        ms={k: dict(median_ms=statistics.median(v), min_ms=min(v), max_ms=max(v), n=len(v))
+            for k, v in by_route.items()}, profile=route_prof)
+    print("pose refine step by backward route (in turns): " + "; ".join(
+        f"{k} median {statistics.median(v):.3f} ms (min {min(v):.3f}, max {max(v):.3f}), device "
+        f"{route_prof[k]['device_ms']:.4f} ms, kernels {route_prof[k]['kernels']:.1f}, memsets "
+        f"{route_prof[k]['memsets']:.1f}" for k, v in by_route.items()))
 
     # the coarse stage alone (compact_candidates), staged kernels against the
     # int64 route in turns, at every main path's shapes: CUDA-event ms of
     # back-to-back calls, and from a profile the device ms, kernel launches,
-    # memsets and host reads a call
+    # memsets and host reads a call; the check reads the host reads counted
+    # on the host, call by call
     stage_t = {}
     for tag, (cams_s, pts_s, isg_s, hw_s, K_s) in coarse_cells.items():
         def call(cams_s=cams_s, pts_s=pts_s, isg_s=isg_s, hw_s=hw_s, K_s=K_s):
@@ -1994,16 +2245,18 @@ def main():
         for route in ("staged", "sorted"):
             with sorted_route() if route == "sorted" else nullcontext():
                 prof[route] = launch_profile(call, 10)
+        syncs = host_syncs(call, 10)
         b_ms, b_by = coarse_held[tag]["bounds"]["stage"]
-        stage_t[tag] = dict(ms=ms, profile=prof, bound_ms=b_ms, bound_by=b_by)
+        stage_t[tag] = dict(ms=ms, profile=prof, host_syncs=syncs, bound_ms=b_ms, bound_by=b_by)
         print(f"coarse stage {tag} (compact_candidates): staged {ms['staged'][0]:.4f} / "
               f"{ms['staged'][1]:.4f} ms, int64 route {ms['sorted'][0]:.4f} / "
               f"{ms['sorted'][1]:.4f} ms; bound {b_ms:.5f} ms by {b_by}; a call: "
               + "; ".join(f"{r} device {p['device_ms']:.4f} ms, kernels {p['kernels']:.1f}, "
                           f"memsets {p['memsets']:.1f}, host reads {p['host_reads']:.1f}, "
-                          f"host writes {p['host_writes']:.1f}" for r, p in prof.items()))
-        need(prof["staged"]["host_reads"] == (2 if tag == "texture" else 1),
-             f"coarse stage {tag}: not one host read a render (two when it re-emits)")
+                          f"host writes {p['host_writes']:.1f}" for r, p in prof.items())
+              + f"; staged host reads counted by call {syncs}")
+        need(syncs == [2 if tag == "texture" else 1] * len(syncs),
+             f"coarse stage {tag}: not one host read a render (two when it re-emits): {syncs}")
     details["coarse_stage_ms"] = stage_t
 
     def routes(label, fn, args):
@@ -2288,17 +2541,22 @@ def main():
                 fn(a)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kinds = {ev.key: ev.self_device_time_total / 1e3 for ev in prof.key_averages()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA}
+        events = prof.key_averages()
+        kinds = {ev.key: ev.self_device_time_total / 1e3 for ev in events if on_device(ev)}
         dev_ms = sum(kinds.values()) / len(args)
+        # the device total as it was read before user-annotated ranges were
+        # left out: comparable with readings taken that way
+        with_ranges = sum(ev.self_device_time_total for ev in events
+                          if on_card(ev)) / 1e3 / len(args)
         busy = dev_ms / untraced_ms
         top = sorted(kinds.items(), key=lambda kv: -kv[1])[:10]
-        print(f"profile {tag}: device {dev_ms:.3f} ms per step, busy share {busy:.3f} of the "
-              f"untraced median (traced wall {wall_ms / len(args):.3f} ms); top over "
-              f"{len(args)} steps: " + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
-        (OUT_DIR / path).write_text(
-            prof.key_averages().table(sort_by="self_device_time_total", row_limit=40))
+        print(f"profile {tag}: device {dev_ms:.3f} ms per step (with user-annotated ranges "
+              f"{with_ranges:.3f}), busy share {busy:.3f} of the untraced median (traced wall "
+              f"{wall_ms / len(args):.3f} ms); top over {len(args)} steps: "
+              + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top))
+        (OUT_DIR / path).write_text(events.table(sort_by="self_device_time_total", row_limit=40))
         return dict(device_ms_per_step=dev_ms, device_busy_share=busy,
+                    device_ms_with_ranges_per_step=with_ranges,
                     traced_wall_ms_per_step=wall_ms / len(args),
                     device_ms_by_kernel=kinds)
 

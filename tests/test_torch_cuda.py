@@ -15,8 +15,10 @@ fold, K3, K4b) and the gradients of a whole render: max |kernel - plain| <=
 equal to the bit.  The global entries of K2 and K3 (the no-coarse path):
 selections equal to the plain version's, the rest as above.  The two halves
 of the split global backward: each within 1e-4 of its plain version's
-largest entry, the pair after the fold within a normwise 1e-5 of the unified
-entry on the same inputs, two runs equal to the bit.  The k-NN converter on
+largest entry at every lane width of the per-Gaussian kernel, two runs equal
+to the bit; the pair after the fold, and the per-ray half with the fold
+fused in, equal to the bit to the unified entry on the same inputs (the same
+kernels; 32 lanes a Gaussian at these shapes).  The k-NN converter on
 the card against the CPU, and pose scoring / refinement through the kernels
 against the plain path.  The loaders, the checkpoint and the pose entry
 points called without a device: everything on the card.
@@ -331,7 +333,6 @@ class _PlainPath:
                       (fine, "fine_select_global", fine_select_global_plain),
                       (fine, "fine_bwd_global", fine_bwd_global_plain),
                       (fine, "fine_bwd_rays", fine_bwd_rays_plain),
-                      (fine, "fold_weights", fold_weights_plain),
                       (cuda_attr, "attr_merge", attr_merge_plain),
                       (cuda_attr, "attr_merge_bwd", attr_merge_bwd_plain)]
         self.saved = [(m, n, getattr(m, n), f) for m, n, f in self.saved]
@@ -766,8 +767,9 @@ def _fold_then_pair(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd, 
 @pytest.mark.parametrize("g_w", ["set", "only", "absent"])
 def test_fold_then_split_pair_matches_unified_entry(stage, g_w):
     """``ops.fine.global_backward`` (the unified entry; for a frozen scene the
-    fold and the per-ray half) against the fold's entry + the split pair on
-    the same inputs."""
+    per-ray half with the fold fused in, one launch) against the fold's
+    entry + the split pair on the same inputs: equal to the bit (32 lanes a
+    Gaussian here, as in the unified entry)."""
     rays, table, args = _global_select(stage, 25, "none")
     sel = fine_select_global(*args)
     cots = _cotangents(sel[1].shape, rays.device, 4, 7)
@@ -781,11 +783,109 @@ def test_fold_then_split_pair_matches_unified_entry(stage, g_w):
     rows, g_rays = fine.global_backward(rays, table, *sel, *cots, 0.9, True, True)
     none, frozen = fine.global_backward(rays, table, *sel, *cots, 0.9, False, True)
     torch.cuda.synchronize()
-    folds = 0 if g_w == "absent" else 1
-    assert [fn.launches - b for fn, b in zip(fns, before)] == [folds, 0, 1, 1]
+    assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 0, 1, 1]
     assert none is None and torch.equal(frozen, want_rays)
-    for got, want in ((rows, want_rows), (g_rays, want_rays)):
-        assert (got - want).norm() <= 1e-5 * want.norm()
+    assert torch.equal(rows, want_rows) and torch.equal(g_rays, want_rays)
+
+
+@pytest.mark.parametrize("K", [1, 5, 20, 25, 64, 128])
+@pytest.mark.parametrize("fold", ["none", "g_w", "g_w_attrs"])
+def test_rays_only_launch_matches_unified_entry_and_plain(stage, K, fold):
+    """The per-ray half: one launch of the per-slot kernel writing no
+    coefficients, without the fold, with the fold of g_w, and with the fold
+    of g_w and the attribute image's d_w (a frozen scene's backward): the ray
+    gradient (and the per-ray mean gradients) equal to the bit to the unified
+    entry's on the same inputs, within 1e-4 of the plain version."""
+    rays, table, args = _global_select(stage, K, "none")
+    sel = fine_select_global(*args)
+    idx, length, act, dsd, w = sel
+    cots = _cotangents(length.shape, rays.device, 4, 30 + K)
+    kw, attrs, g_img = {}, None, None
+    if fold != "none":
+        kw = dict(act=act, w=w, g_w=cots[3], agg_ow=0.9)
+    if fold == "g_w_attrs":
+        attrs = torch.rand(table.shape[0], 3, device=rays.device,
+                           generator=torch.Generator(rays.device).manual_seed(K))
+        g_img = _cotangents(rays.shape, rays.device, 1, 40 + K)[0]
+        kw.update(attrs=attrs, g_img=g_img)
+    halves = (rays, table, idx, length, dsd, *cots[:3])
+    before = fine_bwd_rays.launches
+    g_rays, g_mu = fine_bwd_rays(*halves, **kw, return_mu=True)
+    again = fine_bwd_rays(*halves, **kw)
+    torch.cuda.synchronize()
+    assert fine_bwd_rays.launches == before + 2 and torch.equal(g_rays, again)
+    g_w = cots[3] if fold != "none" else None
+    _, u_rays, u_mu = fine_bwd(rays, table, *sel, *cots[:3], g_w, 0.9, attrs, g_img, True,
+                               return_mu=True)
+    assert torch.equal(g_rays, u_rays) and torch.equal(g_mu, u_mu)
+    want, want_mu = fine_bwd_rays_plain(*halves, **kw, return_mu=True)
+    _close(g_rays, want)
+    _close(g_mu, want_mu)
+
+
+@pytest.mark.parametrize("group", [4, 8, 16, 32])
+def test_per_gaussian_half_at_each_group_width(stage, group):
+    """The per-Gaussian kernel with ``group`` lanes a Gaussian: runs longer
+    than a warp, empty runs (seven table rows no slot names) and slot ids
+    past the table, against the plain version, two runs equal to the bit
+    (and to ``fine_bwd_gauss`` at the lanes ``group_width`` picks); with
+    attribute columns, as K3's compacted entry composes its stages, too."""
+    from voge_tpu_torch.ops import cuda_fine_bwd
+
+    rays, table, args = _global_select(stage, 25, "none")
+    sel = fine_select_global(*args)
+    table = torch.cat([table, table[:7]])
+    idx = torch.where(sel[0] % 11 == 5, sel[0] + table.shape[0], sel[0])
+    held = torch.bincount(idx[(idx >= 0) & (idx < table.shape[0])].long(),
+                          minlength=table.shape[0])
+    assert held.max() > 32 and (held == 0).sum() >= 7
+    cots = _cotangents(sel[1].shape, rays.device, 4, 50)
+    n_tab = table.shape[0]
+    order, starts = cuda_attr.slot_runs(idx, n_tab)
+
+    def k3_at(length, act, dsd, w, grads, agg_ow, attrs, g_img):
+        """K3's stages composed as its wrappers compose them, at ``group``
+        lanes a Gaussian."""
+        coef = cuda_fine_bwd._slots_stage(rays, table, idx, length, act, dsd, w, grads,
+                                          agg_ow, attrs, g_img, True, False)[0]
+        return cuda_fine_bwd._runs_stage(rays, table, coef, w, g_img, order, starts, group)
+
+    halves = (rays, table, idx, sel[1], sel[3], *cots[:3])
+    gauss = (sel[1], None, sel[3], None, (*cots[:3], None), 1.0, None, None)
+    rows = k3_at(*gauss)
+    assert torch.equal(rows, k3_at(*gauss))
+    _close(rows, fine_bwd_gauss_plain(*halves))
+    assert not rows[held == 0].any() and rows[held > 32].abs().sum(-1).min() > 0
+    if group == cuda_fine_bwd.group_width(idx.numel(), n_tab):
+        assert torch.equal(rows, fine_bwd_gauss(*halves))
+    attrs = torch.rand(n_tab, 5, device=rays.device,
+                       generator=torch.Generator(rays.device).manual_seed(51))
+    g_img = _cotangents(rays.shape[:3] + (5,), rays.device, 1, 52)[0]
+    full = (*sel[1:], tuple(cots), 0.9, attrs, g_img)
+    got = k3_at(*full)
+    assert torch.equal(got, k3_at(*full))
+    _close(got, fine_bwd_plain(rays, table, idx, *sel[1:], *cots, 0.9, attrs, g_img,
+                               False)[0])
+
+
+def test_halves_refuse_k_above_max_on_the_card(dev):
+    """Above ``MAX_K`` the per-slot kernel does not launch: both halves raise
+    on CUDA tensors; the plain version takes the same tensors."""
+    from voge_tpu_torch.ops.cuda_fine import MAX_K
+
+    B, H, W, K = 1, 4, 5, MAX_K + 1
+    gen = torch.Generator(dev).manual_seed(60)
+    table = torch.randn(6, 16, device=dev, generator=gen)
+    rays = torch.nn.functional.normalize(torch.randn(B, H, W, 3, device=dev, generator=gen),
+                                         dim=-1)
+    idx = torch.randint(-1, 6, (B, H, W, K), device=dev, generator=gen, dtype=torch.int32)
+    length, dsd, g = (torch.rand(B, H, W, K, device=dev, generator=gen) + 0.5
+                      for _ in range(3))
+    halves = (rays, table, idx, length, dsd, g, None, None)
+    for fn in (fine_bwd_rays, fine_bwd_gauss):
+        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+            fn(*halves)
+    assert torch.isfinite(fine_bwd_rays_plain(*halves)).all()
 
 
 def test_point_cloud_render_takes_the_split_path(dev, monkeypatch):
@@ -869,12 +969,14 @@ def test_pose_kernel_path_matches_plain_path(dev):
         params, sim = vt.refine_pose(scorer, target, (6.0, 0.25, 0.95, 0.0), steps=3, lr=0.01)
         return scores, torch.stack([params[k] for k in ("dist", "elev", "azim", "theta")]), sim
 
-    before = (emit_rows.launches, fine_select.launches, fine_bwd.launches, attr_merge.launches)
+    fns = (emit_rows, fine_select, fine_bwd, attr_merge, fine_bwd_rays, fine_bwd_gauss)
+    before = [fn.launches for fn in fns]
     sk, pk, simk = run()
     torch.cuda.synchronize()
-    after = (emit_rows.launches, fine_select.launches, fine_bwd.launches, attr_merge.launches)
-    ran = [a - b for a, b in zip(after, before)]
-    assert ran[0] >= 5 and ran[1:] == [5, 3, 5]               # 2 chunks + 3 steps
+    ran = [fn.launches - b for fn, b in zip(fns, before)]
+    # 2 chunks + 3 steps; the scene is frozen, so the backward is the per-ray
+    # half alone: no K3, no grouping of its slots
+    assert ran[0] >= 5 and ran[1:] == [5, 0, 5, 3, 0]
     with _PlainPath():
         sp, pp, simp = run()
     assert sk.shape == (6,) and int(sk.argmax()) == 2

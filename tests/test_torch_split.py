@@ -224,7 +224,7 @@ def spy(monkeypatch):
     and record whether each call of the unified entry asked for rays."""
     calls = _Calls()
     calls.rays_asked = []
-    for name in ("fold_weights", "fine_bwd_rays", "fine_bwd_global"):
+    for name in ("fine_bwd", "fine_bwd_rays", "fine_bwd_global"):
         real = getattr(cuda_fine_bwd, name)
         calls[name] = 0
 
@@ -246,7 +246,7 @@ def test_global_backward_rule_matches_jax_grad(branch, jax_grads, spy):
     args = [torch.tensor(x, requires_grad=True) for x in (verts, isig, colors)]
     args += [torch.tensor(x, requires_grad=cams) for x in (R, T)]
     _loss_t(*args, focal, principal).backward()
-    assert spy == dict(fold_weights=0, fine_bwd_rays=0, fine_bwd_global=1)
+    assert spy == dict(fine_bwd=0, fine_bwd_rays=0, fine_bwd_global=1)
     assert spy.rays_asked == [cams]
     for name, a, g in zip(("verts", "sigmas", "colors", "R", "T"), args, jax_grads):
         if not a.requires_grad:
@@ -258,9 +258,9 @@ def test_global_backward_rule_matches_jax_grad(branch, jax_grads, spy):
 
 def test_frozen_scene_takes_the_ray_half_alone(spy):
     """Only the rays need a gradient (``ray_tracing`` on constant points):
-    the fold and the per-ray half, no per-Gaussian pass; the ray gradient
-    against ``jax.grad`` of ``voge_tpu``'s ``ray_tracing`` on the same
-    arrays."""
+    the per-ray half alone, the fold fused in, no per-Gaussian pass; the ray
+    gradient against ``jax.grad`` of ``voge_tpu``'s ``ray_tracing`` on the
+    same arrays."""
     from voge_tpu_torch.aggregation import expend_sigma
     from voge_tpu_torch.rays import camera_rays as t_camera_rays
 
@@ -281,7 +281,7 @@ def test_frozen_scene_takes_the_ray_half_alone(spy):
     r = rays.clone().requires_grad_(True)
     sel, _ = fine.ray_tracing(cams, points, isg, r, HW, 0.01, K_RENDER, max_points_per_bin=-1)
     (sel[4] * torch.tensor(cw)).sum().backward()
-    assert spy == dict(fold_weights=1, fine_bwd_rays=1, fine_bwd_global=0)
+    assert spy == dict(fine_bwd=0, fine_bwd_rays=1, fine_bwd_global=0)
     assert _rel(r.grad.numpy(), want) <= 1e-3
 
 
@@ -295,7 +295,7 @@ def test_split_backward_repeats_to_the_bit_and_skips_unasked_rays(spy):
     g1 = torch.autograd.grad(loss, args, retain_graph=True)
     g2 = torch.autograd.grad(loss, args)
     assert all(torch.equal(a, b) for a, b in zip(g1, g2))
-    assert spy == dict(fold_weights=0, fine_bwd_rays=0, fine_bwd_global=2)
+    assert spy == dict(fine_bwd=0, fine_bwd_rays=0, fine_bwd_global=2)
     assert spy.rays_asked == [False, False]
 
 
@@ -319,7 +319,7 @@ def test_two_stage_tracer_takes_the_rule(spy):
         return torch.autograd.grad(loss, [x for x in leaves if x.requires_grad])
 
     want = grads(True)
-    assert spy == dict(fold_weights=0, fine_bwd_rays=0, fine_bwd_global=1)
+    assert spy == dict(fine_bwd=0, fine_bwd_rays=0, fine_bwd_global=1)
     # the pair of halves on the tracer's own cotangents gives the same rows
     idx, length, _, dsd, _ = sel
     pair = (fine_bwd_gauss(rays, table, idx, length, dsd, *cots[:3]),
@@ -328,7 +328,7 @@ def test_two_stage_tracer_takes_the_rule(spy):
     for a, b in zip(pair, unified):
         assert _rel(a.numpy(), b.numpy()) <= 1e-5
     only_rays, = grads(False)
-    assert spy == dict(fold_weights=0, fine_bwd_rays=1, fine_bwd_global=1)
+    assert spy == dict(fine_bwd=0, fine_bwd_rays=1, fine_bwd_global=1)
     assert _rel(only_rays.numpy(), want[2].numpy()) <= 1e-5
 
 

@@ -1,8 +1,8 @@
 // Device code shared by the fine backward kernels: the analytic backward of
 // the erf transmittance compositing (the weight fold: K3's per-slot stage in
 // fine_bwd.cu and the standalone fold, fold_weights.cu), and one slot's chain
-// rule (the per-Gaussian and per-ray sides of fine_bwd.cu and
-// fine_bwd_split.cu, at the end of this file).
+// rule (the per-Gaussian and per-ray sides of fine_bwd.cu, at the end of this
+// file).
 //
 // Replaces the body of voge_tpu/ops/pallas_fine2.py::fold_weights_pallas
 // (kernel at :627; the same math sits in pallas_bwd.py:697-759).  With
@@ -104,7 +104,8 @@ __device__ __forceinline__ float voge_ld(const float* p, size_t i) {
 // (ops/cuda_fine_bwd.py has the three formulas), from the slot's coefficients
 // g_d, c = g_l / ksk, g_a and its len l.  Every kernel of the fine backward
 // that sums a Gaussian's or a ray's slots calls these two, so the compacted,
-// the global and the split entries evaluate one arithmetic.
+// the global, the per-Gaussian and the per-ray entries evaluate one
+// arithmetic.
 //
 // The Gaussian's side, with its precision L (9, row-major) and mean mu:
 // acc[0..2] += g_mu, acc[3..11] += g_Lambda (row-major),

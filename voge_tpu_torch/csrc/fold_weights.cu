@@ -5,8 +5,9 @@
 // buffers so that its K occluder sweeps fill the 128 lanes.  Here the fold is
 // the per-slot device code of fine_bwd.cuh on image-layout (rays, K) arrays,
 // one thread per (ray, slot); K3's per-slot stage (fine_bwd.cu) calls the same
-// functions, so the fold's entry, the split pair and K3 cannot drift apart,
-// and this entry gives the fold its own check against the plain version.
+// functions, so the fold's entry and K3 cannot drift apart, and this entry
+// gives the fold its own check against the plain version.  No main path runs
+// it: a frozen scene's backward folds inside K3's per-slot kernel.
 //
 // What bounds it on the H100: arithmetic.  Per ray it evaluates 2 K^2 exp
 // and K^2 erf (at the headline, 65,536 rays x K = 20: 52M exp and 26M erf)

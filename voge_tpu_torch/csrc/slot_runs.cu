@@ -1,6 +1,6 @@
 // The grouping of slots by the id they hold, for every run kernel of the
 // port (attr_scatter and K4b in attr_merge_bwd.cu, K3's per-Gaussian kernel in
-// fine_bwd.cu, the per-Gaussian half in fine_bwd_split.cu): from the flattened
+// fine_bwd.cu, which the per-Gaussian half takes too): from the flattened
 // slot ids idx (n int32) and n_rows, the run starts `starts` (n_rows + 1,
 // int64) and `order` (n int32) such that the slots holding id j are
 // order[starts[j] : starts[j + 1]] in ascending slot order.  Ids outside

@@ -1,22 +1,37 @@
-"""K3: the fine backward (``csrc/fine_bwd.cu``), the weight-cotangent fold
-(``csrc/fold_weights.cu``, the device function of ``csrc/fine_bwd.cuh``) and
-the global backward split in two (``csrc/fine_bwd_split.cu``), with their
-plain PyTorch versions.
+"""K3: the fine backward (``csrc/fine_bwd.cu``) and the weight-cotangent
+fold (``csrc/fold_weights.cu``, the device function of ``csrc/fine_bwd.cuh``),
+with their plain PyTorch versions.
 
-K3 has two entries on one kernel pair.  :func:`fine_bwd` replaces
-``voge_tpu/ops/pallas_bwd.py::_bwd_t_kernel`` (``fine_bwd_compact_t_pallas``,
-the emission-compacted path, with the attribute VJP); :func:`fine_bwd_global`
-replaces ``pallas_bwd.py::_bwd_unified_kernel`` (``fine_bwd_unified_pallas``,
-the global candidate space of the no-coarse path and the two-stage tracer).
-From the select's saved image-layout outputs (idx, len, act, dsd, w) and
-their cotangents, one thread per slot folds the weight cotangent (and, with
-attributes, the attribute image's weight cotangent) into the len / act / dsd
-cotangents and applies the entry-space chain rule; per ray it sums the ray
-gradient (3); per Gaussian, over each Gaussian's run of the slot ids grouped
-by id (``cuda_attr.slot_runs``), one warp sums the gradients of mu (3), Lambda (9) and the
-attributes (d) in a fixed order.  A slot's id ``b * P + p`` is its row of the
-(B * P, 16) feature table and of the output, so both entries return
-per-Gaussian rows: no float atomics, two runs give the same bits.
+K3 is two kernels: a per-slot kernel (one thread per (ray, slot)) and a
+per-Gaussian kernel (a group of lanes per Gaussian, over the run of the slot
+ids grouped by id, ``cuda_attr.slot_runs``).  Four wrappers launch them:
+
+- :func:`fine_bwd` replaces ``voge_tpu/ops/pallas_bwd.py::_bwd_t_kernel``
+  (``fine_bwd_compact_t_pallas``, the emission-compacted path, with the
+  attribute VJP), and :func:`fine_bwd_global` ``pallas_bwd.py::
+  _bwd_unified_kernel`` (``fine_bwd_unified_pallas``, the global candidate
+  space of the no-coarse path and the two-stage tracer): both kernels.  From
+  the select's saved image-layout outputs (idx, len, act, dsd, w) and their
+  cotangents, the per-slot kernel folds the weight cotangent (and, with
+  attributes, the attribute image's weight cotangent) into the len / act /
+  dsd cotangents, applies the entry-space chain rule and sums the ray
+  gradient (3) per ray; the per-Gaussian kernel sums the gradients of mu
+  (3), Lambda (9) and the attributes (d) in a fixed order.
+- :func:`fine_bwd_gauss` and :func:`fine_bwd_rays` replace
+  ``pallas_bwd.py::_bwd_gauss_kernel`` (``fine_bwd_gauss_pallas``) and
+  ``_bwd_rays_kernel`` (``fine_bwd_rays_pallas``), the global backward as a
+  per-Gaussian and a per-ray half, on cotangents of len / act / dsd with the
+  weight cotangent already folded in: the per-Gaussian half is both kernels
+  with the fold off, the per-ray half the per-slot kernel alone, writing no
+  coefficients.  Given ``act``, ``w`` and a weight cotangent (and
+  attributes), the per-ray half folds them in the same launch: the backward
+  of a frozen scene, where only the rays (and the camera centres) need a
+  gradient (``ops.fine``).
+
+A slot's id ``b * P + p`` is its row of the (B * P, 16) feature table and of
+the output, so the entries return per-Gaussian rows: no float atomics, two
+runs give the same bits.  :func:`group_width` sets the per-Gaussian kernel's
+lanes a Gaussian from the shapes alone.
 
 The chain rule is ``voge_tpu``'s (``ray_trace_voge.cu:324-326``: with
 ``ksk = dsd``, ``msk = len * dsd``, ``g_ksk = (g_a msk - g_l) msk / ksk^2 +
@@ -40,14 +55,6 @@ was 3.8e-3 from a float64 evaluation; this form keeps it near 1e-4).
 ``fold_weights`` replaces ``voge_tpu/ops/pallas_fine2.py::fold_weights_pallas``:
 the same fold on its own.  The plain versions use ``torch.erf``, ``voge_tpu``
 a rational polynomial (``pallas_fine2._erf32``); the two differ by about 1e-7.
-
-:func:`fine_bwd_gauss` and :func:`fine_bwd_rays` replace
-``pallas_bwd.py::_bwd_gauss_kernel`` (``fine_bwd_gauss_pallas``) and
-``_bwd_rays_kernel`` (``fine_bwd_rays_pallas``): the global backward as a
-per-Gaussian half and a per-ray half that take cotangents of len / act / dsd
-with the weight cotangent already folded in (by :func:`fold_weights`), so
-they take no ``w``, no ``g_w`` and no occupation weight.  ``ops.fine`` says
-when a backward takes the pair and when the per-ray half alone.
 """
 from __future__ import annotations
 
@@ -124,6 +131,28 @@ def fold_weights(length, act, dsd, w, g_w, ow: float):
 fold_weights.launches = 0
 
 
+GROUP_MIN = 4    # the fewest lanes a Gaussian in K3's per-Gaussian kernel
+
+
+def group_width(n_slots: int, n_tab: int) -> int:
+    """Lanes a Gaussian in K3's per-Gaussian kernel, from the shapes alone
+    (no host read): a lane for every two slots a Gaussian could hold on
+    average (``n_slots / n_tab``, ``n_slots`` = rays x K), rounded up to a
+    power of two and clamped to [``GROUP_MIN``, 32].  A warp a Gaussian
+    wherever Gaussians hold many slots (every shape with a golden file:
+    136 and more slots a Gaussian); 4 at the 300,000-point cloud (6.8).
+    Measured on an H100 80GB HBM3 at 700 W (PERF.md section 6): 4 lanes
+    beat 8, 16 and 32 at the 300K cloud (the kernel 0.035 ms against 0.047,
+    0.076, 0.140); at the headline and ShapeFitting shapes 16 and 32 are
+    within 0.002 ms and 4 is the slowest.  The lanes' sums are a fixed tree, so a shape
+    gives the same bits on every run."""
+    half = n_slots / (2 * max(n_tab, 1))
+    g = GROUP_MIN
+    while g < half and g < 32:
+        g *= 2
+    return g
+
+
 def _slot_coefs(idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
                 agg_ow: float, attrs=None, g_img=None):
     """Per-slot chain-rule coefficients (g_d, c = g_len / ksk, g_a, l), each
@@ -187,11 +216,10 @@ def _check_split(rays, table, idx, length, dsd, grads):
     return table.shape[0], K
 
 
-def _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img):
-    """K3's arguments (:func:`fine_bwd`); (rows of the table, K, d)."""
+def _check_fold(rays, table, idx, length, act, dsd, w, grads, attrs, g_img):
+    """The arguments of a backward that may fold the weight cotangent;
+    (rows of the table, K, d)."""
     n_tab, K = _check_split(rays, table, idx, length, dsd, grads[:3])
-    if K > MAX_K:
-        raise NotImplementedError(f"K={K}: the backward kernel takes 1 <= K <= {MAX_K}")
     for t, name in ((act, "act"), (w, "w"), (grads[3], "g_w")):
         if t is not None:
             check(t, name, torch.float32, idx.shape)
@@ -209,30 +237,56 @@ def _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img):
     return n_tab, K, d
 
 
-def fine_bwd_plain(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
-                   g_w, agg_ow: float, attrs: Optional[torch.Tensor] = None,
-                   g_img: Optional[torch.Tensor] = None, want_rays: bool = True):
-    """Plain version of K3: dense tensor ops per slot, each slot's feature
-    row read by its id, and a segmented sum (``index_add_``) per Gaussian
-    (``voge_tpu``'s entry-space backward, ``fine.py:259-329``, in the
-    residual form).  Same contract as :func:`fine_bwd`."""
-    grads = (g_len, g_act, g_dsd, g_w)
-    n_tab, K, d = _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img)
+def _check_k(K: int, what: str):
+    if K > MAX_K:
+        raise NotImplementedError(
+            f"K={K}: {what} takes 1 <= K <= {MAX_K} (ROADMAP queue 1, item 6: K > 128)")
+
+
+def _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img):
+    """K3's arguments (:func:`fine_bwd`); (rows of the table, K, d)."""
+    n_tab, K, d = _check_fold(rays, table, idx, length, act, dsd, w, grads, attrs, g_img)
+    _check_k(K, "the backward kernel")
+    return n_tab, K, d
+
+
+def _plain(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img,
+           want_rows: bool, want_rays: bool, want_mu: bool):
+    """K3's plain version: dense tensor ops per slot, each slot's feature row
+    read by its id; per Gaussian a segmented sum (``index_add_``), per ray a
+    sum over its slots (``voge_tpu``'s entry-space backward,
+    ``fine.py:259-329``, in the residual form).  (rows or None, g_rays or
+    None, g_mu or None)."""
+    n_tab, d = table.shape[0], 0 if attrs is None else attrs.shape[1]
     coefs = _slot_coefs(idx, length, act, dsd, w, *grads, agg_ow, attrs, g_img)
     ok = (idx >= 0) & (idx < n_tab)
     seg = torch.where(ok, idx, n_tab).long()                     # (B, H, W, K)
     feats = torch.cat([table, table.new_zeros((1, FEAT))])[seg]
     g_mu, g_L, g_ray = _slot_grads(feats, rays[..., None, :],
                                    *(c[..., None] for c in coefs), want_rays)
-    cols = [g_mu, g_L]
-    if d:
-        cols.append(w[..., None] * g_img[..., None, :])
-    vals = torch.cat(cols, dim=-1).reshape(-1, 12 + d)
-    rows = vals.new_zeros((n_tab + 1, 12 + d)).index_add_(0, seg.reshape(-1), vals)
-    g_rays = None
-    if want_rays:
-        g_rays = torch.where(ok[..., None], g_ray, 0.0).sum(-2)
-    return rows[:n_tab], g_rays
+    rows = None
+    if want_rows:
+        cols = [g_mu, g_L]
+        if d:
+            cols.append(w[..., None] * g_img[..., None, :])
+        vals = torch.cat(cols, dim=-1).reshape(-1, 12 + d)
+        rows = vals.new_zeros((n_tab + 1, 12 + d)).index_add_(0, seg.reshape(-1), vals)
+        rows = rows[:n_tab]
+    per_ray = lambda g: torch.where(ok[..., None], g, 0.0).sum(-2)
+    return (rows, per_ray(g_ray) if want_rays else None,
+            per_ray(g_mu) if want_mu else None)
+
+
+def fine_bwd_plain(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
+                   g_w, agg_ow: float, attrs: Optional[torch.Tensor] = None,
+                   g_img: Optional[torch.Tensor] = None, want_rays: bool = True,
+                   return_mu: bool = False):
+    """Plain version of K3.  Same contract as :func:`fine_bwd`."""
+    grads = (g_len, g_act, g_dsd, g_w)
+    _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img)
+    out = _plain(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img,
+                 True, want_rays, return_mu)
+    return out if return_mu else out[:2]
 
 
 def fine_bwd_global_plain(rays, table, idx, length, act, dsd, w, g_len, g_act,
@@ -246,51 +300,60 @@ def fine_bwd_global_plain(rays, table, idx, length, act, dsd, w, g_len, g_act,
 def _kernels():
     lib = load("fine_bwd")
     slots, runs = lib.voge_fine_bwd_slots, lib.voge_fine_bwd_runs
-    slots.argtypes = [VOIDP] * 15 + [LONG, LONG, INT, INT, FLOAT, VOIDP]
-    runs.argtypes = [VOIDP] * 8 + [LONG, INT, INT, VOIDP]
+    slots.argtypes = [VOIDP] * 16 + [LONG, LONG, INT, INT, FLOAT, VOIDP]
+    runs.argtypes = [VOIDP] * 8 + [LONG, INT, INT, INT, VOIDP]
     slots.restype = runs.restype = INT
     return slots, runs
 
 
 def _slots_stage(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img,
-                 want_rays):
-    """K3's per-slot kernel on CUDA tensors: (coef (..., K, 4), g_rays or None)."""
+                 want_coef: bool, want_rays: bool, want_mu: bool = False):
+    """K3's per-slot kernel on CUDA tensors: (coef (..., K, 4) or None,
+    g_rays or None, g_mu or None)."""
     K, d = idx.shape[-1], 0 if attrs is None else attrs.shape[1]
-    coef = torch.empty(idx.shape + (4,), dtype=torch.float32, device=rays.device)
-    g_rays = torch.empty_like(rays) if want_rays else None
+    empty = lambda shape, want: (torch.empty(shape, dtype=torch.float32, device=rays.device)
+                                 if want else None)
+    coef = empty(idx.shape + (4,), want_coef)
+    g_rays, g_mu = empty(rays.shape, want_rays), empty(rays.shape, want_mu)
     err = _kernels()[0](
         ptr(rays), ptr(table), ptr(idx), ptr(length), ptr(act), ptr(dsd), ptr(w),
-        *(ptr(g) for g in grads), ptr(attrs), ptr(g_img), ptr(coef), ptr(g_rays),
+        *(ptr(g) for g in grads), ptr(attrs), ptr(g_img), ptr(coef), ptr(g_rays), ptr(g_mu),
         idx.numel() // K, table.shape[0], K, d, float(agg_ow), stream(rays.device))
     raise_on_error(err, "fine_bwd (per-slot kernel)")
-    return coef, g_rays
+    return coef, g_rays, g_mu
 
 
-def _runs_stage(rays, table, coef, w, g_img, order, starts):
-    """K3's per-Gaussian kernel on CUDA tensors: rows (B * P, 12 + d)."""
+def _runs_stage(rays, table, coef, w, g_img, order, starts, group: Optional[int] = None):
+    """K3's per-Gaussian kernel on CUDA tensors: rows (B * P, 12 + d), with
+    ``group`` lanes a Gaussian (None: :func:`group_width`)."""
     K, d = coef.shape[-2], 0 if g_img is None else g_img.shape[-1]
-    rows = torch.empty((table.shape[0], 12 + d), dtype=torch.float32, device=rays.device)
+    n_tab = table.shape[0]
+    if group is None:
+        group = group_width(coef.numel() // 4, n_tab)
+    rows = torch.empty((n_tab, 12 + d), dtype=torch.float32, device=rays.device)
     err = _kernels()[1](
         ptr(table), ptr(rays), ptr(coef), ptr(w), ptr(g_img), ptr(order), ptr(starts),
-        ptr(rows), table.shape[0], K, d, stream(rays.device))
+        ptr(rows), n_tab, K, d, int(group), stream(rays.device))
     raise_on_error(err, "fine_bwd (per-Gaussian kernel)")
     return rows
 
 
-def _launch(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img, want_rays):
+def _launch(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img, want_rays,
+            want_mu=False):
     """K3 on CUDA tensors: the per-slot kernel, the grouping of each
     Gaussian's slots into a run in slot order (:func:`slot_runs`), the
-    per-Gaussian kernel."""
+    per-Gaussian kernel.  (rows, g_rays or None, g_mu or None)."""
     n_tab, _, _ = _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img)
-    coef, g_rays = _slots_stage(rays, table, idx, length, act, dsd, w, grads, agg_ow,
-                                attrs, g_img, want_rays)
+    coef, g_rays, g_mu = _slots_stage(rays, table, idx, length, act, dsd, w, grads, agg_ow,
+                                      attrs, g_img, True, want_rays, want_mu)
     order, starts = slot_runs(idx, n_tab)
-    return _runs_stage(rays, table, coef, w, g_img, order, starts), g_rays
+    return _runs_stage(rays, table, coef, w, g_img, order, starts), g_rays, g_mu
 
 
 def fine_bwd(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
              agg_ow: float, attrs: Optional[torch.Tensor] = None,
-             g_img: Optional[torch.Tensor] = None, want_rays: bool = True):
+             g_img: Optional[torch.Tensor] = None, want_rays: bool = True,
+             return_mu: bool = False):
     """Backward of the select (K2) over the emission-compacted rows, with the
     fused attribute image's VJP.
 
@@ -304,18 +367,22 @@ def fine_bwd(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
     :param attrs, g_img: (B * P, d) attributes indexed by id and the
         (B, H, W, d) cotangent of the fused attribute image, or both None
     :param want_rays: compute the ray gradient (else skip that reduction)
+    :param return_mu: also return each ray's slots' mean gradients summed in
+        slot order (minus their sum over an image is its camera centre's
+        gradient)
     :return: (rows (B * P, 12 + d) float32 per Gaussian: grad mu (3), grad
         Lambda (9, row-major), grad attrs (d), summed over the slots that hold
-        it; g_rays (B, H, W, 3) float32 or None)
+        it; g_rays (B, H, W, 3) float32 or None), and with ``return_mu`` g_mu
+        (B, H, W, 3) float32 third
     """
     grads = (g_len, g_act, g_dsd, g_w)
     if not on_cuda(rays, table, idx, length, act, dsd, w, *grads, attrs, g_img):
         return fine_bwd_plain(rays, table, idx, length, act, dsd, w, *grads, agg_ow,
-                              attrs, g_img, want_rays)
+                              attrs, g_img, want_rays, return_mu)
     out = _launch(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img,
-                  want_rays)
+                  want_rays, return_mu)
     fine_bwd.launches += 1
-    return out
+    return out if return_mu else out[:2]
 
 
 fine_bwd.launches = 0
@@ -336,55 +403,25 @@ def fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
     out = _launch(rays, table, idx, length, act, dsd, w, grads, agg_ow, None, None,
                   want_rays)
     fine_bwd_global.launches += 1
-    return out
+    return out[:2]
 
 
 fine_bwd_global.launches = 0
 
 
-def _split_slots(table, idx, length, dsd, g_len, g_act, g_dsd):
-    """What the plain halves share: each slot's feature row (..., K, 16), its
-    coefficients (g_d, c = g_len / dsd, g_a, l), each (..., K, 1) and zero
-    where the slot holds no row of the table, and its segment id (the dump
-    row ``n_tab`` for such slots)."""
-    n_tab = table.shape[0]
-    zero = lambda g: torch.zeros_like(length) if g is None else g
-    ok = (idx >= 0) & (idx < n_tab)
-    vf = ok.to(length.dtype)
-    coefs = (zero(g_dsd) * vf, zero(g_len) / torch.where(ok, dsd, 1.0) * vf,
-             zero(g_act) * vf, torch.where(ok, length, 0.0))
-    seg = torch.where(ok, idx, n_tab).long()
-    feats = torch.cat([table, table.new_zeros((1, FEAT))])[seg]
-    return feats, tuple(c[..., None] for c in coefs), seg
-
-
 def fine_bwd_gauss_plain(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
-    """Plain version of the per-Gaussian half: dense tensor ops per slot and
-    a segmented sum (``index_add_``).  Same contract as :func:`fine_bwd_gauss`."""
-    n_tab, _ = _check_split(rays, table, idx, length, dsd, (g_len, g_act, g_dsd))
-    feats, coefs, seg = _split_slots(table, idx, length, dsd, g_len, g_act, g_dsd)
-    g_mu, g_L, _ = _slot_grads(feats, rays[..., None, :], *coefs, False)
-    vals = torch.cat([g_mu, g_L], dim=-1).reshape(-1, 12)
-    return vals.new_zeros((n_tab + 1, 12)).index_add_(0, seg.reshape(-1), vals)[:n_tab]
-
-
-def fine_bwd_rays_plain(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
-    """Plain version of the per-ray half: dense tensor ops per slot, summed
-    over each ray's slots.  Same contract as :func:`fine_bwd_rays`."""
-    _check_split(rays, table, idx, length, dsd, (g_len, g_act, g_dsd))
-    feats, coefs, _ = _split_slots(table, idx, length, dsd, g_len, g_act, g_dsd)
-    return _slot_grads(feats, rays[..., None, :], *coefs, True)[2].sum(-2)
-
-
-def _kernel_gauss():
-    fn = load("fine_bwd_split").voge_fine_bwd_gauss
-    fn.argtypes = [VOIDP] * 10 + [LONG, INT, VOIDP]
-    fn.restype = INT
-    return fn
+    """Plain version of the per-Gaussian half.  Same contract as
+    :func:`fine_bwd_gauss`."""
+    grads = (g_len, g_act, g_dsd, None)
+    _check_split(rays, table, idx, length, dsd, grads[:3])
+    return _plain(rays, table, idx, length, None, dsd, None, grads, 1.0, None, None,
+                  True, False, False)[0]
 
 
 def fine_bwd_gauss(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
-    """The per-Gaussian half of the select's global backward.
+    """The per-Gaussian half of the select's global backward: K3's per-slot
+    kernel with the fold and the ray gradient off (it packs each slot's
+    coefficients), the grouping of the slot ids, K3's per-Gaussian kernel.
 
     :param rays: (B, H, W, 3); :param table: (B * P, 16) feature rows,
         indexed by the slots' ids
@@ -398,13 +435,11 @@ def fine_bwd_gauss(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
     if not on_cuda(rays, table, idx, length, dsd, *grads):
         return fine_bwd_gauss_plain(rays, table, idx, length, dsd, *grads)
     n_tab, K = _check_split(rays, table, idx, length, dsd, grads)
-    # each Gaussian's slots as one run in slot order
+    _check_k(K, "fine_bwd_gauss")
+    coef, _, _ = _slots_stage(rays, table, idx, length, None, dsd, None, (*grads, None),
+                              1.0, None, None, True, False)
     order, starts = slot_runs(idx, n_tab)
-    rows = torch.empty((n_tab, 12), dtype=torch.float32, device=rays.device)
-    err = _kernel_gauss()(
-        ptr(rays), ptr(table), ptr(length), ptr(dsd), *(ptr(g) for g in grads),
-        ptr(order), ptr(starts), ptr(rows), n_tab, K, stream(rays.device))
-    raise_on_error(err, "fine_bwd_gauss")
+    rows = _runs_stage(rays, table, coef, None, None, order, starts)
     fine_bwd_gauss.launches += 1
     return rows
 
@@ -412,33 +447,45 @@ def fine_bwd_gauss(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
 fine_bwd_gauss.launches = 0
 
 
-def _kernel_rays():
-    fn = load("fine_bwd_split").voge_fine_bwd_rays
-    fn.argtypes = [VOIDP] * 9 + [LONG, LONG, INT, VOIDP]
-    fn.restype = INT
-    return fn
+def fine_bwd_rays_plain(rays, table, idx, length, dsd, g_len, g_act, g_dsd, *,
+                        act=None, w=None, g_w=None, agg_ow: float = 1.0, attrs=None,
+                        g_img=None, return_mu: bool = False):
+    """Plain version of the per-ray half, at any K.  Same contract as
+    :func:`fine_bwd_rays`."""
+    grads = (g_len, g_act, g_dsd, g_w)
+    _check_fold(rays, table, idx, length, act, dsd, w, grads, attrs, g_img)
+    _, g_rays, g_mu = _plain(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs,
+                             g_img, False, True, return_mu)
+    return (g_rays, g_mu) if return_mu else g_rays
 
 
-def fine_bwd_rays(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
-    """The per-ray half of the select's global backward.
+def fine_bwd_rays(rays, table, idx, length, dsd, g_len, g_act, g_dsd, *,
+                  act=None, w=None, g_w=None, agg_ow: float = 1.0, attrs=None,
+                  g_img=None, return_mu: bool = False):
+    """The per-ray half of the select's backward: one launch of K3's
+    per-slot kernel, which writes no coefficients.
 
     :param rays, table, idx, length, dsd, g_len, g_act, g_dsd: as for
         :func:`fine_bwd_gauss`
+    :param act, w, g_w, agg_ow, attrs, g_img: as for :func:`fine_bwd`; given
+        a weight cotangent ``g_w`` or attributes, the launch folds them into
+        the cotangents first (the backward of a frozen scene, in one launch)
+    :param return_mu: also return each ray's slots' mean gradients summed in
+        slot order
     :return: g_rays (B, H, W, 3) float32: each ray's gradient, summed over
-        its K slots in slot order
+        its K slots in slot order; with ``return_mu``, (g_rays, g_mu)
     """
-    grads = (g_len, g_act, g_dsd)
-    if not on_cuda(rays, table, idx, length, dsd, *grads):
-        return fine_bwd_rays_plain(rays, table, idx, length, dsd, *grads)
-    n_tab, K = _check_split(rays, table, idx, length, dsd, grads)
-    g_rays = torch.empty_like(rays)
-    err = _kernel_rays()(
-        ptr(rays), ptr(table), ptr(idx), ptr(length), ptr(dsd),
-        *(ptr(g) for g in grads), ptr(g_rays), idx.numel() // K, n_tab, K,
-        stream(rays.device))
-    raise_on_error(err, "fine_bwd_rays")
+    grads = (g_len, g_act, g_dsd, g_w)
+    if not on_cuda(rays, table, idx, length, act, dsd, w, *grads, attrs, g_img):
+        return fine_bwd_rays_plain(rays, table, idx, length, dsd, g_len, g_act, g_dsd,
+                                   act=act, w=w, g_w=g_w, agg_ow=agg_ow, attrs=attrs,
+                                   g_img=g_img, return_mu=return_mu)
+    _, K, _ = _check_fold(rays, table, idx, length, act, dsd, w, grads, attrs, g_img)
+    _check_k(K, "fine_bwd_rays")
+    _, g_rays, g_mu = _slots_stage(rays, table, idx, length, act, dsd, w, grads, agg_ow,
+                                   attrs, g_img, False, True, return_mu)
     fine_bwd_rays.launches += 1
-    return g_rays
+    return (g_rays, g_mu) if return_mu else g_rays
 
 
 fine_bwd_rays.launches = 0

@@ -37,7 +37,12 @@ two-stage tracer's second stage :func:`ray_tracing_fine`.
 
 The backward over the global space (the no-coarse path and the two-stage
 tracer) is :func:`global_backward`: K3's global entry, or for a frozen scene
-the fold's own entry and the per-ray half of ``csrc/fine_bwd_split.cu``.
+the per-ray half alone (``fine_bwd_rays``: one launch of K3's per-slot
+kernel, the fold fused in).  The compacted path's backward
+(``FineSelect``) takes the same route for a scene that needs no gradient:
+given the camera centres apart (``ray_tracing(origins=)``, as the renderer
+passes them), their gradient comes from the per-ray sums of that launch, so
+pose refinement groups no slots and sums no per-Gaussian rows.
 
 All backward paths are free of float atomics, so gradients repeat to the
 bit.  K above 128 is not ported yet and raises.
@@ -58,9 +63,7 @@ from voge_tpu_torch.ops.cuda_attr import AttrMerge
 from voge_tpu_torch.ops.cuda_fine import (
     FEAT, MAX_K, fine_select, fine_select_bins, fine_select_global,
 )
-from voge_tpu_torch.ops.cuda_fine_bwd import (
-    fine_bwd, fine_bwd_global, fine_bwd_rays, fold_weights,
-)
+from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd, fine_bwd_global, fine_bwd_rays
 
 def _ceil_to(x: int, m: int) -> int:
     return (x + m - 1) // m * m
@@ -220,16 +223,22 @@ def gather_back_rows(rows: torch.Tensor, dst) -> torch.Tensor:
 class FineSelect(torch.autograd.Function):
     """The select (K2) as an autograd node, counterpart of ``voge_tpu``'s
     ``_rt_fine_kern_c`` custom VJP.  Differentiable inputs: ``points``
-    (B, P, 3), ``isigmas`` (B, P, 3, 3), ``rays`` (B, H, W, 3) and ``attrs``
-    (B, P, d) or None; ``cand`` is the coarse stage's output.  The forward
-    builds the (B * P, 16) feature table and gathers the candidate rows from
-    it under no autograd, and runs K2; the backward runs K3 on the saved
-    table, whose per-Gaussian rows are the gradients.  The ray gradient (and
-    its reduction) is skipped when ``camera_grad`` is False or the rays need
-    no gradient."""
+    (B, P, 3), ``isigmas`` (B, P, 3, 3), ``rays`` (B, H, W, 3), ``attrs``
+    (B, P, d) or None, and ``origins`` (B, 3) or None: camera centres that
+    ``points`` were centred on outside autograd, whose gradient is minus the
+    sum of the points' gradient over each image; ``cand`` is the coarse
+    stage's output.  The forward builds the (B * P, 16) feature table and
+    gathers the candidate rows from it under no autograd, and runs K2.  The
+    backward runs K3 on the saved table, whose per-Gaussian rows are the
+    gradients, when the points, the precisions or the attributes need one;
+    else (a frozen scene) K3's per-ray half alone, one launch with the fold
+    fused, and nothing at all when nothing needs a gradient.  The origins'
+    gradient is summed per ray in K3's per-slot kernel on either route, so
+    it has the same bits on both.  The ray gradient (and its reduction) is
+    skipped when ``camera_grad`` is False or the rays need no gradient."""
 
     @staticmethod
-    def forward(ctx, points, isigmas, rays, attrs, cand, K, agg_ow, camera_grad):
+    def forward(ctx, points, isigmas, rays, attrs, origins, cand, K, agg_ow, camera_grad):
         table = feature_table(points, isigmas)
         table_c = _gather_candidates(table, cand.pos_c, points.shape[0])
         attr_rows = None
@@ -247,20 +256,36 @@ class FineSelect(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _g_idx, g_len, g_act, g_dsd, g_w, g_img=None):
         rays, table, attr_rows, idx, length, act, dsd, w = ctx.saved_tensors
-        want_rays = bool(ctx.camera_grad) and ctx.needs_input_grad[2]
-        cont = lambda g: None if g is None else g.contiguous()
+        needs = ctx.needs_input_grad
+        want_rays = bool(ctx.camera_grad) and needs[2]
+        want_origins = needs[4]
         if g_img is None:
             attr_rows = None
-        rows, g_rays = fine_bwd(
-            rays, table, idx, length, act, dsd, w, cont(g_len), cont(g_act),
-            cont(g_dsd), cont(g_w), ctx.agg_ow, attr_rows, cont(g_img), want_rays)
+        want_attrs = attr_rows is not None and needs[3]
+        cont = lambda g: None if g is None else g.contiguous()
+        grads = (cont(g_len), cont(g_act), cont(g_dsd), cont(g_w))
+        g_img = cont(g_img)
+        rows = g_rays = g_mu = None
+        if needs[0] or needs[1] or want_attrs:
+            out = fine_bwd(rays, table, idx, length, act, dsd, w, *grads, ctx.agg_ow,
+                           attr_rows, g_img, want_rays, return_mu=want_origins)
+            rows, g_rays = out[:2]
+            g_mu = out[2] if want_origins else None
+        elif want_rays or want_origins:
+            g_rays, g_mu = fine_bwd_rays(
+                rays, table, idx, length, dsd, *grads[:3], act=act, w=w, g_w=grads[3],
+                agg_ow=ctx.agg_ow, attrs=attr_rows, g_img=g_img, return_mu=True)
+            g_rays = g_rays if want_rays else None
         B = rays.shape[0]
-        rows = rows.reshape(B, -1, rows.shape[-1])
-        g_attrs = None
-        if attr_rows is not None and ctx.needs_input_grad[3]:
-            g_attrs = rows[..., 12:].reshape(ctx.attrs_shape)
-        return (rows[..., 0:3], rows[..., 3:12].reshape(B, -1, 3, 3), g_rays, g_attrs,
-                None, None, None, None)
+        g_points = g_isigmas = g_attrs = g_origins = None
+        if rows is not None:
+            rows = rows.reshape(B, -1, rows.shape[-1])
+            g_points, g_isigmas = rows[..., 0:3], rows[..., 3:12].reshape(B, -1, 3, 3)
+            if want_attrs:
+                g_attrs = rows[..., 12:].reshape(ctx.attrs_shape)
+        if want_origins:
+            g_origins = -g_mu.reshape(B, -1, 3).sum(1)
+        return (g_points, g_isigmas, g_rays, g_attrs, g_origins, None, None, None, None)
 
 
 def global_backward(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
@@ -275,12 +300,12 @@ def global_backward(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
       image (``fine.py:912-931``: the unified kernel's output block outgrows
       a TPU's VMEM); the card has no such limit, and on it the unified entry
       was as fast as or faster than the fold's entry followed by the two
-      halves of ``csrc/fine_bwd_split.cu``, with equal bits, at the 300K
-      cloud, the ShapeFitting and the two-stage shapes (PERF.md section 6).
+      halves, with equal bits, at the 300K cloud, the ShapeFitting and the
+      two-stage shapes (PERF.md section 6).
     - A frozen scene (``want_scene`` False: only the rays need a
-      gradient): ``fold_weights`` turns ``g_w`` into cotangents of len /
-      act / dsd, which join the incoming ones, and the per-ray half
-      ``fine_bwd_rays`` sums the ray gradient; no grouping of the slot ids.
+      gradient): the per-ray half ``fine_bwd_rays``, one launch that folds
+      ``g_w`` into the cotangents of len / act / dsd and sums the ray
+      gradient; no grouping of the slot ids.
 
     :return: (rows (B * P, 12) per Gaussian: grad mu (3), grad Lambda (9),
         or None when ``want_scene`` is False; g_rays (B, H, W, 3) or None)
@@ -292,11 +317,8 @@ def global_backward(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
                                g_dsd, g_w, agg_ow, want_rays)
     if not want_rays:
         return None, None
-    if g_w is not None:
-        folded = fold_weights(length, act, dsd, w, g_w, agg_ow)
-        g_len, g_act, g_dsd = (d if g is None else g + d
-                               for g, d in zip((g_len, g_act, g_dsd), folded))
-    return None, fine_bwd_rays(rays, table, idx, length, dsd, g_len, g_act, g_dsd)
+    return None, fine_bwd_rays(rays, table, idx, length, dsd, g_len, g_act, g_dsd,
+                               act=act, w=w, g_w=g_w, agg_ow=agg_ow)
 
 
 class FineSelectGlobal(torch.autograd.Function):
@@ -405,19 +427,25 @@ def ray_tracing(cameras_or_params, points: torch.Tensor, isigmas: torch.Tensor,
                 bin_size: Optional[int] = None,
                 max_points_per_bin: Optional[int] = None,
                 agg_ow: float = 1.0, attrs: Optional[torch.Tensor] = None,
-                camera_grad: bool = True):
+                camera_grad: bool = True, origins: Optional[torch.Tensor] = None):
     """Coarse + fine (reference ``RayTracing.py:12-30``), differentiable in
-    ``points``, ``isigmas``, ``rays`` and ``attrs``.
+    ``points``, ``isigmas``, ``rays``, ``attrs`` and ``origins``.
 
     :param cameras_or_params: a ``PerspectiveCameras`` or ``(R, T, focal,
         principal)``
-    :param points: (B, P, 3) camera-centred means; :param isigmas: (B, P, 3, 3)
+    :param points: (B, P, 3) camera-centred means, or world means when
+        ``origins`` is given; :param isigmas: (B, P, 3, 3)
     :param rays: (B, H, W, 3)
     :param max_points_per_bin: -1 for no coarse stage (the global path)
     :param agg_ow: occupation weight of the fused erf compositing
     :param attrs: optional (B, P, d) attributes composited in the select
         kernel (compacted path) or by the attribute merge (global path)
     :param camera_grad: False skips the ray gradient in the backward
+    :param origins: optional (B, 3) camera centres: ``points`` are centred
+        on them here.  On the compacted path their gradient is summed per ray
+        in the backward, so a scene that needs no gradient (pose refinement)
+        runs no per-Gaussian pass; with no coarse stage it flows through the
+        subtraction.
     :return: ((idx, len, act, dsd, w, img or None) in image layout
         (B, H, W, K) / (B, H, W, d), overflow_points (scalar int32 tensor))
     """
@@ -426,6 +454,8 @@ def ray_tracing(cameras_or_params, points: torch.Tensor, isigmas: torch.Tensor,
                                        max_points_per_bin)
     if mppb == -1:
         _check_k(n_assign)
+        if origins is not None:
+            points = points - origins[:, None, :]
         sel = FineSelectGlobal.apply(points, isigmas, rays.contiguous(),
                                      -math.log(thr + 1.0 / 1e10), int(n_assign),
                                      bs, float(agg_ow), bool(camera_grad))
@@ -435,13 +465,15 @@ def ray_tracing(cameras_or_params, points: torch.Tensor, isigmas: torch.Tensor,
             img = AttrMerge.apply(sel[4], a, sel[0])
         return tuple(sel) + (img,), torch.zeros((), dtype=torch.int32,
                                                 device=points.device)
+    if origins is not None:     # the centres' gradient comes from FineSelect
+        points = points - origins.detach()[:, None, :]
     if isinstance(cameras_or_params, tuple):
         cams = cameras_or_params
     else:
         cams = cameras_or_params.batched_params(points.shape[0])
     c = compact_candidates(*cams, points, isigmas, image_size, thr, n_assign,
                            bin_size, max_points_per_bin)
-    sel = FineSelect.apply(points, isigmas, rays.contiguous(), attrs, c,
+    sel = FineSelect.apply(points, isigmas, rays.contiguous(), attrs, origins, c,
                            int(n_assign), float(agg_ow), bool(camera_grad))
     if attrs is None:
         sel = tuple(sel) + (None,)

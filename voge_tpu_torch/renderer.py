@@ -185,22 +185,23 @@ def render_pipeline(
         rays, origins = cam_ctx.rays, cam_ctx.origins
     else:
         rays, origins = camera_rays(R, T, focal, principal, image_size)
-    points = verts - origins[:, None, :]
     if sigmas.ndim == 3:
-        sigmas = sigmas[None].expand((points.shape[0],) + sigmas.shape)
+        sigmas = sigmas[None].expand((verts.shape[0],) + sigmas.shape)
     isigma = 2.0 * (inv3x3(sigmas) if inverse_sigma else sigmas)
     attrs_b = None
     if attrs is not None:
         attrs_b = torch.as_tensor(attrs, device=dev).to(f32)
         if attrs_b.ndim == 2:
             attrs_b = attrs_b[None]
-        attrs_b = attrs_b.expand((points.shape[0],) + attrs_b.shape[1:])
+        attrs_b = attrs_b.expand((verts.shape[0],) + attrs_b.shape[1:])
 
+    # verts are centred on the cameras inside, so that a scene that needs no
+    # gradient (pose refinement) takes the backward's per-ray route
     (idx, length, _act, _dsd, weight, img), overflow = ray_tracing(
-        (R, T, focal, principal), points, isigma, rays, image_size,
+        (R, T, focal, principal), verts, isigma, rays, image_size,
         thr=thr_activation, n_assign=max_assign, bin_size=bin_size,
         max_points_per_bin=max_point_per_bin, agg_ow=float(absorptivity),
-        attrs=attrs_b, camera_grad=camera_grad,
+        attrs=attrs_b, camera_grad=camera_grad, origins=origins,
     )
     return Fragments(weight, idx, (idx >= 0).sum(-1), length,
                      overflow_points=overflow, attr_img=img)
