@@ -1,7 +1,8 @@
 """Drive the voge_tpu_torch render, its fitting step, the no-coarse
 ShapeFitting trainer, texture extraction, the two-stage public tracer, the
 point-cloud renders (100,000 points forward; 300,000 points forward +
-backward) and pose scoring / refinement on one NVIDIA GPU and check them.
+backward), pose scoring / refinement, the occlusion and B = 8 steps and the
+dense route above K = 128 on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -125,6 +126,24 @@ Run from the root of a checkout.  Phases:
        step's camera gradients (R, T and the four pose scalars) held to the
        plain path's and equal to the bit to K3 whole's;
      then the 1K forward against its golden file and the quickstart bounds;
+     then (phases 3k-3n, each printing its seconds) the occlusion step at
+     full width (``bench.py:140-186``: two cuboids, 6,778 Gaussians,
+     400x400, K = 60, ``max_point_per_bin=1500``, ``interpolate_attr`` and
+     the silhouette; K1, K2, K3, K3f, K4b): the capacity's ``m_min``
+     branch taken with the floor as the larger term (a spy), overflow 0,
+     two backward runs equal to the bit, the loss within 1e-5 and the
+     gradients within 1e-3 of ``voge_tpu``'s golden file, the selections'
+     digest (count and id sum a pixel) against it; the headline step at
+     B = 8 (``bench.py:324-361``, forward + backward) held the same way to
+     its golden file; the float64 oracle (``voge_tpu_torch.oracle``: the
+     dense route in float64 on the card) at the headline, against which the kernels' float32 gradients
+     and the headline golden file's are both measured; and K = 200 through
+     the dense route (no K2 or K3 launch; K3f, K4b and the grouped scatter
+     of its backward) on the 10K cuboid at 256x256 in both modes (thr 0.01
+     with the coarse stage, thr 1e-8 without) against the float64 oracle
+     on the card, and at 64x64 against ``voge_tpu``'s golden file (the
+     sigma gradient against the oracle: the file's float32 one is ~1.5e-3
+     off), with its peak memory; no render at K <= 128 takes that route;
   4. CUDA-event timings of the headline forward and fitting step, of the
      ShapeFitting step, of the texture chain (and its three stages, and K2
      there by K) and of the two-stage forward + backward on the
@@ -160,7 +179,12 @@ Run from the root of a checkout.  Phases:
      required: one read a render, two at the texture shapes, which
      re-emit), and the headline
      step, the texture chain, the 100K forward and pose scoring on either
-     route in turns.
+     route in turns; last, by ``voge_tpu_torch.timing`` with a profile of
+     each, the occlusion step, the headline step at B = 1 and B = 8 (the
+     per-frame ratio) and the K = 200 step in both modes.  Every step
+     median comes from ``voge_tpu_torch.timing`` (a pair of CUDA events a
+     call, one synchronisation at the end); the kernel table's times from
+     ``cuda_ms`` (a mean over back-to-back calls).
 
 Any failed check raises, so the exit code is nonzero.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it a JSON line of the
@@ -733,12 +757,351 @@ def cull_stats(rays, table, thr_act, bin_size):
                 passing_pairs=passing, glue_err=dict(cones=e_cone, u=e_u, q_rel=e_q))
 
 
+# ---- the occlusion and B = 8 steps, the dense route (K > 128) ----
+GOLDEN_OCC = DATA / "voge_tpu_golden_occlusion_400.npz"
+GOLDEN_B8 = DATA / "voge_tpu_golden_batch8_256.npz"
+GOLDEN_LK = DATA / "voge_tpu_golden_large_k_64.npz"
+OCC_HW, OCC_K, OCC_MPPB = (400, 400), 60, 1500   # occlusion (bench.py:140-186)
+OCC_COLORS = ([[0, 0.2, 1], [0, 0.2, 1], [0, 1, 0.2], [0, 1, 0.2], [0, 1, 1], [0, 1, 1]],
+              [[1, 0.2, 0], [1, 0.2, 0], [1, 1, 0], [1, 1, 0], [0.2, 1, 0], [0.2, 1, 0]])
+B8 = 8                                            # the headline at B = 8 (bench.py:324-361)
+LK_K = 200                                        # the dense route: K above MAX_K
+LK_MODES = {"coarse": (0.01, None), "no_coarse": (1e-8, -1)}   # mode -> (thr, max_point_per_bin)
+# the dense route against the float64 oracle on the card: values within 1e-4
+# on agreeing pixels, gradients within 1e-3 normwise (W_TOL, GOLD_GRAD_TOL)
+
+
+def occlusion_scene(dev):
+    """``bench.py:140-186``'s scene from the port's numpy ``cuboid_gauss``
+    (6,778 Gaussians), its cameras and colours."""
+    import voge_tpu_torch as vt
+
+    cg = vt.converter.Cuboid.cuboid_gauss
+    v0, s0, c0 = cg((-0.8, 0.8), (-0.4, 0.4), (-0.6, 0.6), 4000, colors=np.array(OCC_COLORS[0]),
+                    percentage=0.7)
+    v1, s1, c1 = cg((-1, 1), (-1, 1), (-0.3, 0.3), 3000, colors=np.array(OCC_COLORS[1]),
+                    percentage=0.7)
+    t = lambda x: torch.tensor(np.asarray(x).astype(np.float32), device=dev)
+    verts = t(np.concatenate([v0 + np.array([[0.5, 0, 1]]), v1], 0))
+    R, T = vt.look_at_view_transform(dist=5, elev=10, azim=20, device=dev)
+    cams = (R, T, torch.tensor([[300.0, 300.0]], device=dev),
+            torch.tensor([[200.0, 200.0]], device=dev))
+    return verts, t(np.concatenate([s0, s1], 0)), t(np.concatenate([c0, c1], 0)), cams
+
+
+def batch8_cams(dev, hw=(256, 256)):
+    import voge_tpu_torch as vt
+
+    R, T = vt.look_at_view_transform(dist=[6.0] * B8, elev=list(np.linspace(5, 25, B8)),
+                                     azim=list(np.linspace(50, 90, B8)), device=dev)
+    return (R, T, torch.full((B8, 2), 300.0, device=dev),
+            torch.tensor([[hw[1] / 2, hw[0] / 2]] * B8, device=dev))
+
+
+def digest_flips(idx, gold_valid, gold_ids):
+    """Share of pixels whose selections' digest (count, sum of ids) differs
+    from a golden file's."""
+    valid = (idx >= 0).sum(-1)
+    ids = torch.where(idx >= 0, idx, 0).long().sum(-1)
+    gv = torch.as_tensor(gold_valid.astype(np.int64), device=idx.device).reshape(valid.shape)
+    gi = torch.as_tensor(gold_ids.astype(np.int64), device=idx.device).reshape(ids.shape)
+    return 1.0 - ((valid == gv) & (ids == gi)).float().mean().item()
+
+
+def hold_golden(tag, loss, grads, gold, prefix="", oracle=None):
+    """The loss within GOLD_LOSS_TOL and each gradient within GOLD_GRAD_TOL
+    (normwise) of a golden file's; with ``oracle`` (float64 gradients on the
+    card) the sigma gradient is held to the oracle instead, and its distance
+    to the file printed (``voge_tpu``'s float32 sigma gradient is ~1.5e-3
+    from its float64 value where |mu| ~ 6)."""
+    e = {"loss": abs(loss - float(gold[prefix + "loss"])) / abs(float(gold[prefix + "loss"]))}
+    need(e["loss"] <= GOLD_LOSS_TOL, f"{tag} loss {loss} vs golden {float(gold[prefix + 'loss'])}")
+    for i, name in enumerate(("verts", "sigmas", "colors")):
+        x = grads[i]
+        need(bool(torch.isfinite(x).all()), f"{tag}: non-finite {name} gradient")
+        e[name] = rel(x.cpu().numpy(), gold[f"{prefix}grad_{name}"])
+        if oracle is not None and name == "sigmas":
+            e["sigmas_oracle"] = rel_t(x, oracle[i])
+            need(e["sigmas_oracle"] <= GOLD_GRAD_TOL,
+                 f"{tag}: sigma gradient vs the float64 oracle {e['sigmas_oracle']:.3e}")
+        else:
+            need(e[name] <= GOLD_GRAD_TOL, f"{tag}: {name} gradient vs golden {e[name]:.3e}")
+    return e
+
+
+def dense_step(verts, sigmas, cams, colors, hw, mode, f64=False):
+    """A K = 200 render in ``mode`` -> bench's loss -> its gradients
+    (``f64``: the float64 oracle, ``voge_tpu_torch.oracle.render``)."""
+    import voge_tpu_torch as vt
+
+    thr, mppb = LK_MODES[mode]
+    dt = torch.float64 if f64 else torch.float32
+    v, s, c = (x.detach().to(dt).requires_grad_(True) for x in (verts, sigmas, colors))
+    render = vt.oracle.render if f64 else vt.render_pipeline
+    frag = render(v, s, *cams, image_size=hw, max_assign=LK_K,
+                  thr_activation=thr, max_point_per_bin=mppb, attrs=c)
+    sil = vt.get_silhouette(frag)
+    loss = ((frag.attr_img - 0.5) ** 2).mean() + (sil ** 2).mean()
+    return frag, sil, loss, torch.autograd.grad(loss, (v, s, c))
+
+
+def cell_paths(dev, zero_counts, read_counts, add, details, head):
+    """The occlusion step and the headline step at B = 8 at full width, the
+    dense route at K = 200 and the float64 oracle (phases 3k-3n): each main
+    path with the launch counters set to 0 just before it and read just
+    after; returns what their timings take."""
+    import voge_tpu_torch as vt
+    from voge_tpu_torch.ops import dense_select, fine
+
+    state = {}
+    need(dense_select.calls == 0,
+         "a render at K <= 128 took the dense route on the earlier main paths")
+
+    # 3k. the occlusion step (bench.py:140-186): the m_min branch of the
+    # capacity heuristic, K3 at K = 60, K3f / K4b through interpolate_attr
+    t0 = time.perf_counter()
+    verts_o, sig_o, col_o, cams_o = occlusion_scene(dev)
+    ctx_o = vt.precompute_camera_ctx(*cams_o, OCC_HW, verts_o.shape[0], max_assign=OCC_K,
+                                     max_point_per_bin=OCC_MPPB)
+    picks = []
+    pick = fine._pick_m_max
+
+    def spy(*a):
+        picks.append((a, pick(*a)))
+        return picks[-1][1]
+
+    def occ_step(v):
+        leaves = [x.detach().requires_grad_(True) for x in (v, sig_o, col_o)]
+        frag = vt.render_pipeline(leaves[0], leaves[1], *cams_o, image_size=OCC_HW,
+                                  max_assign=OCC_K, max_point_per_bin=OCC_MPPB, cam_ctx=ctx_o)
+        img = vt.interpolate_attr(frag, leaves[2])
+        loss = ((img - 0.5) ** 2).mean() + (vt.get_silhouette(frag) ** 2).mean()
+        return frag, loss, leaves
+
+    gold = np.load(GOLDEN_OCC)
+    fine._pick_m_max = spy
+    try:
+        zero_counts()
+        with no_plain_version():
+            frag_o, loss_o, leaves = occ_step(verts_o)
+            gr = torch.autograd.grad(loss_o, leaves, retain_graph=True)
+            gr2 = torch.autograd.grad(loss_o, leaves)
+        add(read_counts("occlusion step", (*COARSE, "fine_select", "fine_bwd", "attr_merge",
+                                           "attr_merge_bwd")))
+    finally:
+        fine._pick_m_max = pick
+    (P_pad, bins, cc, m_min), m_out = picks[0]
+    heuristic = -(-max(256, 8 * P_pad // bins) // cc) * cc
+    need(len(picks) == 1 and m_min == 4 * OCC_MPPB and m_out > heuristic,
+         f"occlusion: the capacity's m_min branch was not the larger term: {picks}")
+    need(verts_o.shape[0] == 6778 and vt.get_overflow_points(frag_o) == 0 == int(gold["overflow"]),
+         "occlusion: overflow_points != 0 or not 6,778 Gaussians")
+    for a, b in zip(gr, gr2):
+        need(torch.equal(a, b), "occlusion: the gradients differ between two backward runs")
+    flips = digest_flips(frag_o.vert_index, gold["valid_num"], gold["id_sum"])
+    need(flips < FLIP_MAX, f"occlusion: selections' digest differs on {flips} of the pixels")
+    hist = torch.bincount(frag_o.valid_num.reshape(-1), minlength=OCC_K + 1).cpu().numpy()
+    e = hold_golden("occlusion", loss_o.item(), gr, gold)
+    print(f"phase 3k occlusion step (N={verts_o.shape[0]}, {OCC_HW[0]}x{OCC_HW[1]}, K={OCC_K}, "
+          f"max_point_per_bin={OCC_MPPB}): overflow 0, m_min branch (floor {m_min}, rows of "
+          f"{m_out} against the heuristic's {heuristic}), pixels at K {int(hist[-1])} (golden "
+          f"{int(gold['valid_hist'][-1])}), digest flips {flips:.2e}, two backward runs equal, vs "
+          "voge_tpu golden: " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+          + f"; {time.perf_counter() - t0:.1f} s")
+    details["occlusion"] = dict(e, flips=flips, m_min=m_min, rows=m_out, heuristic=heuristic,
+                                pixels_at_k=int(hist[-1]))
+    state["occlusion"] = lambda v: torch.autograd.grad(*occ_step(v)[1:])
+    state["occ_verts"] = verts_o
+
+    # 3l. the headline step at B = 8 (bench.py:324-361): K1, K2, K3 with B > 1
+    t0 = time.perf_counter()
+    g, _, colors = head["scene"]
+    cams8 = batch8_cams(dev)
+    ctx8 = vt.precompute_camera_ctx(*cams8, (256, 256), g.verts.shape[0], max_assign=20)
+
+    def b8_step(v):
+        leaves = [x.detach().requires_grad_(True) for x in (v, g.sigmas, colors)]
+        frag = vt.render_pipeline(leaves[0], leaves[1], *cams8, image_size=(256, 256),
+                                  max_assign=20, cam_ctx=ctx8, attrs=leaves[2])
+        return frag, bench_loss(frag), leaves
+
+    gold = np.load(GOLDEN_B8)
+    zero_counts()
+    with no_plain_version():
+        frag8, loss8, leaves = b8_step(g.verts)
+        gr = torch.autograd.grad(loss8, leaves, retain_graph=True)
+        gr2 = torch.autograd.grad(loss8, leaves)
+    add(read_counts("B = 8 step", (*COARSE, "fine_select", "fine_bwd")))
+    need(frag8.vert_index.shape[0] == B8 and vt.get_overflow_points(frag8) == 0,
+         "B = 8: overflow_points != 0")
+    for a, b in zip(gr, gr2):
+        need(torch.equal(a, b), "B = 8: the gradients differ between two backward runs")
+    flips = digest_flips(frag8.vert_index, gold["valid_num"], gold["id_sum"])
+    need(flips < FLIP_MAX, f"B = 8: selections' digest differs on {flips} of the pixels")
+    e = hold_golden("B = 8 step", loss8.item(), gr, gold)
+    print(f"phase 3l headline step at B = {B8} (P={g.verts.shape[0]}, 256x256, K=20): overflow 0, "
+          f"digest flips {flips:.2e}, two backward runs equal, vs voge_tpu golden: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+          + f"; {time.perf_counter() - t0:.1f} s")
+    details["batch8"] = dict(e, flips=flips)
+    state["b8"] = lambda v: torch.autograd.grad(*b8_step(v)[1:])
+
+    # 3m. the float64 oracle at the headline: the dense route in float64 on
+    # the card, against the kernels' float32 step and the golden file
+    t0 = time.perf_counter()
+    _, cams, _ = head["scene"]
+    fr32, l32, p32 = fitting_step(g, cams, colors, (256, 256))
+    g32 = torch.autograd.grad(l32, p32)
+    v, s, c = (x.detach().double().requires_grad_(True) for x in (g.verts, g.sigmas, colors))
+    fr64 = vt.oracle.render(v, s, *cams, image_size=(256, 256), max_assign=20, attrs=c)
+    l64 = bench_loss(fr64)
+    g64 = torch.autograd.grad(l64, (v, s, c))
+    gold = np.load(GOLDEN_GRAD["headline"])
+    agree = (fr64.vert_index == fr32.vert_index).all(-1)
+    flips = 1.0 - agree.float().mean().item()
+    need(flips < FLIP_MAX and vt.get_overflow_points(fr64) == 0,
+         f"headline: the float64 oracle's selections differ on {flips} of the pixels")
+    e = {"loss_port": abs(l32.item() - l64.item()) / l64.item(),
+         "loss_golden": abs(float(gold["loss"]) - l64.item()) / l64.item()}
+    for i, name in enumerate(("verts", "sigmas", "colors")):
+        e[f"{name}_port"] = rel_t(g32[i], g64[i])
+        e[f"{name}_golden"] = rel(gold[f"grad_{name}"], g64[i].cpu().numpy())
+        need(e[f"{name}_port"] <= GOLD_GRAD_TOL, f"headline {name}: port vs oracle "
+             f"{e[f'{name}_port']:.3e}")
+    print(f"phase 3m float64 oracle at the headline (the dense route in float64 on the card): "
+          f"selections flip on {flips:.2e} of the pixels against the kernels; normwise error "
+          "against it, port (float32 kernels) / voge_tpu golden file: " + ", ".join(
+              f"{n} {e[n + '_port']:.4e} / {e[n + '_golden']:.4e}"
+              for n in ("loss", "verts", "sigmas", "colors"))
+          + f"; {time.perf_counter() - t0:.1f} s")
+    details["oracle_headline"] = dict(e, flips=flips)
+
+    # 3n. K = 200: the dense route (voge_tpu's XLA select) at 256x256 in both
+    # modes against the float64 oracle on the card, and at 64x64 against
+    # voge_tpu's golden file
+    gold = np.load(GOLDEN_LK)
+    state["dense"] = {}
+    for hw, focal in (((256, 256), 300.0), ((64, 64), 75.0)):
+        gk, camk, colk = scene(10000, hw, focal, dev)
+        for mode in LK_MODES:
+            t0 = time.perf_counter()
+            zero_counts()
+            dense_select.calls = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with no_plain_version():
+                frag, sil, loss, grads = dense_step(gk.verts, gk.sigmas, camk, colk, hw, mode)
+            torch.cuda.synchronize()
+            peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+            counts = read_counts(f"K = {LK_K} {mode} {hw[0]}x{hw[1]}",
+                                 ("attr_merge", "attr_merge_bwd", "attr_scatter", "slot_runs"))
+            add(counts)
+            need(dense_select.calls == 1 and all(
+                counts[k] == 0 for k in ("fine_select", "fine_select_global", "fine_bwd",
+                                         "fine_bwd_global", *COARSE_KERNELS)),
+                 f"K = {LK_K} {mode}: the route was not the dense one alone")
+            need(vt.get_overflow_points(frag) == 0, f"K = {LK_K} {mode}: overflow_points != 0")
+            past = int((frag.valid_num > 128).sum())
+            o_frag, o_sil, o_loss, o_grads = dense_step(gk.verts, gk.sigmas, camk, colk, hw, mode,
+                                                        f64=True)
+            agree = (frag.vert_index == o_frag.vert_index).all(-1)
+            flips = 1.0 - agree.float().mean().item()
+            need(flips < FLIP_MAX, f"K = {LK_K} {mode}: {flips} of the pixels flip against the oracle")
+            e = {"flips_oracle": flips}
+            for name, a, b in (("w", frag.vert_weight, o_frag.vert_weight),
+                               ("img", frag.attr_img, o_frag.attr_img), ("sil", sil, o_sil)):
+                e[name] = (a.double()[agree] - b[agree]).abs().max().item()
+                need(e[name] <= W_TOL, f"K = {LK_K} {mode}: {name} vs oracle {e[name]:.3e}")
+            for i, name in enumerate(("verts", "sigmas", "colors")):
+                e[f"grad_{name}"] = rel_t(grads[i], o_grads[i])
+                need(e[f"grad_{name}"] <= GOLD_GRAD_TOL,
+                     f"K = {LK_K} {mode}: grad {name} vs oracle {e[f'grad_{name}']:.3e}")
+            if hw == (64, 64):
+                pre = f"{mode}_"
+                need(past == int((gold[pre + "valid_num"] > 128).sum()) > 0,
+                     f"K = {LK_K} {mode}: pixels past 128 hits differ from the golden file")
+                gflips = digest_flips(frag.vert_index, gold[pre + "valid_num"], gold[pre + "id_sum"])
+                need(gflips < FLIP_MAX, f"K = {LK_K} {mode}: digest flips {gflips} against golden")
+                same = torch.as_tensor(
+                    (gold[pre + "valid_num"] == frag.valid_num[0].cpu().numpy()), device=dev)
+                for name, a in (("attr_img", frag.attr_img[0]), ("silhouette", sil[0])):
+                    ref = torch.as_tensor(gold[pre + name], device=dev)
+                    e[f"golden_{name}"] = (a - ref)[same].abs().max().item()
+                    need(e[f"golden_{name}"] <= W_TOL, f"K = {LK_K} {mode}: {name} vs golden")
+                e.update({f"golden_{k}": v for k, v in hold_golden(
+                    f"K = {LK_K} {mode}", loss.item(), grads, gold, pre, o_grads).items()})
+                e["golden_flips"] = gflips
+            else:
+                state["dense"][mode] = (gk, camk, colk)
+            print(f"phase 3n K = {LK_K} {mode} {hw[0]}x{hw[1]}: route dense (one dense select, "
+                  f"no K2 / K3 launch), pixels past 128 hits {past}, peak memory {peak:.2f} GiB "
+                  "above the inputs, vs the float64 oracle on the card"
+                  + (" and voge_tpu's golden file" if hw == (64, 64) else "") + ": "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+                  + f"; {time.perf_counter() - t0:.1f} s")
+            details[f"dense_{mode}_{hw[0]}"] = dict(e, past_128=past, peak_gib=peak)
+    dense_select.calls = 0
+    return state
+
+
+def cell_timings(dev, state, head, profiled, details):
+    """Medians and spreads of the new cells by ``voge_tpu_torch.timing``
+    (distinct inputs, a pair of CUDA events a call), their device time and
+    the device's busy share from a profile of five steps."""
+    import voge_tpu_torch as vt
+    from voge_tpu_torch import timing
+
+    t0 = time.perf_counter()
+    g, cams, colors = head["scene"]
+    ctx = vt.precompute_camera_ctx(*cams, (256, 256), g.verts.shape[0], max_assign=20)
+
+    def b1_step(v):
+        leaves = [x.detach().requires_grad_(True) for x in (v, g.sigmas, colors)]
+        frag = vt.render_pipeline(leaves[0], leaves[1], *cams, image_size=(256, 256),
+                                  max_assign=20, cam_ctx=ctx, attrs=leaves[2])
+        return torch.autograd.grad(bench_loss(frag), leaves)
+
+    verts_o = state["occ_verts"]
+    dense = state["dense"]
+
+    def dense_fn(mode):
+        gk, camk, colk = dense[mode]
+        return lambda v: dense_step(v, gk.sigmas, camk, colk, (256, 256), mode)[3]
+
+    dense_verts = lambda mode: (lambda i: (dense[mode][0].verts * (1.0 + 1e-5 * i),))
+
+    cells = {"occlusion_step": (state["occlusion"], lambda i: (verts_o * (1.0 + 1e-4 * i),), 10),
+             "headline_step_b1": (b1_step, lambda i: (g.verts * (1.0 + 1e-5 * i),), 20),
+             "headline_step_b8": (state["b8"], lambda i: (g.verts * (1.0 + 1e-5 * i),), 10),
+             "dense_k200_coarse_step": (dense_fn("coarse"), dense_verts("coarse"), 5),
+             "dense_k200_no_coarse_step": (dense_fn("no_coarse"), dense_verts("no_coarse"), 3)}
+    out = {}
+    for name, (fn, args_fn, n) in cells.items():
+        st = timing.measure_stats(fn, args_fn=args_fn, n=n, warmup=1, device=dev)
+        ms = st["median"] * 1e3
+        prof = profiled(name, fn, [args_fn(100 + i)[0] for i in range(3 if n < 10 else 5)], ms,
+                        f"profile_{name}.txt")
+        out[name] = dict(median_ms=ms, spread=st["spread"], iqr_spread=st["iqr_spread"],
+                         min_ms=min(st["estimates"]) * 1e3, max_ms=max(st["estimates"]) * 1e3,
+                         n=n, device_ms=prof["device_ms_per_step"],
+                         busy_share=prof["device_busy_share"])
+        print(f"{name} (timing.py): median {ms:.3f} ms, spread {st['spread']:.3f}, iqr spread "
+              f"{st['iqr_spread']:.3f}, n={n}; device {prof['device_ms_per_step']:.3f} ms, busy "
+              f"{prof['device_busy_share']:.3f}")
+    ratio = out["headline_step_b8"]["median_ms"] / B8 / out["headline_step_b1"]["median_ms"]
+    print(f"headline step per frame, B = 8 over B = 1: {ratio:.3f} "
+          f"({out['headline_step_b8']['median_ms'] / B8:.3f} ms a frame against "
+          f"{out['headline_step_b1']['median_ms']:.3f}); {time.perf_counter() - t0:.1f} s")
+    details["cell_timings"] = dict(out, b8_per_frame_ratio=ratio)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device visible; the port's checks run only on a GPU")
     sys.path.insert(0, str(ROOT))
     import voge_tpu_torch as vt
-    from voge_tpu_torch import _build
+    from voge_tpu_torch import _build, timing
     from voge_tpu_torch.ops import coarse, fine
     from voge_tpu_torch.ops.cuda_attr import (
         attr_dw, attr_dw_plain, attr_merge, attr_merge_bwd, attr_merge_bwd_plain,
@@ -1430,6 +1793,8 @@ def main():
     torch.cuda.synchronize()
 
     # ---- 3. the main paths --------------------------------------------
+    from voge_tpu_torch.ops import dense_select
+    dense_select.calls = 0     # no render at K <= 128 takes the dense route
     g, cams, colors = head["scene"]
     R, T, focal, principal = cams
     hw = (256, 256)
@@ -1906,6 +2271,8 @@ def main():
     details["pose"] = dict(scores=sc_k.tolist(), score_err=e_sc, pose_err=e_po,
                            pose=pose_k.tolist(), similarity=sim_k, grad_err=pose_grad_err)
 
+    cells_state = cell_paths(dev, zero_counts, read_counts, add, details, head)
+
     # ---- 4. timings -----------------------------------------------------
     inputs = [g.verts.detach() * (1.0 + 1e-5 * i) for i in range(24)]
     sig = g.sigmas.detach()
@@ -1923,15 +2290,13 @@ def main():
         return torch.autograd.grad(bench_loss(frag), (v, s, c))
 
     def timed(fn, vs):
-        out = []
-        for v in vs:
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn(v)
-            b.record()
-            torch.cuda.synchronize()
-            out.append(a.elapsed_time(b))
-        return out
+        """Milliseconds of each call ``fn(v)`` over the inputs ``vs``, by
+        ``voge_tpu_torch.timing`` (a pair of CUDA events a call, one
+        synchronisation after the last)."""
+        vs = list(vs)
+        st = timing.measure_stats(fn, args_list=[(v,) for v in vs], n=len(vs), warmup=0,
+                                  device=dev)
+        return [t * 1e3 for t in st["estimates"]]
 
     def in_turns(label, fn, batches):
         """Time ``fn`` on the plain, kernel, kernel and plain path, one batch
@@ -2583,6 +2948,8 @@ def main():
     details["profile_pose_refine"] = profiled(
         "pose refine step", pose_refine, range(5),
         details["pose_refine_step"]["kernel"]["median_ms"], "profile_pose_refine.txt")
+
+    cell_timings(dev, cells_state, head, profiled, details)
 
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(details, indent=1))
     print(f"nvidia-smi: {smi_line()}")

@@ -1336,3 +1336,142 @@ def test_slot_runs_checks_its_inputs(dev):
             slot_runs(idx, n_rows)
     with pytest.raises(ValueError):
         slot_runs(idx[:0], 10)
+
+
+# ---- the dense route, the B = 8 and occlusion steps, timing ----------------
+
+def _k200_step(verts, sigmas, colors, cams, mode, f64=False):
+    """The K = 200 render in ``mode`` (thr 0.01 with the coarse stage, or
+    thr 1e-8 without one), bench's loss and its gradients (``f64``: the
+    float64 oracle)."""
+    thr, mppb = {"coarse": (0.01, None), "no_coarse": (1e-8, -1)}[mode]
+    dt = torch.float64 if f64 else torch.float32
+    v, s, c = (x.detach().to(dt).requires_grad_(True) for x in (verts, sigmas, colors))
+    render = vt.oracle.render if f64 else vt.render_pipeline
+    frag = render(v, s, *cams, image_size=(48, 48), max_assign=200, thr_activation=thr,
+                  max_point_per_bin=mppb, attrs=c)
+    loss = ((frag.attr_img - 0.5) ** 2).mean() + (vt.get_silhouette(frag) ** 2).mean()
+    return frag, loss, torch.autograd.grad(loss, (v, s, c))
+
+
+@pytest.mark.parametrize("mode", ["coarse", "no_coarse"])
+def test_dense_route_on_the_card_matches_its_cpu_result(dev, mode):
+    """K = 200 on the 10K cuboid at 48x48: the dense route on the card (its
+    select in torch ops, K3f / K4b and the grouped scatter in the backward)
+    against the same route on the CPU: selections equal but for knife-edge
+    pixels, weights and image within 1e-4, gradients within 1e-4 of their
+    largest entry; two backward runs equal to the bit; pixels past 128
+    hits; the float64 oracle on the card agrees with the float32 route."""
+    g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 10000, percentage=0.6,
+                                         as_obj=True, device="cpu")
+    R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70, device="cpu")
+    cams = (R, T, torch.tensor([[56.25, 56.25]]), torch.tensor([[24.0, 24.0]]))
+    colors = (g.verts.detach() + 1) / 3
+    cpu = _k200_step(g.verts, g.sigmas, colors, cams, mode)
+    on = lambda xs: tuple(x.to(dev) for x in xs)
+    gpu = _k200_step(*on((g.verts, g.sigmas, colors)), on(cams), mode)
+    again = _k200_step(*on((g.verts, g.sigmas, colors)), on(cams), mode)
+    assert all(torch.equal(a, b) for a, b in zip(gpu[2], again[2]))
+    assert (gpu[0].valid_num > 128).any()
+    agree = (gpu[0].vert_index.cpu() == cpu[0].vert_index).all(-1)
+    assert 1.0 - agree.float().mean().item() < 1e-3
+    for a, b in ((gpu[0].vert_weight, cpu[0].vert_weight), (gpu[0].attr_img, cpu[0].attr_img)):
+        assert (a.detach().cpu()[agree] - b.detach()[agree]).abs().max().item() <= 1e-4
+    for a, b in zip(gpu[2], cpu[2]):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4 * b.abs().max().item()
+    o64 = _k200_step(*on((g.verts, g.sigmas, colors)), on(cams), mode, f64=True)
+    assert (o64[0].vert_index == gpu[0].vert_index).all(-1).float().mean().item() > 0.999
+    for a, b in zip(gpu[2], o64[2]):
+        assert ((a.double() - b).norm() / b.norm()).item() < 1e-3
+
+
+def test_k_above_128_stays_off_the_kernels_and_k128_off_the_dense_route(dev, monkeypatch):
+    """On the card a render at K = 200 runs the dense route (no K2), one at
+    K = 128 the select kernel (no dense route)."""
+    from voge_tpu_torch.ops import dense_select
+
+    calls = []
+    orig = dense_select.fine_forward
+    monkeypatch.setattr(dense_select, "fine_forward",
+                        lambda *a, **k: (calls.append(1), orig(*a, **k))[1])
+    g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 1000, percentage=0.6,
+                                         as_obj=True, device=dev)
+    R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70, device=dev)
+    cams = (R, T, torch.tensor([[60.0, 60.0]], device=dev), torch.tensor([[20.0, 20.0]], device=dev))
+    for K, want in ((128, []), (200, [1])):
+        calls.clear()
+        fine_select.launches = 0
+        vt.render_pipeline(g.verts, g.sigmas, *cams, image_size=(40, 40), max_assign=K)
+        assert calls == want and (fine_select.launches > 0) == (K <= 128)
+
+
+def _batch8_step(dev, verts, sigmas, colors):
+    R, T = vt.look_at_view_transform(dist=[6.0] * 8, elev=list(np.linspace(5, 25, 8)),
+                                     azim=list(np.linspace(50, 90, 8)), device=dev)
+    f = torch.full((8, 2), 56.25, device=dev)
+    pp = torch.full((8, 2), 24.0, device=dev)
+    ctx = vt.precompute_camera_ctx(R, T, f, pp, (48, 48), verts.shape[0])
+    v, s, c = (x.detach().requires_grad_(True) for x in (verts, sigmas, colors))
+    frag = vt.render_pipeline(v, s, R, T, f, pp, image_size=(48, 48), max_assign=20,
+                              cam_ctx=ctx, attrs=c)
+    loss = ((frag.attr_img - 0.5) ** 2).mean() + (vt.get_silhouette(frag) ** 2).mean()
+    return loss, torch.autograd.grad(loss, (v, s, c))
+
+
+def test_batch8_step_repeats_to_the_bit_and_matches_the_plain_path(dev):
+    """The headline step at B = 8 (1K cuboid, the bench's eight cameras,
+    48x48): two runs equal to the bit, the gradients within 1e-4 of the
+    plain path's largest entry (the same step on CPU tensors)."""
+    g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 1000, percentage=0.6,
+                                         as_obj=True, device=dev)
+    colors = (g.verts.detach() + 1) / 3
+    a = _batch8_step(dev, g.verts, g.sigmas, colors)
+    b = _batch8_step(dev, g.verts, g.sigmas, colors)
+    assert torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    p = _batch8_step(torch.device("cpu"), *(x.detach().cpu() for x in (g.verts, g.sigmas, colors)))
+    assert abs(a[0].item() - p[0].item()) <= 1e-5 * abs(p[0].item())
+    for x, y in zip(a[1], p[1]):
+        assert (x.cpu() - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+
+
+def test_occlusion_step_repeats_to_the_bit(dev):
+    """The occlusion step (two cuboids, 400 + 300 requested, 160x160, focal
+    120, K = 60, ``max_point_per_bin=200``: the ``m_min`` branch) on the
+    card: two backward runs equal to the bit, overflow 0, the gradients
+    within 1e-4 of the plain path's largest entry."""
+    C0 = [[0, 0.2, 1], [0, 0.2, 1], [0, 1, 0.2], [0, 1, 0.2], [0, 1, 1], [0, 1, 1]]
+    C1 = [[1, 0.2, 0], [1, 0.2, 0], [1, 1, 0], [1, 1, 0], [0.2, 1, 0], [0.2, 1, 0]]
+    cg = vt.converter.Cuboid.cuboid_gauss
+    v0, s0, c0 = cg((-0.8, 0.8), (-0.4, 0.4), (-0.6, 0.6), 400, colors=np.array(C0), percentage=0.7)
+    v1, s1, c1 = cg((-1, 1), (-1, 1), (-0.3, 0.3), 300, colors=np.array(C1), percentage=0.7)
+    arrs = (np.concatenate([v0 + np.array([[0.5, 0, 1]]), v1]), np.concatenate([s0, s1]),
+            np.concatenate([c0, c1]))
+
+    def step(d):
+        v, s, c = (torch.tensor(x, dtype=torch.float32, device=d, requires_grad=True)
+                   for x in arrs)
+        R, T = vt.look_at_view_transform(dist=5, elev=10, azim=20, device=d)
+        cams = (R, T, torch.tensor([[120.0, 120.0]], device=d), torch.tensor([[80.0, 80.0]], device=d))
+        frag = vt.render_pipeline(v, s, *cams, image_size=(160, 160), max_assign=60,
+                                  max_point_per_bin=200)
+        assert vt.get_overflow_points(frag) == 0
+        img = vt.interpolate_attr(frag, c)
+        loss = ((img - 0.5) ** 2).mean() + (vt.get_silhouette(frag) ** 2).mean()
+        return torch.autograd.grad(loss, (v, s, c))
+
+    a, b, p = step(dev), step(dev), step(torch.device("cpu"))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    for x, y in zip(a, p):
+        assert (x.cpu() - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+
+
+def test_timing_uses_cuda_events_on_card_tensors(dev):
+    from voge_tpu_torch import timing
+
+    x = torch.randn(1 << 20, device=dev)
+    seen = []
+    out = timing.measure_stats(lambda a: (a * 2).sum(), n=5,
+                               args_fn=lambda i: (seen.append(i), (x + i,))[1])
+    assert set(out) == {"median", "estimates", "spread", "iqr_spread"}
+    assert seen == list(range(6)) and len(out["estimates"]) == 5
+    assert all(0 < e < 1 for e in out["estimates"])

@@ -209,6 +209,14 @@ def test_default_device_is_the_card(tmp_path, monkeypatch):
             converters.naive_point_cloud_converter(verts), knn_points[-1])[1],
         "to_gaussian_mesh": lambda: converters.to_gaussian_mesh(
             converters.fixed_pointcloud_converter, radius=0.01)(verts).verts,
+        "get_projection_transform": lambda: vt.CameraOP.get_projection_transform(
+            focal, principal),
+        "world_to_view": lambda: vt.cameras.world_to_view(verts[None], R[:1], T[:1]),
+        "view_to_screen": lambda: vt.cameras.view_to_screen(verts[None], focal[:1],
+                                                            principal[:1]),
+        "get_ray_camera_space": lambda: vt.aggregation.get_ray_camera_space(
+            (4, 5), principal[0], focal[0]),
+        "expand_isigmas": lambda: vt.ops.dense.expand_isigmas(2.0, 4),
     }
     for name, call in calls.items():
         try:
@@ -221,6 +229,8 @@ def test_default_device_is_the_card(tmp_path, monkeypatch):
     assert vt.PerspectiveCameras(R=torch.as_tensor(R)).device.type == "cpu"
     assert vt.GaussianMeshes(torch.as_tensor(verts), torch.as_tensor(sig)).verts.device.type == "cpu"
     assert vt.look_at_view_transform(dist=torch.tensor([3.0]))[0].device.type == "cpu"
+    assert vt.cameras.world_to_view(torch.as_tensor(verts)[None], R[:1], T[:1]).device.type == "cpu"
+    assert vt.CameraOP.get_projection_transform(torch.as_tensor(focal), principal).device.type == "cpu"
     f = vt.ShapeFitter({"verts": torch.as_tensor(verts)}, {"sigmas": sig}, image_size=(8, 8),
                        focal=focal[0], principal=principal[0])
     assert f.device.type == "cpu" and f.fixed["sigmas"].device.type == "cpu"

@@ -262,14 +262,26 @@ def test_backward_repeats_to_the_bit():
 
 
 def test_paths_not_ported_raise():
+    """K above 128 renders through the dense route (``voge_tpu``'s XLA
+    select), and only the compacted candidates, which feed the select
+    kernel, still refuse it."""
     g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 100,
                                          percentage=0.6, as_obj=True, device="cpu")
     R, T = vt.look_at_view_transform(dist=6, elev=10, azim=70, device="cpu")
     args = (g.verts, g.sigmas, R, T, torch.tensor([[30.0, 30.0]]), torch.tensor([[16.0, 16.0]]))
     for mppb in (None, -1):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            vt.render_pipeline(*args, image_size=(32, 32), max_assign=129,
-                               max_point_per_bin=mppb)
+        f129 = vt.render_pipeline(*args, image_size=(32, 32), max_assign=129,
+                                  max_point_per_bin=mppb)
+        f128 = vt.render_pipeline(*args, image_size=(32, 32), max_assign=128,
+                                  max_point_per_bin=mppb)
+        assert f129.vert_index.shape[-1] == 129
+        assert torch.equal(f129.vert_index[..., :128], f128.vert_index)
+        assert vt.get_overflow_points(f129) == 0
+    from voge_tpu_torch.ops import fine as tfine
+    from voge_tpu_torch.aggregation import expend_sigma
+    with pytest.raises(NotImplementedError, match="K <= 128"):
+        tfine.compact_candidates(R, T, args[4], args[5], g.verts[None],
+                                 2.0 * expend_sigma(g.sigmas)[None], (32, 32), 0.01, 129)
     # no coarse stage renders now, and culls nothing
     frag = vt.render_pipeline(*args, image_size=(32, 32), max_point_per_bin=-1)
     assert vt.get_overflow_points(frag) == 0 and (frag.valid_num > 0).any()

@@ -279,6 +279,12 @@ def test_ray_tracing_fine_checks_its_arguments():
     mus, isig, rays, bp, hw = _fine_case()
     with pytest.raises(AssertionError):
         tops.ray_tracing_fine(t(mus)[None], t(isig), t(rays), t(bp), 0.01, 10, 4)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tops.ray_tracing_fine(t(mus), t(isig), t(rays), t(bp), 0.01, 10, 200)
+    # K above 128 takes the dense select (voge_tpu's XLA route): its first
+    # 128 slots are the K = 128 selection
+    big = tops.ray_tracing_fine(t(mus), t(isig), t(rays), t(bp), 0.01, 10, 200)
+    small = tops.ray_tracing_fine(t(mus), t(isig), t(rays), t(bp), 0.01, 10, 128)
+    assert big[0].shape[-1] == 200
+    assert torch.equal(big[0][..., :128], small[0])
+    for a, b in zip(big[1:], small[1:]):
+        torch.testing.assert_close(a[..., :128], b, rtol=1e-5, atol=1e-5)
     assert tfine.ray_tracing_fine is tops.ray_tracing_fine

@@ -17,6 +17,9 @@ from __future__ import annotations
 
 import torch
 
+# re-exported, as ``voge_tpu.aggregation`` does, for ``from VoGE.Aggregation import *`` users
+from voge_tpu_torch.rays import get_ray_camera_space  # noqa: F401
+
 _E_HALF = 1.6487212707001282  # exp(0.5)
 
 

@@ -188,3 +188,29 @@ def camera_centers(R: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """World-space camera centres C with ``C @ R + T = 0``, through an
     explicit inverse as the reference does (``RayTracing.py:45``)."""
     return -torch.einsum("bj,bji->bi", T, inv3x3(R))
+
+
+def world_to_view(points, R, T) -> torch.Tensor:
+    """``x_view = x_world @ R + T`` (row-vector convention); points (B, N, 3).
+    Arrays that are not tensors go to the device of a tensor among the
+    arguments, else the card (``_device.resolve_device``)."""
+    dev = resolve_device(None, points, R, T)
+    points, R, T = (torch.as_tensor(x, device=dev) for x in (points, R, T))
+    return torch.einsum("bnj,bji->bni", points, R) + T[:, None, :]
+
+
+def view_to_screen(points_view, focal, principal) -> torch.Tensor:
+    """Perspective projection to continuous pixel coordinates: (B, N, 3) of
+    (x_screen, y_screen, z_view); pixel (row i, column j) centres sit at
+    (j + 0.5, i + 0.5).  Devices as :func:`world_to_view`."""
+    dev = resolve_device(None, points_view, focal, principal)
+    points_view, focal, principal = (torch.as_tensor(x, device=dev)
+                                     for x in (points_view, focal, principal))
+    z = points_view[..., 2:3]
+    xy = principal[:, None, :] - points_view[..., 0:2] * focal[:, None, :] / z
+    return torch.cat([xy, z], dim=-1)
+
+
+def screen_to_ndc_scale(image_size) -> float:
+    """The NDC scale s = min(H, W): x_ndc = (W - 2 x_screen) / s."""
+    return float(min(image_size))

@@ -16,12 +16,12 @@ from voge_tpu_torch.converter.converters import (
     pytorch3d2gaussian,
     to_gaussian_mesh,
 )
-from voge_tpu_torch.converter.cuboid import cuboid_gauss
+from voge_tpu_torch.converter.cuboid import cuboid_gauss, cuboid_mesh
 from voge_tpu_torch.converter.io import load_goff, load_off, save_goff, save_off
 from voge_tpu_torch.converter.shapes import ico_sphere, load_obj, vertex_normals
 
 __all__ = ["ComposedConverter", "Converters", "Cuboid", "IO", "convert_path", "converters",
-           "cuboid_gauss", "fixed_pointcloud_converter", "get_vert_edge_length",
+           "cuboid_gauss", "cuboid_mesh", "fixed_pointcloud_converter", "get_vert_edge_length",
            "ico_sphere", "io", "load_goff", "load_obj", "load_off",
            "naive_point_cloud_converter", "naive_vertices_converter",
            "normal_mesh_converter", "pytorch3d2gaussian", "save_goff", "save_off",

@@ -69,3 +69,43 @@ def cuboid_gauss(x_range, y_range, z_range, number_vertices,
         )
         out = out + (out_colors,)
     return out[0] if len(out) == 1 else out
+
+
+def cuboid_mesh(x_range, y_range, z_range, number_vertices, colors=None,
+                as_obj: bool = False):
+    """Triangle-mesh cuboid for baselines (reference ``Cuboid.py:70-159``):
+    full grids on all six faces (each an independent triangulated patch, the
+    seams duplicated), two counter-wound triangles a grid quad.
+
+    :return: numpy (verts (N, 3), faces (F, 3) int [, colors (N, 3)]);
+        ``as_obj`` returns the same arrays (there is no mesh structure)
+    """
+    xs, ys, zs, _ = _grid_samples(x_range, y_range, z_range, number_vertices)
+
+    def quad_tris(an, bn, base):
+        """(v, v+1, v+bn) then (v+bn+1, v+1, v+bn) for v = base + m*bn + n,
+        quad-major."""
+        v = base + (np.arange(an - 1)[:, None] * bn + np.arange(bn - 1))
+        tri1 = np.stack([v, v + 1, v + bn], axis=-1)
+        tri2 = np.stack([v + bn + 1, v + 1, v + bn], axis=-1)
+        return np.stack([tri1, tri2], axis=2).reshape(-1, 3)
+
+    blocks = [
+        (_face_points(xs, ys, zs[0], "xyz"), ys.size, xs.size),
+        (_face_points(xs, ys, zs[-1], "xyz"), ys.size, xs.size),
+        (_face_points(xs, zs, ys[0], "xzy"), zs.size, xs.size),
+        (_face_points(xs, zs, ys[-1], "xzy"), zs.size, xs.size),
+        (_face_points(ys, zs, xs[0], "yzx"), zs.size, ys.size),
+        (_face_points(ys, zs, xs[-1], "yzx"), zs.size, ys.size),
+    ]
+    counts = [pts.shape[0] for pts, _, _ in blocks]
+    bases = np.cumsum([0] + counts[:-1])
+    verts = np.concatenate([pts for pts, _, _ in blocks], axis=0)
+    faces = np.concatenate([quad_tris(an, bn, base)
+                            for (_, an, bn), base in zip(blocks, bases)], axis=0)
+    if colors is not None:
+        out_colors = np.concatenate(
+            [np.repeat(np.asarray(c)[None, :], r, axis=0) for r, c in zip(counts, colors)],
+            axis=0)
+        return verts, faces, out_colors
+    return verts, faces

@@ -102,7 +102,8 @@ def _check_args(rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs):
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
             f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
-            "waits for the dense path (ROADMAP queue 1, item 6)")
+            "takes the dense route (ops.dense_select; kernels past 128: ROADMAP "
+            "queue 2, item 8)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     check(table_c, "table_c", torch.float32, (nb, M, FEAT))
     check(bits_c, "bits_c", torch.int32, (nb, M))
@@ -228,7 +229,7 @@ def fine_select(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
 
     :param rays: (B, H, W, 3) float32 unit world directions
     :param table_c: (nb, M, 16) float32 candidate feature rows of each
-        supertile (``ops.fine._gauss_feature_planes_batched`` gathered by
+        supertile (``ops.dense_select._gauss_feature_cols`` gathered by
         ``pos_c``), nb = B * BH2 * BW2
     :param bits_c, ids_c: (nb, M) int32 sub-bin bits / flattened ids
     :param counts_c: (nb,) int32 occupied rows
@@ -270,7 +271,8 @@ def _check_global(rays, table, bits, K, bin_size):
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
             f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
-            "waits for the dense path (ROADMAP queue 1, item 6)")
+            "takes the dense route (ops.dense_select; kernels past 128: ROADMAP "
+            "queue 2, item 8)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     if table.ndim != 2 or table.shape[0] % B or table.shape[0] == 0:
         raise ValueError(f"table: expected (B * P, {FEAT}) with B={B}, got {tuple(table.shape)}")
@@ -458,7 +460,7 @@ def fine_select_global(rays, table, bits, thr_act: float, K: int,
 
     :param rays: (B, H, W, 3) float32 unit world directions
     :param table: (B * P, 16) float32 feature rows
-        (``ops.fine._gauss_feature_planes_batched``), row ``b * P + n`` the
+        (``ops.dense_select._gauss_feature_cols``), row ``b * P + n`` the
         n-th Gaussian of image b
     :param bits: (nb, P) int32 sub-bin membership bits of each supertile
         (nb = B * BH2 * BW2), or None: every Gaussian is a member everywhere
@@ -502,7 +504,8 @@ def _check_bins(rays, table, bin_points, K, bin_size):
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
             f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
-            "waits for the dense path (ROADMAP queue 1, item 6)")
+            "takes the dense route (ops.dense_select; kernels past 128: ROADMAP "
+            "queue 2, item 8)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     if table.ndim != 2 or table.shape[0] == 0:
         raise ValueError(f"table: expected (rows, {FEAT}), got {tuple(table.shape)}")

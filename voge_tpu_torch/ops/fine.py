@@ -44,8 +44,15 @@ given the camera centres apart (``ray_tracing(origins=)``, as the renderer
 passes them), their gradient comes from the per-ray sums of that launch, so
 pose refinement groups no slots and sums no per-Gaussian rows.
 
+- Dense (``max_assign`` above the select kernel's ``MAX_K`` = 128):
+  :func:`ops.dense_select.ray_tracing_dense` in float32, the port of
+  ``voge_tpu``'s XLA route (``fine.py:1334-1365``, which it takes above its
+  kernels' K): ``rasterize_coarse``'s per-bin lists, or one whole-image bin
+  without a coarse stage, a dense select in PyTorch ops and its closed-form
+  backward.  It is chosen by K alone; no render at K <= 128 takes it.
+
 All backward paths are free of float atomics, so gradients repeat to the
-bit.  K above 128 is not ported yet and raises.
+bit.
 """
 from __future__ import annotations
 
@@ -64,6 +71,9 @@ from voge_tpu_torch.ops.cuda_fine import (
     FEAT, MAX_K, fine_select, fine_select_bins, fine_select_global,
 )
 from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd, fine_bwd_global, fine_bwd_rays
+from voge_tpu_torch.ops.dense_select import (
+    DenseFineSelect, _gauss_feature_cols, ray_tracing_dense,
+)
 
 def _ceil_to(x: int, m: int) -> int:
     return (x + m - 1) // m * m
@@ -102,20 +112,15 @@ def production_bin_geometry(image_size, n_assign: int, n_points: int,
 def _check_k(n_assign: int):
     if n_assign > MAX_K:
         raise NotImplementedError(
-            f"max_assign={n_assign} > {MAX_K} is not ported yet: ROADMAP "
-            "queue 1, item 6 (dense large-K dispatch)")
+            f"max_assign={n_assign} > {MAX_K}: the compacted candidates feed the "
+            "select kernel, which takes K <= 128; ray_tracing serves larger K by "
+            "its dense route")
 
 
-def _gauss_feature_planes_batched(mus: torch.Tensor, isigmas: torch.Tensor):
-    """(B, P, 3) / (B, P, 3, 3) -> (B, 16, P) feature planes
-    [A0, A1, A2, msm, L00..L22, mu0, mu1, mu2] with A = Lambda^T mu and
-    msm = mu^T Lambda mu."""
-    mu = [mus[..., d] for d in range(3)]
-    L = [[isigmas[..., i, j] for j in range(3)] for i in range(3)]
-    A = [L[0][i] * mu[0] + L[1][i] * mu[1] + L[2][i] * mu[2] for i in range(3)]
-    msm = mu[0] * A[0] + mu[1] * A[1] + mu[2] * A[2]
-    cols = A + [msm] + [L[i][j] for i in range(3) for j in range(3)] + mu
-    return torch.stack(cols, dim=1)
+def takes_dense_route(n_assign: int) -> bool:
+    """The dense route serves K above the select kernel's ``MAX_K``; every
+    other render takes the kernels."""
+    return int(n_assign) > MAX_K
 
 
 class Candidates(NamedTuple):
@@ -166,8 +171,7 @@ def feature_table(points: torch.Tensor, isigmas: torch.Tensor) -> torch.Tensor:
     """(B * P, 16) feature rows of camera-centred ``points`` (B, P, 3) with
     precisions ``isigmas`` (B, P, 3, 3), row ``b * P + n``; built without
     autograd (the backward kernels return the rows' gradients)."""
-    feat = _gauss_feature_planes_batched(points, isigmas)        # (B, 16, P)
-    return feat.transpose(1, 2).reshape(-1, FEAT).contiguous()
+    return _gauss_feature_cols(points.reshape(-1, 3), isigmas.reshape(-1, 3, 3)).contiguous()
 
 
 @torch.no_grad()
@@ -406,17 +410,18 @@ def ray_tracing_fine(mus: torch.Tensor, isigmas: torch.Tensor,
     :param thr: activation threshold (``thr_act = -log(thr + 1/inf)``)
     :param bin_size: pixels a bin spans, an int or (height, width)
     :return: (sel_idx int32, sel_len, sel_act, sel_dsd), each (B, H, W, K);
-        empty slots hold idx -1, len / act 1e10, dsd 0
+        empty slots hold idx -1, len / act 1e10, dsd 0.  Computed in
+        float32; above K = 128 by the dense select
     """
     assert isigmas.ndim == 3 and mus.ndim == 2
     assert rays.ndim == 4 and bin_points.ndim == 4
     assert mus.shape[0] == isigmas.shape[0] and mus.shape[1] == 3
-    _check_k(n_assign)
     thr_act = -math.log(thr + 1.0 / inf)
     if isinstance(bin_size, int):
         bin_size = (bin_size, bin_size)
     f32 = torch.float32
-    return RayTraceFine.apply(
+    route = DenseFineSelect if takes_dense_route(n_assign) else RayTraceFine
+    return route.apply(
         mus.to(f32), isigmas.to(f32), rays.to(f32).contiguous(),
         bin_points.to(torch.int32).contiguous(), float(thr_act),
         (int(bin_size[0]), int(bin_size[1])), int(n_assign))
@@ -448,12 +453,21 @@ def ray_tracing(cameras_or_params, points: torch.Tensor, isigmas: torch.Tensor,
         subtraction.
     :return: ((idx, len, act, dsd, w, img or None) in image layout
         (B, H, W, K) / (B, H, W, d), overflow_points (scalar int32 tensor))
+
+    Above K = 128 the dense route (:func:`ops.dense_select.ray_tracing_dense`)
+    serves the call, in float32.
     """
+    if takes_dense_route(n_assign):
+        if not isinstance(cameras_or_params, tuple):
+            cameras_or_params = cameras_or_params.batched_params(points.shape[0])
+        f32 = torch.float32
+        return ray_tracing_dense(cameras_or_params, points.to(f32), isigmas.to(f32),
+                                 rays.to(f32), image_size, thr, n_assign, bin_size,
+                                 max_points_per_bin, agg_ow, attrs, camera_grad, origins)
     B, P = points.shape[0], points.shape[1]
     bs, mppb = production_bin_geometry(image_size, n_assign, P, bin_size,
                                        max_points_per_bin)
     if mppb == -1:
-        _check_k(n_assign)
         if origins is not None:
             points = points - origins[:, None, :]
         sel = FineSelectGlobal.apply(points, isigmas, rays.contiguous(),

@@ -7,6 +7,7 @@ from typing import Tuple
 
 import torch
 
+from voge_tpu_torch._device import resolve_device
 from voge_tpu_torch.cameras import camera_centers
 from voge_tpu_torch.utils import inv3x3
 
@@ -34,3 +35,25 @@ def camera_rays(R: torch.Tensor, T: torch.Tensor, focal: torch.Tensor,
     d_world = torch.einsum("bhwj,bji->bhwi", d_view, inv3x3(R))
     d_world = d_world / torch.linalg.norm(d_world, dim=-1, keepdim=True)
     return d_world, camera_centers(R, T)
+
+
+def get_ray_camera_space(img_size, principle, focal, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """Camera-space pinhole ray grid (H, W, 3) of unit directions (the
+    reference's ``Aggregation.py:11-27`` helper, in its legacy negated-xy
+    convention with integer pixel coordinates; the renderer itself uses
+    :func:`camera_rays`).  ``device``: None for the device of a tensor
+    argument, else the card (``_device.resolve_device``)."""
+    dev = resolve_device(device, principle, focal)
+    focal = torch.as_tensor(focal, dtype=dtype, device=dev).reshape(-1)
+    if focal.shape[0] == 1:
+        focal = focal.expand(2)
+    principle = torch.as_tensor(principle, dtype=dtype, device=dev)
+    h, w = img_size
+    i = torch.arange(h, dtype=dtype, device=dev)[:, None] * torch.ones((1, w), dtype=dtype,
+                                                                       device=dev)
+    j = torch.ones((h, 1), dtype=dtype, device=dev) * torch.arange(w, dtype=dtype,
+                                                                  device=dev)[None, :]
+    dirs = torch.stack([-(j - principle[1]) / focal[1], -(i - principle[0]) / focal[0],
+                        torch.ones_like(i)], dim=-1)
+    return dirs / torch.linalg.norm(dirs, dim=-1, keepdim=True)

@@ -169,20 +169,44 @@ def render_pipeline(
     :param attrs: optional (N, d) or (B, N, d) attributes; the fragments then
         carry ``attr_img = interpolate_attr(frag, attrs)``, computed in the
         select kernel (by the attribute merge without a coarse stage)
+
+    The render computes in float32 (inputs of any floating dtype, bfloat16
+    too, are promoted to it).  ``max_assign`` above 128 (the select kernel's
+    ``MAX_K``) takes the dense route, as ``voge_tpu`` takes its XLA select
+    there.
     """
+    cams, verts, isigma, rays, origins, attrs_b = _render_inputs(
+        verts, sigmas, R, T, focal, principal, image_size, inverse_sigma, cam_ctx, attrs,
+        torch.float32)
+    # verts are centred on the cameras inside, so that a scene that needs no
+    # gradient (pose refinement) takes the backward's per-ray route
+    (idx, length, _act, _dsd, weight, img), overflow = ray_tracing(
+        cams, verts, isigma, rays, image_size,
+        thr=thr_activation, n_assign=max_assign, bin_size=bin_size,
+        max_points_per_bin=max_point_per_bin, agg_ow=float(absorptivity),
+        attrs=attrs_b, camera_grad=camera_grad, origins=origins,
+    )
+    return Fragments(weight, idx, (idx >= 0).sum(-1), length,
+                     overflow_points=overflow, attr_img=img)
+
+
+def _render_inputs(verts, sigmas, R, T, focal, principal, image_size, inverse_sigma,
+                   cam_ctx, attrs, dt):
+    """What a render traces, in dtype ``dt``: the cameras, verts (B, N, 3),
+    precisions (B, N, 3, 3), rays (B, H, W, 3), ray origins (B, 3) and
+    attributes (B, N, d) or None."""
     dev = verts.device
-    f32 = torch.float32
-    verts = verts.to(f32)
-    sigmas = expend_sigma(torch.as_tensor(sigmas, device=dev).to(f32))
+    verts = verts.to(dt)
+    sigmas = expend_sigma(torch.as_tensor(sigmas, device=dev).to(dt))
     if verts.ndim == 2:
         verts = verts[None]
-    R, T, focal, principal = (torch.as_tensor(x, device=dev).to(f32)
+    R, T, focal, principal = (torch.as_tensor(x, device=dev).to(dt)
                               for x in (R, T, focal, principal))
     B = R.shape[0]
     if verts.shape[0] == 1 and B > 1:
         verts = verts.expand((B,) + verts.shape[1:])
     if cam_ctx is not None:
-        rays, origins = cam_ctx.rays, cam_ctx.origins
+        rays, origins = cam_ctx.rays.to(dt), cam_ctx.origins.to(dt)
     else:
         rays, origins = camera_rays(R, T, focal, principal, image_size)
     if sigmas.ndim == 3:
@@ -190,21 +214,11 @@ def render_pipeline(
     isigma = 2.0 * (inv3x3(sigmas) if inverse_sigma else sigmas)
     attrs_b = None
     if attrs is not None:
-        attrs_b = torch.as_tensor(attrs, device=dev).to(f32)
+        attrs_b = torch.as_tensor(attrs, device=dev).to(dt)
         if attrs_b.ndim == 2:
             attrs_b = attrs_b[None]
         attrs_b = attrs_b.expand((verts.shape[0],) + attrs_b.shape[1:])
-
-    # verts are centred on the cameras inside, so that a scene that needs no
-    # gradient (pose refinement) takes the backward's per-ray route
-    (idx, length, _act, _dsd, weight, img), overflow = ray_tracing(
-        (R, T, focal, principal), verts, isigma, rays, image_size,
-        thr=thr_activation, n_assign=max_assign, bin_size=bin_size,
-        max_points_per_bin=max_point_per_bin, agg_ow=float(absorptivity),
-        attrs=attrs_b, camera_grad=camera_grad, origins=origins,
-    )
-    return Fragments(weight, idx, (idx >= 0).sum(-1), length,
-                     overflow_points=overflow, attr_img=img)
+    return (R, T, focal, principal), verts, isigma, rays, origins, attrs_b
 
 
 class GaussianRenderer(nn.Module):
@@ -223,6 +237,12 @@ class GaussianRenderer(nn.Module):
             render_settings = GaussianRenderSettings(**render_settings)
         self.cameras = cameras
         self.render_settings = render_settings
+
+    @property
+    def device(self) -> torch.device:
+        """The cameras' device (``voge_tpu``'s renderer has the property; an
+        ``nn.Module`` has none)."""
+        return self.cameras.device
 
     def forward(self, gmeshes, **kwargs) -> Fragments:
         if self.cameras.in_ndc():
@@ -264,7 +284,8 @@ class GaussianRenderer(nn.Module):
 
 def interpolate_attr(fragments: Fragments, vert_attr: torch.Tensor) -> torch.Tensor:
     """Composite per-kernel attributes (N, d) or (B * N, d) into an
-    attribute map (B, H, W, d) with the attribute-merge kernel (K3f).
+    attribute map (B, H, W, d) with the attribute-merge kernel (K3f), in
+    float32 (attributes of any floating dtype are promoted to it).
     ``vert_index`` holds flattened ``b * N + n`` indices, so with a camera
     batch above one, N-row attributes are tiled over the batch."""
     idx = fragments.vert_index
