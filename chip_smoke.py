@@ -1,8 +1,9 @@
 """Drive the voge_tpu_torch render, its fitting step, the no-coarse
 ShapeFitting trainer, texture extraction, the two-stage public tracer, the
 point-cloud renders (100,000 points forward; 300,000 points forward +
-backward), pose scoring / refinement, the occlusion and B = 8 steps and the
-dense route above K = 128 on one NVIDIA GPU and check them.
+backward), pose scoring / refinement, the occlusion and B = 8 steps, the
+dense route above K = 128, the sharded render over meshes of the card and
+the demos on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py
 
@@ -144,6 +145,25 @@ Run from the root of a checkout.  Phases:
      on the card, and at 64x64 against ``voge_tpu``'s golden file (the
      sigma gradient against the oracle: the file's float32 one is ~1.5e-3
      off), with its peak memory; no render at K <= 128 takes that route;
+     then (phases 3o-3q) ``parallel.render_pipeline_sharded`` at the
+     headline (the 10K cuboid padded to a multiple of 4 with far-away
+     Gaussians, the 8 cameras of ``bench.py:324-361``, 256x256, K = 20,
+     colours through ``interpolate_attr_sharded``, ``bench.py``'s loss) on
+     four meshes of the one card (data 2 with the scene replicated; (2, 2)
+     all-gather; (2, 2) ring; (1, 4) all-gather) against the single-device
+     step (overflow 0, ``vert_index`` flips, weights on agreeing pixels, the
+     loss and the gradients of verts, sigmas and colours, two runs equal to
+     the bit), each step timed beside the single-device one;
+     ``ShapeFitter(mesh=)`` on (1, 2) and (5, 1) at the ShapeFitting shapes
+     for three steps against the unsharded trainer, and
+     ``interpolate_attr_sharded`` / ``sample_features_sharded`` (forward and
+     backward) at the texture shapes with two cameras against the
+     single-device helpers; and the eight demos of ``voge_tpu_torch.demo`` at
+     their own sizes (the optimization demos cut to two steps), into a
+     temporary directory: their PNGs, finite losses, the coarse stage's
+     overflow 0 on every render that has one (a spy on
+     ``ops.fine.compact_candidates``); ``extract_texture`` skips without the
+     upstream car data;
   4. CUDA-event timings of the headline forward and fitting step, of the
      ShapeFitting step, of the texture chain (and its three stages, and K2
      there by K) and of the two-stage forward + backward on the
@@ -395,6 +415,25 @@ def device_ms(fn, n):
             fn()
         torch.cuda.synchronize()
     return sum(ev.self_device_time_total for ev in prof.key_averages() if on_device(ev)) / 1e3 / n
+
+
+def device_breakdown(fn, n, path, top=8):
+    """Device milliseconds a call of ``fn`` and its ``top`` heaviest device
+    events (kernels, memsets, copies) by name, per call, from a
+    torch.profiler trace of ``n`` calls; the trace's table goes to
+    ``OUT_DIR / path``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kinds = {ev.key: ev.self_device_time_total / 1e3 / n for ev in events if on_device(ev)}
+    (OUT_DIR / path).write_text(events.table(sort_by="self_device_time_total", row_limit=40))
+    return sum(kinds.values()), dict(sorted(kinds.items(), key=lambda kv: -kv[1])[:top])
 
 
 def launch_profile(fn, n):
@@ -1043,6 +1082,248 @@ def cell_paths(dev, zero_counts, read_counts, add, details, head):
             details[f"dense_{mode}_{hw[0]}"] = dict(e, past_128=past, peak_gib=peak)
     dense_select.calls = 0
     return state
+
+
+# ---- the sharded render, ShapeFitter(mesh=), the demos ----
+# (mesh shape, model axis, ring): the replicated scene, the all-gather merge on
+# two shapes, the ring; every shard on the one card (a mesh may name a device
+# more than once)
+SHARD_MESHES = {"dp_2x1": ((2, 1), None, False), "gather_2x2": ((2, 2), "model", False),
+                "ring_2x2": ((2, 2), "model", True), "gather_1x4": ((1, 4), "model", False)}
+# ShapeFitter(mesh=) against the unsharded trainer: each loss within
+# GOLD_LOSS_TOL relative, the parameters within FIT_TOL after three steps
+FIT_TOL = 1e-4
+DEMO_ITERS = 2      # the optimization demos' depth, cut from 400 / 200 / 320
+
+
+def shard_paths(dev, zero_counts, read_counts, add, details, head):
+    """Phases 3o-3q: the sharded render at the headline on four meshes of
+    the one card, ``ShapeFitter(mesh=)`` at the ShapeFitting shapes, the
+    replicated-scene helpers at the texture shapes, and the eight demos at
+    their own sizes; each main path with the launch counters set to 0 just
+    before it and read just after."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    import voge_tpu_torch as vt
+    from voge_tpu_torch import timing
+    from voge_tpu_torch.ops import fine
+    from voge_tpu_torch.parallel import (
+        interpolate_attr_sharded, make_mesh, render_pipeline_sharded, sample_features_sharded,
+    )
+
+    # 3o. the sharded render at the headline: the 10K cuboid padded to a
+    # multiple of 4 with far-away Gaussians, bench.py:324-361's 8 cameras,
+    # colours through interpolate_attr, bench.py's loss
+    t0 = time.perf_counter()
+    g, _, colors = head["scene"]
+    n = g.verts.shape[0]
+    n_pad = -(-n // 4) * 4
+    pad = lambda x, v: torch.cat([x.detach(), torch.full((n_pad - n,) + x.shape[1:], v,
+                                                         device=dev)])
+    verts, sigmas, cols = pad(g.verts, 100.0), pad(g.sigmas, 1.0), pad(colors, 0.5)
+    cams8 = batch8_cams(dev)
+    kw = dict(image_size=(256, 256), max_assign=20)
+
+    def step(v, mesh=None, model_axis="model", ring=False):
+        leaves = [x.detach().requires_grad_(True) for x in (v, sigmas, cols)]
+        if mesh is None:
+            frag = vt.render_pipeline(leaves[0], leaves[1], *cams8, **kw)
+            img = vt.interpolate_attr(frag, leaves[2])
+        else:
+            frag = render_pipeline_sharded(leaves[0], leaves[1], *cams8, mesh=mesh,
+                                           model_axis=model_axis, ring=ring, **kw)
+            img = interpolate_attr_sharded(frag, leaves[2], mesh)
+        loss = ((img - 0.5) ** 2).mean() + (vt.get_silhouette(frag) ** 2).mean()
+        return frag, loss, torch.autograd.grad(loss, leaves)
+
+    def stats(fn, tag):
+        st = timing.measure_stats(fn, args_fn=lambda i: (verts * (1.0 + 1e-5 * i),), n=10,
+                                  warmup=1, device=dev)
+        total, top = device_breakdown(lambda: fn(verts), 3, f"profile_sharded_{tag}.txt")
+        return dict(median_ms=st["median"] * 1e3, spread=st["spread"],
+                    iqr_spread=st["iqr_spread"], device_ms=total, device_ms_by_kernel=top)
+
+    f1, l1, g1 = step(verts)
+    need(vt.get_overflow_points(f1) == 0, "sharded headline: the single-device overflow != 0")
+    out = {"single": stats(lambda v: step(v), "single")}
+    for tag, (shape, axis, ring) in SHARD_MESHES.items():
+        mesh = make_mesh(("data", "model"), shape, devices=[dev] * (shape[0] * shape[1]))
+        zero_counts()
+        with no_plain_version():
+            fs, ls, gs = step(verts, mesh, axis, ring)
+            _, ls2, gs2 = step(verts, mesh, axis, ring)
+        add(read_counts(f"sharded headline {tag}", (*COARSE, "fine_select", "fine_bwd",
+                                                    "attr_merge", "attr_merge_bwd")))
+        need(all(torch.equal(a, b) for a, b in zip(gs, gs2)) and torch.equal(ls, ls2),
+             f"sharded {tag}: two runs differ")
+        agree = (fs.vert_index == f1.vert_index).all(-1)
+        flips = 1.0 - agree.float().mean().item()
+        need(flips < FLIP_MAX, f"sharded {tag}: vert_index flips on {flips} of the pixels")
+        e = {"flips": flips, "w": (fs.vert_weight - f1.vert_weight)[agree].abs().max().item(),
+             "loss": abs(ls.item() - l1.item()) / l1.item()}
+        need(e["w"] <= W_TOL, f"sharded {tag}: weights {e['w']:.3e}")
+        need(e["loss"] <= GOLD_LOSS_TOL, f"sharded {tag}: loss {e['loss']:.3e}")
+        for name, a, b in zip(("verts", "sigmas", "colors"), gs, g1):
+            e[name] = rel_t(a, b)
+            need(e[name] <= GOLD_GRAD_TOL, f"sharded {tag}: {name} gradient {e[name]:.3e}")
+        e["overflow"] = vt.get_overflow_points(fs)
+        out[tag] = dict(stats(lambda v, m=mesh, a=axis, r=ring: step(v, m, a, r), tag), checks=e)
+        print(f"phase 3o sharded headline {tag} (mesh {shape} on one card, "
+              f"{'ring' if ring else 'replicated scene' if axis is None else 'all-gather'}; "
+              f"P={n_pad} padded from {n}, B=8, 256x256, K=20): against the single-device "
+              "step " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+              + f"; two runs equal; median {out[tag]['median_ms']:.3f} ms (spread "
+              f"{out[tag]['spread']:.3f}), device {out[tag]['device_ms']:.3f} ms, single device "
+              f"{out['single']['median_ms']:.3f} ms (device {out['single']['device_ms']:.3f})")
+    for tag, st in out.items():
+        print(f"phase 3o device ms by kernel, {tag} (a step, of {st['device_ms']:.3f}): "
+              + "; ".join(f"{k[:60]} {v:.3f}" for k, v in st["device_ms_by_kernel"].items()))
+    details["sharded_headline"] = out
+    print(f"phase 3o: {time.perf_counter() - t0:.1f} s")
+
+    # 3p. ShapeFitter(mesh=) at the ShapeFitting shapes (no coarse stage),
+    # three steps against the unsharded trainer
+    t0 = time.perf_counter()
+    verts_s, isig_s, col_s, cams_s, targets = shapefit_scene(dev)
+
+    def fit(mesh=None):
+        f = vt.ShapeFitter({"verts": verts_s, "colors": col_s}, {"sigmas": isig_s},
+                           image_size=SF_HW, focal=cams_s[2][0], principal=cams_s[3][0],
+                           max_assign=SF_K, mesh=mesh, device=None if mesh else dev)
+        return f, [f.step(cams_s[0], cams_s[1], *targets) for _ in range(3)]
+
+    ref, ref_losses = fit()
+    fits = {}
+    for shape in ((1, 2), (5, 1)):
+        zero_counts()
+        with no_plain_version():
+            f, losses = fit(make_mesh(("data", "model"), shape, devices=[dev] * (shape[0] * shape[1])))
+        add(read_counts(f"ShapeFitter(mesh={shape})", ("fine_select_global", "fine_bwd_global",
+                                                         "attr_merge", "attr_merge_bwd")))
+        e = {"loss": max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)),
+             "params": max((f.params[k] - ref.params[k]).abs().max().item() for k in f.params)}
+        need(e["loss"] <= GOLD_LOSS_TOL and e["params"] <= FIT_TOL,
+             f"ShapeFitter(mesh={shape}) against the unsharded trainer: {e}")
+        fits[str(shape)] = dict(e, losses=losses)
+        print(f"phase 3p ShapeFitter(mesh={shape}) (2,562 Gaussians, 5 views, 128x128, K=25, "
+              f"no coarse stage): three steps, losses {losses} against {ref_losses}; loss "
+              f"{e['loss']:.3e}, parameters {e['params']:.3e}")
+
+    # the replicated-scene helpers at the texture shapes, two cameras
+    verts_t, isig_t, cams_t, _ = texture_scene(dev)
+    R2, T2 = vt.look_at_view_transform(dist=[3.0, 3.0], elev=[0.1, 0.1],
+                                       azim=[0.6, 0.6 - math.pi / 6], degrees=False, device=dev)
+    cams_t = (R2, T2, cams_t[2].expand(2, 2), cams_t[3].expand(2, 2))
+    N_t = verts_t.shape[0]
+    image = torch.as_tensor(np.random.RandomState(0).uniform(size=(2,) + TEX_HW + (3,))
+                            .astype(np.float32), device=dev)
+    cols_t = ((verts_t + 1) / 2).contiguous()
+    cot = seeded((2 * N_t, 3), dev, 31)
+    mesh = make_mesh(("data", "model"), (2, 1), devices=[dev, dev])
+
+    def texture_pair(sharded):
+        v, im = verts_t.detach().requires_grad_(True), image.detach().requires_grad_(True)
+        kt = dict(image_size=TEX_HW, max_assign=TEX_K)
+        if sharded:
+            frag = render_pipeline_sharded(v, isig_t, *cams_t, mesh=mesh, model_axis=None, **kt)
+            img = interpolate_attr_sharded(frag, cols_t, mesh)
+            feat, wsum = sample_features_sharded(frag, im, 2 * N_t, mesh)
+        else:
+            frag = vt.render_pipeline(v, isig_t, *cams_t, **kt)
+            img = vt.interpolate_attr(frag, cols_t)
+            feat, wsum = vt.sample_features(frag, im, n_vert=2 * N_t)
+        grads = torch.autograd.grad((feat * cot).sum() + wsum.sum(), (v, im))
+        return frag, img, feat, wsum, grads
+
+    t1 = texture_pair(False)
+    zero_counts()
+    with no_plain_version():
+        ts = texture_pair(True)
+    add(read_counts("sharded texture helpers", (*COARSE, "fine_select", "attr_merge",
+                                                 "attr_scatter", "attr_dw", "fine_bwd")))
+    need(vt.get_overflow_points(ts[0]) == 0 == vt.get_overflow_points(t1[0]),
+         "sharded texture helpers: overflow_points != 0")
+    agree = (ts[0].vert_index == t1[0].vert_index).all(-1)
+    e = {"flips": 1.0 - agree.float().mean().item(),
+         "img": (ts[1] - t1[1])[agree].abs().max().item()}
+    for name, a, b in (("feat", ts[2], t1[2]), ("wsum", ts[3], t1[3]), ("grad_image", ts[4][1], t1[4][1])):
+        e[name] = (a - b).abs().max().item() / b.abs().max().item()
+    e["grad_verts"] = rel_t(ts[4][0], t1[4][0])
+    need(e["flips"] < FLIP_MAX and all(e[k] <= W_TOL for k in ("img", "feat", "wsum", "grad_image"))
+         and e["grad_verts"] <= GOLD_GRAD_TOL, f"sharded texture helpers against single device: {e}")
+    print("phase 3p interpolate_attr_sharded / sample_features_sharded (texture scene, 10,242 "
+          "Gaussians, two cameras, 256x672, K=80, mesh (2, 1), scene replicated) against the "
+          "single-device helpers: " + ", ".join(f"{k} {v:.3e}" for k, v in e.items())
+          + f"; overflow 0; phase 3p {time.perf_counter() - t0:.1f} s")
+    details["sharded_fitter"] = fits
+    details["sharded_texture"] = e
+
+    # 3q. the demos on the card at their own sizes; the optimization demos
+    # cut to DEMO_ITERS steps; the coarse stage's overflow read by a spy
+    it = dict(iters=DEMO_ITERS)
+    demos = {  # name -> (kwargs, PNGs, coarse stage, kernels required)
+        "render_cuboid": ({}, ["cuboid"], True, (*COARSE, "fine_select", "attr_merge")),
+        "render_bunny": ({}, ["bunny"], True, (*COARSE, "fine_select", "attr_merge")),
+        "render_pointclouds": ({}, ["pointcloud"], True, (*COARSE, "fine_select", "attr_merge")),
+        "light_diffusion": ({}, [f"light_diffusion_{i}" for i in range(3)], True,
+                            (*COARSE, "fine_select", "attr_merge")),
+        "shape_fitting": (it, ["shape_fitting_result", "shape_fitting_target"], False,
+                          ("fine_select_global", "fine_bwd_global", "attr_merge",
+                           "attr_merge_bwd")),
+        # constant colours / face ids: K4b's d_w half alone (attr_dw)
+        "reason_occlusion": (it, ["reason_occ_after", "reason_occ_before", "reason_occ_target"],
+                             True, (*COARSE, "fine_select", "fine_bwd", "attr_merge", "attr_dw")),
+        "efficient_cuboid": (it, ["efficient_cuboid"], True,
+                             (*COARSE, "fine_select", "fine_select_global", "fine_bwd_global",
+                              "attr_merge", "attr_dw")),
+        "extract_texture": ({}, ["extract_texture_rerender"], True,
+                            (*COARSE, "fine_select", "attr_scatter", "attr_merge")),
+    }
+    seen = []
+    real = fine.compact_candidates
+
+    def spy(*a, **k):
+        c = real(*a, **k)
+        seen.append(c.overflow_c.sum())
+        return c
+
+    demo_s = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (dkw, pngs, coarse, required) in demos.items():
+            mod = importlib.import_module(f"voge_tpu_torch.demo.{name}")
+            out_dir = Path(tmp) / name
+            seen.clear()
+            buf = io.StringIO()
+            zero_counts()
+            t0 = time.perf_counter()
+            fine.compact_candidates = spy
+            try:
+                with contextlib.redirect_stdout(buf), no_plain_version():
+                    ret = mod.main(device=dev, out_dir=out_dir, **dkw)
+                torch.cuda.synchronize()
+            finally:
+                fine.compact_candidates = real
+            secs = time.perf_counter() - t0
+            if name == "extract_texture" and "skipped: no reference car data" in buf.getvalue():
+                need(ret is None and not out_dir.exists(), "extract_texture: skipped but wrote")
+                print("phase 3q demo extract_texture: skipped: no reference car data")
+                demo_s[name] = None
+                continue
+            add(read_counts(f"demo {name}", required))
+            got = sorted(p.stem for p in out_dir.glob("*.png"))
+            need(got == sorted(pngs), f"demo {name}: wrote {got}, not {pngs}")
+            need(ret is None or math.isfinite(ret), f"demo {name}: returned {ret}")
+            ovf = [int(x) for x in seen]
+            need(bool(ovf) == coarse and not any(ovf),
+                 f"demo {name}: the coarse stage's overflow per render {ovf}")
+            demo_s[name] = dict(seconds=secs, returned=ret, coarse_renders=len(ovf))
+            print(f"phase 3q demo {name}" + (f" ({DEMO_ITERS} steps, cut)" if dkw else "")
+                  + f": {secs:.2f} s, PNGs {got}, returned {ret}, coarse-stage renders "
+                  f"{len(ovf)} with overflow 0")
+    details["demos"] = demo_s
 
 
 def cell_timings(dev, state, head, profiled, details):
@@ -2272,6 +2553,7 @@ def main():
                            pose=pose_k.tolist(), similarity=sim_k, grad_err=pose_grad_err)
 
     cells_state = cell_paths(dev, zero_counts, read_counts, add, details, head)
+    shard_paths(dev, zero_counts, read_counts, add, details, head)
 
     # ---- 4. timings -----------------------------------------------------
     inputs = [g.verts.detach() * (1.0 + 1e-5 * i) for i in range(24)]

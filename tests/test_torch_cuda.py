@@ -1475,3 +1475,41 @@ def test_timing_uses_cuda_events_on_card_tensors(dev):
     assert set(out) == {"median", "estimates", "spread", "iqr_spread"}
     assert seen == list(range(6)) and len(out["estimates"]) == 5
     assert all(0 < e < 1 for e in out["estimates"])
+
+
+@pytest.mark.parametrize("shape,axis,ring", [((2, 1), None, False), ((2, 2), "model", False),
+                                             ((2, 2), "model", True)])
+def test_sharded_render_on_the_card_follows_the_plain_path(dev, shape, axis, ring):
+    """``parallel.render_pipeline_sharded`` with every shard on the card
+    against the same mesh of logical CPU shards (the plain versions):
+    selections, weights and the gradients of a seeded loss; two runs on the
+    card equal to the bit.  ``make_mesh()`` takes the cards."""
+    from voge_tpu_torch.parallel import interpolate_attr_sharded, make_mesh, render_pipeline_sharded
+
+    assert all(d.type == "cuda" for d in make_mesh().devices.flat)
+    g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 1000, percentage=0.6)
+    verts = np.pad(g[0], ((0, 2), (0, 0)), constant_values=100.0).astype(np.float32)
+    sig = np.pad(g[1], (0, 2), constant_values=1.0).astype(np.float32)
+    cols = np.random.RandomState(0).uniform(0, 1, (verts.shape[0], 3)).astype(np.float32)
+    assert verts.shape[0] % 2 == 0
+
+    def step(d):
+        mesh = make_mesh(("data", "model"), shape, devices=[d] * (shape[0] * shape[1]))
+        v, s, c = (torch.tensor(x, device=d, requires_grad=True) for x in (verts, sig, cols))
+        R, T = vt.look_at_view_transform(dist=[6.0] * 4, elev=[5.0, 10.0, 15.0, 20.0],
+                                         azim=[50.0, 60.0, 70.0, 80.0], device=d)
+        cams = (R, T, torch.full((4, 2), 150.0, device=d), torch.full((4, 2), 64.0, device=d))
+        frag = render_pipeline_sharded(v, s, *cams, mesh=mesh, model_axis=axis, ring=ring,
+                                       image_size=(128, 128), max_assign=20)
+        assert vt.get_overflow_points(frag) == 0 and frag.vert_index.device.type == d.type
+        img = interpolate_attr_sharded(frag, c, mesh)
+        loss = ((img - 0.5) ** 2).mean() + (vt.get_silhouette(frag) ** 2).mean()
+        return frag, torch.autograd.grad(loss, (v, s, c))
+
+    (fa, a), (_, b), (fp, p) = step(dev), step(dev), step(torch.device("cpu"))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    agree = (fa.vert_index.cpu() == fp.vert_index).all(-1)
+    assert 1.0 - agree.float().mean().item() < 1e-3
+    assert (fa.vert_weight.cpu() - fp.vert_weight)[agree].abs().max().item() <= 1e-4
+    for x, y in zip(a, p):
+        assert (x.cpu() - y).abs().max().item() <= 1e-4 * y.abs().max().item()

@@ -1,5 +1,6 @@
-"""``import voge_tpu_torch`` pulls in neither JAX nor ``voge_tpu`` and builds
-no kernel."""
+"""``import voge_tpu_torch`` (its sharding and its demos too) pulls in
+neither JAX, nor ``voge_tpu``, nor ``demo/demo_utils.py``, and builds no
+kernel."""
 import subprocess
 import sys
 from pathlib import Path
@@ -26,9 +27,13 @@ def test_import_leaves_jax_and_voge_tpu_out():
         "import voge_tpu_torch.converter.io, voge_tpu_torch.converter.converters\n"
         "from voge_tpu_torch import PoseHypothesisScorer, refine_pose, scorer_from_numpy\n"
         "from voge_tpu_torch.converter import IO, Converters, naive_point_cloud_converter\n"
+        "import voge_tpu_torch.parallel.shard, voge_tpu_torch.demo\n"
+        "import voge_tpu_torch.demo.shape_fitting, voge_tpu_torch.demo._utils\n"
+        "from voge_tpu_torch.parallel import make_mesh, render_pipeline_sharded\n"
         "from voge_tpu_torch import _build\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
-        "       or m == 'voge_tpu' or m.startswith('voge_tpu.')]\n"
+        "       or m == 'voge_tpu' or m.startswith('voge_tpu.')\n"
+        "       or m == 'demo_utils' or m.endswith('.demo_utils')]\n"
         "assert not bad, bad\n"
         "assert not _build._libs, _build._libs\n"
         "print('ok')\n"
@@ -46,4 +51,5 @@ def test_package_sources_import_no_jax():
             s = line.strip()
             assert not (s.startswith(("import jax", "from jax", "import voge_tpu ",
                                       "from voge_tpu "))
-                        or s.startswith(("import voge_tpu.", "from voge_tpu."))), (path, s)
+                        or s.startswith(("import voge_tpu.", "from voge_tpu."))
+                        or (s.startswith(("import ", "from ")) and "demo_utils" in s)), (path, s)

@@ -106,3 +106,23 @@ def test_renderer_device_is_the_cameras():
     assert renderer.device == torch.device("cpu") == cam.device
     cam_m = vt.PerspectiveCameras(focal_length=30.0, device="meta")
     assert vt.GaussianRenderer(cam_m, {"image_size": 8}).device.type == "meta"
+
+
+def test_parallel_exports_every_name_of_voge_tpu_parallel():
+    """Every name ``voge_tpu.parallel`` exports (``voge_tpu/parallel/__init__.py:13-19``)
+    has its counterpart in ``voge_tpu_torch.parallel``, a callable of the same
+    kind with the keyword arguments ``voge_tpu``'s takes."""
+    import inspect
+
+    import voge_tpu.parallel as jpar
+
+    names = [n for n in vars(jpar) if not n.startswith("_")
+             and callable(getattr(jpar, n)) and getattr(jpar, n).__module__.startswith(
+                 "voge_tpu.parallel")]
+    assert {"DataParallelBatchifier", "interpolate_attr_sharded", "render_pipeline_sharded",
+            "sample_features_sharded", "make_mesh", "Batchifier", "batchify"} <= set(names)
+    for n in names:
+        got, want = getattr(vt.parallel, n), getattr(jpar, n)
+        assert inspect.isclass(got) == inspect.isclass(want), n
+        params = set(inspect.signature(got).parameters)
+        assert set(inspect.signature(want).parameters) <= params, n

@@ -12,7 +12,9 @@ pulls an image back onto the Gaussians through the two halves of K4b on
 their own; ``ops.rasterize_coarse`` + ``ops.ray_tracing_fine`` are the
 public two-stage tracer over per-bin candidate lists (K2's per-bin-list
 entry).  ``models.ShapeFitter`` fits a scene with ``torch.optim`` on top of
-the renderer.  What the port creates lies on the card unless the caller
+the renderer.  ``parallel`` shards a render over a mesh of devices from one
+process (``make_mesh``, ``render_pipeline_sharded``, the sharded helpers,
+``DataParallelBatchifier``); ``voge_tpu_torch.demo`` holds the demos.  What the port creates lies on the card unless the caller
 passes ``device="cpu"`` (``_device.py``); on CPU tensors each kernel's plain
 PyTorch version runs instead.  Importing builds nothing; a
 kernel is compiled by ``nvcc`` at its first launch.  The port imports

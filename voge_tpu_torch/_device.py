@@ -23,3 +23,13 @@ def resolve_device(device=None, *inputs) -> torch.device:
         if isinstance(x, torch.Tensor):
             return x.device
     return DEFAULT_DEVICE
+
+
+def normalize_device(device) -> torch.device:
+    """``device`` as a ``torch.device``, with ``cuda`` without an index
+    naming the current card, so that two spellings of one device compare
+    equal."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

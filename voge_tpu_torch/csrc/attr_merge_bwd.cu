@@ -206,12 +206,9 @@ cudaError_t launch_scatter(const void* order, const void* starts,
       (float*)out, K, d, n_rows, long_rows, n_long);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  static int sms = 0;  // read once: the port drives one card
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  int dev = 0, sms = 0;  // the SM count of the card that launches
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   attr_scatter_long_kernel<<<(unsigned)(sms * LONG_BLOCKS_AN_SM), ROW_THREADS, 0, s>>>(
       (const int*)order, (const long long*)starts, (const float*)w, (const float*)g,
       (float*)out, K, d, long_rows, n_long);

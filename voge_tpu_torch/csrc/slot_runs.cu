@@ -370,14 +370,11 @@ Plan plan(long long n_rows) {
 constexpr int MAX_BLOCKS = 132 * 2 * BLOCKS_AN_SM;  // the scratch's room for counts
 
 // Blocks of a digit pass: BLOCKS_AN_SM on each SM (one range of tiles each);
-// the SM count is read once (the port drives one card).
+// the SM count is that of the card that launches.
 int pass_grid() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   return sms * BLOCKS_AN_SM < MAX_BLOCKS ? sms * BLOCKS_AN_SM : MAX_BLOCKS;
 }
 

@@ -1,6 +1,7 @@
 """Gradient-based Gaussian-scene fitting (counterpart of
 ``voge_tpu/models/fitting.py``): the training loop of the reference
-ShapeFitting demo as a reusable trainer, on one device."""
+ShapeFitting demo as a reusable trainer, on one device or over a mesh of
+devices (``parallel.render_pipeline_sharded``)."""
 from __future__ import annotations
 
 from typing import Callable, Dict, Iterable, Optional, Tuple
@@ -8,7 +9,8 @@ from typing import Callable, Dict, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from voge_tpu_torch._device import resolve_device
+from voge_tpu_torch._device import normalize_device, resolve_device
+from voge_tpu_torch.parallel.shard import Mesh, render_pipeline_sharded
 from voge_tpu_torch.renderer import get_silhouette, interpolate_attr, render_pipeline
 
 
@@ -28,11 +30,15 @@ class ShapeFitter:
     :param optimizer: a factory ``f(list of tensors) -> torch.optim.Optimizer``
         (default: ``torch.optim.SGD(lr=0.8, momentum=0.9)``, the updates of
         ``voge_tpu``'s default ``optax.sgd(0.8, momentum=0.9)``)
-    :param mesh: not ported (sharded renders wait for ROADMAP queue 1, item
-        12); anything but None raises
+    :param mesh: optional :class:`~voge_tpu_torch.parallel.Mesh`: renders
+        then run through ``parallel.render_pipeline_sharded`` with the
+        cameras on ``data_axis`` and the Gaussians on ``model_axis`` (None:
+        the scene replicated), and the parameters live on the mesh's first
+        device
     :param device: where the parameters and renders live (default: the
-        device of the first tensor in ``params``, else the card,
-        ``_device.resolve_device``; pass ``device="cpu"`` for the CPU)
+        mesh's first device, else the device of the first tensor in
+        ``params``, else the card, ``_device.resolve_device``; pass
+        ``device="cpu"`` for the CPU)
     """
 
     def __init__(
@@ -48,14 +54,18 @@ class ShapeFitter:
         w_rgb: float = 1.0,
         w_sil: float = 1.0,
         optimizer: Optional[Callable[[Iterable[torch.Tensor]], torch.optim.Optimizer]] = None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
+        data_axis: str = "data",
+        model_axis: Optional[str] = "model",
         device=None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "ShapeFitter(mesh=...) (sharded renders) is not ported yet: "
-                "ROADMAP queue 1, item 9")
+            first = mesh.devices.flat[0]
+            if device is not None and normalize_device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first device {first}")
+            device = first
         self.device = resolve_device(device, *params.values())
+        self.mesh, self.data_axis, self.model_axis = mesh, data_axis, model_axis
         as_f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=self.device)
         self.params = {k: as_f32(v).detach().clone().requires_grad_(True)
                        for k, v in params.items()}
@@ -111,9 +121,13 @@ class ShapeFitter:
         """(rgb (B, H, W, 3), silhouette (B, H, W)) of the current scene."""
         R, T = (torch.as_tensor(x, dtype=torch.float32, device=self.device) for x in (R, T))
         B = R.shape[0]
-        frag = render_pipeline(self._get("verts"), self._get("sigmas"), R, T,
-                               self.focal.expand(B, 2), self.principal.expand(B, 2),
-                               **self.settings)
+        scene = (self._get("verts"), self._get("sigmas"), R, T,
+                 self.focal.expand(B, 2), self.principal.expand(B, 2))
+        if self.mesh is not None:
+            frag = render_pipeline_sharded(*scene, mesh=self.mesh, data_axis=self.data_axis,
+                                           model_axis=self.model_axis, **self.settings)
+        else:
+            frag = render_pipeline(*scene, **self.settings)
         return interpolate_attr(frag, self._get("colors")), get_silhouette(frag)
 
     def loss(self, R, T, target_rgb, target_sil) -> torch.Tensor:
