@@ -42,6 +42,10 @@ Run from the root of a checkout.  Phases:
      per-bin-list entry on ``rasterize_coarse``'s lists (selections exact)
      and K3's global entry on its outputs (no weights: the fold skipped,
      equal to the bit to a zero g_w);
+     K3f and ``attr_dw`` at d = 1, 3, 4, 5, 8, 33 x K = 1, 3, 20, 80, 128 on
+     7 and 1,001 pixels (ids of -1 and ids beyond the table) and at the
+     headline and texture shapes: against their plain versions, two runs
+     equal to the bit;
      the two halves of the split global backward (``fine_bwd_gauss``,
      ``fine_bwd_rays``) at the ShapeFitting shapes and on the 300,000-point
      cloud (320x320, K = 20) with seeded cotangents: each half against its
@@ -182,7 +186,11 @@ Run from the root of a checkout.  Phases:
      scoring and a refinement step (and the step by backward route: the
      per-ray half against K3 whole, in turns, with device ms and launches a
      step), and of each kernel against its plain version and, where
-     one PyTorch call computes the same function, that call; each kernel's
+     one PyTorch call computes the same function, that call, with its device
+     ms and its host µs a call (enqueue time, no synchronisation); rows 3,
+     12 and 10 (K3f, ``attr_dw``, K4b) at both the headline and the texture
+     shapes, their device ms also with the inputs rotated through copies
+     that together exceed the L2 twice (``past_l2``); each kernel's
      bound (the larger of its bytes over the card's memory rate and its
      operations over the card's FP32 rate, counted from this run's inputs;
      K2's global entry both with every pair tested and with the passing
@@ -214,6 +222,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import ctypes
+import itertools
 import json
 import math
 import re
@@ -794,6 +803,132 @@ def cull_stats(rays, table, thr_act, bin_size):
     return dict(blocks=cones.shape[0], block_pairs=cones.shape[0] * P, culled=culled,
                 culled_share=culled / (cones.shape[0] * P), tested_pairs=tested,
                 passing_pairs=passing, glue_err=dict(cones=e_cone, u=e_u, q_rel=e_q))
+
+
+# ---- the attribute merge's kernels K3f and attr_dw (rows 3 and 12) ----
+MERGE_TOL = 1e-5     # K3f against its plain version, absolute (values within [0, max |attrs|])
+EDGE_D, EDGE_K, EDGE_PIX = (1, 3, 4, 5, 8, 33), (1, 3, 20, 80, 128), (7, 1001)
+L2_BYTES = 50 << 20  # the H100's L2
+
+
+def edge_slots(dev, n_pix, K, d, n_rows, seed):
+    """Seeded slots: a fifth of the ids -1, a ninth at or beyond ``n_rows``;
+    weights summing to at most 1 a pixel; attribute rows in [0, 1]; a
+    per-pixel cotangent."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    idx = torch.randint(-n_rows // 4, n_rows + n_rows // 8, (n_pix, K), device=dev,
+                        generator=gen, dtype=torch.int32).clamp(min=-1)
+    w = torch.rand((n_pix, K), device=dev, generator=gen) / K
+    attrs = torch.rand((n_rows, d), device=dev, generator=gen)
+    g = torch.randn((n_pix, d), device=dev, generator=gen)
+    return idx, w, attrs, g
+
+
+def hold_attr_pair(tag, idx, w, attrs, g):
+    """K3f and attr_dw on one input against their plain versions (K3f within
+    MERGE_TOL, ids beyond the table read as empty slots, as the kernel's
+    contract has it; attr_dw within GRAD_TOL of the plain one's largest entry,
+    exactly 0 where that is all 0) and two runs equal to the bit; (K3f error,
+    attr_dw error)."""
+    from voge_tpu_torch.ops.cuda_attr import attr_dw, attr_dw_plain, attr_merge, attr_merge_plain
+
+    img, img2 = attr_merge(idx, w, attrs), attr_merge(idx, w, attrs)
+    want = attr_merge_plain(torch.where(idx < attrs.shape[0], idx, -1), w, attrs)
+    e_m = (img - want).abs().max().item()
+    need(e_m <= MERGE_TOL, f"K3f {tag}: kernel vs plain {e_m:.3e}")
+    need(torch.equal(img, img2), f"K3f {tag}: two runs differ")
+    d_w, d_w2 = attr_dw(idx, attrs, g), attr_dw(idx, attrs, g)
+    want_w = attr_dw_plain(idx, attrs, g)
+    scale = want_w.abs().max().item()
+    if scale > 0:
+        e_d = (d_w - want_w).abs().max().item() / scale
+        need(e_d <= GRAD_TOL, f"attr_dw {tag}: kernel vs plain {e_d:.3e}")
+    else:
+        e_d = 0.0
+        need(not d_w.any(), f"attr_dw {tag}: nonzero where no slot is valid")
+    need(torch.equal(d_w, d_w2), f"attr_dw {tag}: two runs differ")
+    return e_m, e_d
+
+
+def host_us(fn, n=200):
+    """Microseconds of host time a call of ``fn``: ``n`` calls enqueued with
+    no synchronisation between them (``time.perf_counter``); the card may
+    still be running them when the clock stops."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def past_l2(fn, *args):
+    """``fn`` over copies of ``args`` in turn, enough that together they
+    exceed the L2 twice, so that a call finds its inputs in DRAM (back-to-back
+    calls on one input small enough to stay in the L2 read it from there)."""
+    n = max(1, -(-2 * L2_BYTES // nbytes(*(a for a in args if torch.is_tensor(a)))))
+    sets = itertools.cycle([args] + [tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+                                     for _ in range(n - 1)])
+    return lambda: fn(*next(sets))
+
+
+def merge_bound(idx, w, attrs):
+    """K3f's bound: the ids read whole, the weights of the valid slots (no
+    other weight is needed), the attribute rows, the image written; 2 d
+    operations a valid slot."""
+    n_rows, d = attrs.shape
+    valid = int(((idx >= 0) & (idx < n_rows)).sum())
+    return bound_ms(nbytes(idx, attrs) + valid * 4 + idx.numel() // idx.shape[-1] * d * 4,
+                    valid * 2 * d)
+
+
+def dw_bound(idx, attrs, g):
+    """``attr_dw``'s bound: the ids read and d_w written whole, the attribute
+    rows, and the g rows of the pixels that hold a valid slot (no other row
+    is needed); 2 d operations a valid slot."""
+    n_rows, d = attrs.shape
+    ok = (idx >= 0) & (idx < n_rows)
+    pixels = int(ok.any(-1).sum())
+    return bound_ms(2 * nbytes(idx) + nbytes(attrs) + pixels * d * 4, int(ok.sum()) * 2 * d)
+
+
+def attr_rows_at_shapes(shapes, plain):
+    """Rows 3 (K3f), 12 (attr_dw) and 10 (K4b) at each of ``shapes`` (tag ->
+    (merge args, dw args, K4b args)): CUDA-event ms, device ms on the same
+    inputs call after call and with the inputs past the L2 (``past_l2``),
+    host µs a call, the plain version's ms, and the bound by the kernels
+    line's rules (``merge_bound``, ``dw_bound``; K4b's: its inputs read once
+    and its outputs written once, 4 d operations a valid slot)."""
+    from voge_tpu_torch.ops.cuda_attr import attr_dw, attr_merge, attr_merge_bwd
+
+    out = {"attr_merge": {}, "attr_dw": {}, "attr_merge_bwd": {}}
+    for tag, (m_args, d_args, b_args) in shapes.items():
+        idx, attrs = m_args[0], m_args[2]
+        b_valid, _ = slot_counts(b_args[0])
+        rows = {
+            "attr_merge": (attr_merge, m_args, merge_bound(*m_args)),
+            "attr_dw": (attr_dw, d_args, dw_bound(*d_args)),
+            "attr_merge_bwd": (attr_merge_bwd, b_args,
+                               bound_ms(nbytes(*b_args) + nbytes(b_args[1], b_args[2]),
+                                        b_valid * 4 * b_args[2].shape[1])),
+        }
+        for name, (kfn, args, (b_ms, b_by)) in rows.items():
+            call = lambda: kfn(*args)
+            r = dict(ms=cuda_ms(call, 50), device_ms=device_ms(call, 20),
+                     device_ms_past_l2=device_ms(past_l2(kfn, *args), 20),
+                     host_us=host_us(call), plain_ms=cuda_ms(plain[name](tag), 5),
+                     bound_ms=b_ms, bound_by=b_by)
+            out[name][tag] = r
+            print(f"kernel {name} at the {tag} shapes (n_pix {idx.numel() // idx.shape[-1]}, "
+                  f"K {idx.shape[-1]}, d {attrs.shape[1]}): {r['ms']:.5f} ms (device "
+                  f"{r['device_ms']:.5f}, past the L2 {r['device_ms_past_l2']:.5f}, host "
+                  f"{r['host_us']:.2f} us a call), plain {r['plain_ms']:.4f} ms, bound "
+                  f"{b_ms:.5f} ms by {b_by} (share {b_ms / r['ms']:.4f} event, "
+                  f"{b_ms / r['device_ms']:.4f} device, "
+                  f"{b_ms / r['device_ms_past_l2']:.4f} device past the L2)")
+    return out
 
 
 # ---- the occlusion and B = 8 steps, the dense route (K > 128) ----
@@ -1755,6 +1890,29 @@ def main():
             f"attr_scatter d={d}"))
         err["attr_dw"] = max(err["attr_dw"], grad_err(
             attr_dw(idx_tx, a_d, g_d), attr_dw_plain(idx_tx, a_d, g_d), f"attr_dw d={d}"))
+
+    # K3f and attr_dw at their edge shapes and at both main shapes: against
+    # their plain versions and two runs to the bit
+    for d in EDGE_D:
+        for K in EDGE_K:
+            for n_pix in EDGE_PIX:
+                e_m, e_d = hold_attr_pair(f"edge d={d} K={K} pixels={n_pix}",
+                                          *edge_slots(dev, n_pix, K, d, 300, 70 + d + K + n_pix))
+                err["attr_merge"], err["attr_dw"] = (max(err["attr_merge"], e_m),
+                                                     max(err["attr_dw"], e_d))
+    idx_h, w_h, colors_h = head["k3"]
+    g_h = head["k4b"][3]
+    for tag, args in (("headline", (idx_h, w_h, colors_h, g_h)),
+                      ("texture", (idx_tx, w_tx, g_aug, aug_tx))):
+        e_m, e_d = hold_attr_pair(tag, *args)
+        err["attr_merge"], err["attr_dw"] = max(err["attr_merge"], e_m), max(err["attr_dw"], e_d)
+    print(f"K3f / attr_dw at d {EDGE_D} x K {EDGE_K} x pixels {EDGE_PIX} (ids of -1 and beyond "
+          f"the table), the headline and the texture shapes: max_err {err['attr_merge']:.3e} / "
+          f"max_err/max|plain| {err['attr_dw']:.3e}; two runs equal")
+    head["attr_shapes"] = {
+        "headline": ((idx_h, w_h, colors_h), (idx_h, colors_h, g_h), (idx_h, w_h, colors_h, g_h)),
+        "texture": ((idx_tx, w_tx, g_aug), head["dw"], (idx_tx, w_tx, g_aug, aug_tx)),
+    }
 
     # K2's compacted entry on the texture render's own inputs: K = 80,
     # 44 supertiles of 64 x 64 rays
@@ -3017,8 +3175,7 @@ def main():
         "fine_select": select_bound(
             k2[0], occupied * 72 + nbytes(k2[4], k2[9]), sel_h[0],
             compacted_pairs(k2[2], k2[4], 256, 256, k2[7]), d=k2[9].shape[1]),
-        "attr_merge": bound_ms(nbytes(*k3) + k3[0].numel() // k3[0].shape[-1] * k3[2].shape[1] * 4,
-                               slot_counts(k3[0])[0] * 2 * k3[2].shape[1]),
+        "attr_merge": merge_bound(*k3),
         "fold_weights": bound_ms(8 * nbytes(head["fold"][0]),
                                  slot_counts(sel_h[0])[1] * FOLD_FLOPS),
         "fine_bwd": bwd_bound(k3b[0], torch.unique(k3b[2][k3b[2] >= 0]).numel() * 64, k3b[2:7],
@@ -3030,7 +3187,7 @@ def main():
                                      [c for c in k3g[7:11] if c is not None],
                                      k3g[1].shape[0], k3g[12]),
         "attr_scatter": bound_ms(nbytes(*head["scatter"][:3]) + N_tx * 4 * 4, sc_valid * 2 * 4),
-        "attr_dw": bound_ms(nbytes(*head["dw"]) + nbytes(head["scatter"][1]), sc_valid * 2 * 4),
+        "attr_dw": dw_bound(*head["dw"]),
         "fine_select_bins": select_bound(
             k2b[0], nbytes(k2b[1], lists), fine_select_bins(*k2b)[0], listed.sum().item(),
             outs=4),
@@ -3072,6 +3229,13 @@ def main():
           f"of the wrapper's time; its plain version (torch.sort + searchsorted) {sort_plain_ms:.4f} ms")
     details["attr_scatter_sort_ms"] = dict(kernel=sort_ms, plain=sort_plain_ms)
 
+    # rows 3, 12 and 10 at the headline and at the texture shapes
+    a_sh = head["attr_shapes"]
+    plain_at = {"attr_merge": lambda tag: lambda: attr_merge_plain(*a_sh[tag][0]),
+                "attr_dw": lambda tag: lambda: attr_dw_plain(*a_sh[tag][1]),
+                "attr_merge_bwd": lambda tag: lambda: attr_merge_bwd_plain(*a_sh[tag][2])}
+    at_shapes = details["attr_rows_at_shapes"] = attr_rows_at_shapes(a_sh, plain_at)
+
     kern = []
     details["kernels_device_ms"] = {}
     for name, (kfn, pfn) in per.items():
@@ -3080,15 +3244,18 @@ def main():
         lib_ms = cuda_ms(library[name], 20) if name in library else None
         b_ms, b_by = bounds[name]
         dev_ms = details["kernels_device_ms"][name] = device_ms(kfn, 10)
-        print(f"kernel {name}: {ms:.4f} ms (device {dev_ms:.4f}), plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.5f} ms by {b_by} (share {b_ms / ms:.4f}), library "
-              + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
+        h_us = host_us(kfn)
+        print(f"kernel {name}: {ms:.4f} ms (device {dev_ms:.4f}, host {h_us:.2f} us a call), "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.5f} ms by {b_by} (share {b_ms / ms:.4f}), "
+              "library " + ("none" if lib_ms is None else f"{lib_ms:.4f} ms")
               + f", launches on the main paths {launches[name]}")
         _, src, rep = KERNELS[name]
         kern.append(dict(name=name, route="cuda", source=src, replaces=rep,
                          launches=launches[name], max_abs_err=err[name],
                          ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib_ms))
+                         library_ms=lib_ms, device_ms=dev_ms, host_us=h_us))
+        if name in at_shapes:
+            kern[-1]["shapes"] = at_shapes[name]
     details["kernels"] = kern
     need(len(kern) == len(KERNELS) == 16, "the kernels line lists every entry")
 

@@ -549,6 +549,72 @@ def test_attr_halves_match_plain(dev, K, d):
     assert torch.equal(only_w[0], d_w) and torch.equal(only_a[1], out)
 
 
+@pytest.mark.parametrize("K", [1, 3, 20, 80, 128])
+@pytest.mark.parametrize("d", [1, 3, 4, 5, 8, 33])
+def test_attr_merge_and_dw_edge_shapes(dev, d, K):
+    """K3f and ``attr_dw`` at their edge shapes on 1,001 pixels (no block's
+    pixel count divides it), ids of -1 and ids beyond the table: K3f within
+    1e-5 of its plain version (ids beyond the table read as empty slots, the
+    kernel's contract), ``attr_dw`` within 1e-4 of the plain one's largest
+    entry and 0 on the slots outside the table, two runs equal to the bit,
+    the launch counters one up a call."""
+    from voge_tpu_torch.ops.cuda_attr import attr_dw, attr_dw_plain
+
+    n_rows = 300
+    idx, w, g, attrs = _slots(dev, K, d, n_rows=n_rows, n_pix=(1001,), seed=7 * d + K)
+    w = w / K                                   # weights summing to at most 1 a pixel
+    attrs = attrs.abs()
+    before = attr_merge.launches, attr_dw.launches
+    img, img2 = attr_merge(idx, w, attrs), attr_merge(idx, w, attrs)
+    d_w, d_w2 = attr_dw(idx, attrs, g), attr_dw(idx, attrs, g)
+    torch.cuda.synchronize()
+    assert (attr_merge.launches, attr_dw.launches) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(img, img2) and torch.equal(d_w, d_w2)
+    outside = (idx < 0) | (idx >= n_rows)
+    assert outside.any() and (idx >= n_rows).any()
+    want = attr_merge_plain(torch.where(idx < n_rows, idx, -1), w, attrs)
+    torch.testing.assert_close(img, want, rtol=0, atol=1e-5)
+    want_w = attr_dw_plain(idx, attrs, g)
+    assert (d_w - want_w).abs().max() <= 1e-4 * want_w.abs().max()
+    assert not d_w[outside].any()
+
+
+def test_attr_wrappers_refuse_bad_views(dev):
+    """Every wrapper of the attribute family raises on a misaligned or
+    non-contiguous view, a wrong dtype or a tensor on another device, and
+    launches nothing then."""
+    from voge_tpu_torch.ops.cuda_attr import attr_dw, attr_scatter, slot_runs
+
+    idx, w, g, attrs = _slots(dev, 8, 4)
+    n_rows = attrs.shape[0]
+    flat = torch.empty(idx.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(idx.shape)          # contiguous, 4 bytes past a 16-byte boundary
+    shifted.copy_(idx)
+    strided = torch.empty(idx.shape[:-1] + (2 * idx.shape[-1],), dtype=torch.int32,
+                          device=dev)[..., ::2]
+    strided.copy_(idx)
+    calls = {
+        "attr_merge": lambda i, ww, a, gg: attr_merge(i, ww, a),
+        "attr_dw": lambda i, ww, a, gg: attr_dw(i, a, gg),
+        "attr_scatter": lambda i, ww, a, gg: attr_scatter(i, ww, gg, n_rows),
+        "attr_merge_bwd": lambda i, ww, a, gg: attr_merge_bwd(i, ww, a, gg),
+        "slot_runs": lambda i, ww, a, gg: slot_runs(i, n_rows),
+    }
+    fns = {"attr_merge": attr_merge, "attr_dw": attr_dw, "attr_scatter": attr_scatter,
+           "attr_merge_bwd": attr_merge_bwd, "slot_runs": slot_runs}
+    bad = [(shifted, w, attrs, g), (strided, w, attrs, g), (idx.long(), w, attrs, g)]
+    mixed = [(idx.cpu(), w, attrs, g), (idx, w.double(), attrs.double(), g.double())]
+    for name, call in calls.items():
+        before = fns[name].launches
+        # slot_runs takes the ids alone, and runs its plain version on CPU ids
+        for args in bad + ([] if name == "slot_runs" else mixed):
+            with pytest.raises((TypeError, ValueError)):
+                call(*args)
+        assert fns[name].launches == before, name
+        call(idx, w, attrs, g)                  # and launches on good views
+        assert fns[name].launches == before + 1, name
+
+
 def test_attr_scatter_long_runs(dev):
     """Runs of tens of thousands of slots on a few ids (the texture shapes'
     regime) and ids no slot holds."""

@@ -23,7 +23,14 @@ sides have:
   points, seen from ``chip_smoke.py``'s first pose-refinement camera: the
   ray gradient of ``bench.py``'s loss;
 - ``headline_step``: the headline fitting step's gradients (verts, sigmas,
-  colours), cameras fixed.
+  colours), cameras fixed;
+- ``attr_merge_headline``: the attribute merge (K3f) of the headline
+  render's slots with the colours, and its backward (K4b: the d_w kernel and
+  the scatter) under a seeded cotangent: the image and both gradients;
+- ``sampler_texture``: the texture scene's K = 80 render pulled back onto
+  the Gaussians by ``SampleFeatures`` and the backward of a seeded loss (K3f
+  for the image's gradient, ``attr_dw`` for the weights'): the features and
+  both gradients.
 """
 from __future__ import annotations
 
@@ -115,8 +122,28 @@ def main():
     loss = ((sel[5] - 0.5) ** 2).mean() + (sel[4].sum(-1).clamp(max=1.0) ** 2).mean()
     out["compacted_rays"] = _digest(*torch.autograd.grad(loss, r))
 
-    _, loss, leaves = smoke.fitting_step(g, cams, colors, (256, 256))
+    frag, loss, leaves = smoke.fitting_step(g, cams, colors, (256, 256))
     out["headline_step"] = _digest(*torch.autograd.grad(loss, leaves))
+
+    # the attribute merge and its backward; the sampler's backward
+    from voge_tpu_torch.ops.cuda_attr import AttrMerge
+    from voge_tpu_torch.sampler import SampleFeatures
+
+    idx = frag.vert_index.contiguous()
+    w = frag.vert_weight.detach().contiguous().requires_grad_(True)
+    cols = colors.detach().clone().requires_grad_(True)
+    img = AttrMerge.apply(w, cols, idx)
+    grads = torch.autograd.grad((img * smoke.seeded(img.shape, dev, 96)).sum(), [w, cols])
+    out["attr_merge_headline"] = _digest(img, *grads)
+    verts_t, isig_t, cams_t, image_t = smoke.texture_scene(dev)
+    frag_t = vt.render_pipeline(verts_t, isig_t, *cams_t, image_size=smoke.TEX_HW,
+                                max_assign=smoke.TEX_K)
+    w_t = frag_t.vert_weight.detach().contiguous().requires_grad_(True)
+    image = image_t.clone().requires_grad_(True)
+    feats = SampleFeatures.apply(w_t, image, frag_t.vert_index.to(torch.int32).contiguous(),
+                                 verts_t.shape[0])
+    grads = torch.autograd.grad((feats * smoke.seeded(feats.shape, dev, 97)).sum(), [w_t, image])
+    out["sampler_texture"] = _digest(feats, *grads)
     print(json.dumps({"root": str(root), "card": torch.cuda.get_device_name(0),
                       "digests": out}))
 

@@ -1,5 +1,5 @@
-// Shared by K2 (fine_select.cu, its fused attribute image) and K3f
-// (attr_merge.cu): one pixel's composited attribute channel,
+// K2's fused attribute image (fine_select.cu): one pixel's composited
+// attribute channel,
 //   out = sum_k w[k] * attrs[idx[k], ch]   over slots with idx[k] >= 0,
 // summed in ascending slot order.  Slots whose id falls outside the
 // attribute table read nothing.

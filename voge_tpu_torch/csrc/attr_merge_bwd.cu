@@ -36,37 +36,103 @@
 // would leave the card to a few thousand threads walking long runs.  Channels
 // go eight at a time through registers.
 //
-// What bounds it on the H100: memory (the scatter reads order 4 B, w 4 B and
-// d floats of g per slot through two dependent gathers; d_w reads idx and
-// writes d_w, 8 B per slot) and, for the scatter, the latency of those
-// gathers along the longest run.
+// d_w gives each thread DW_SLOTS = 4 consecutive slots of one pixel: one
+// 16-byte load of ids (4-byte loads where K % 4 != 0), so consecutive threads
+// read consecutive ids and, at K % 4 == 0, thread t's slots are 4t .. 4t + 3
+// of the flattened array; where one of the four is valid, the pixel's g row
+// read once for them, as float4 where d % 4 == 0, and each valid slot's
+// attribute row as float4 (L2 hits: the rows are ~10K x d floats); where none
+// is (most slots of a render are empty), no g row at all; the four results
+// out as one 16-byte store.  A pixel's last thread takes K mod 4 slots when
+// K % 4 != 0.  Blocks of 128 threads, at most 40 registers a thread (12
+// blocks an SM): at 32 the kernel spills, and with more registers too few
+// threads are left to hide the id loads (both ran slower on an H100).  Each result is a chain of fmaf(attrs[id, c], g[c], acc) from
+// 0 in ascending c, as the kernel of one thread per slot before it compiled
+// `acc += a * g` (this file builds without -fmad=false), so d_w keeps its
+// bits.
+//
+// What bounds it on the H100: memory.  The scatter reads order 4 B, w 4 B and
+// d floats of g per slot through two dependent gathers, and waits on the
+// latency of those gathers along the longest run; d_w reads idx and writes
+// d_w, 8 B per slot (110 MB at the texture shapes, ~33 us at 3.35 TB/s),
+// which four slots a thread keep in flight with a quarter of the load
+// instructions the kernel of one thread per slot issued.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;      // d_w: slots per block
+constexpr int THREADS = 128;      // d_w: threads a block
+constexpr int DW_BLOCKS_AN_SM = 12;  // d_w: 40 registers a thread at most
+constexpr int DW_SLOTS = 4;       // d_w: slots a thread
 constexpr int ROW_THREADS = 128;  // scatter: the threads a run is summed as
 constexpr int ROWS = ROW_THREADS / 32;  // scatter: rows a block, one a warp
 constexpr int LONG_RUN = 128;     // scatter: longer runs take a whole block
 constexpr int LONG_BLOCKS_AN_SM = 16;  // scatter: blocks walking the long rows
 constexpr int CH = 8;             // scatter: channels per pass
 
-__global__ void attr_dw_kernel(const int* __restrict__ idx,
-                               const float* __restrict__ g,
-                               const float* __restrict__ attrs,
-                               float* __restrict__ d_w, long long n_slots,
-                               int K, int d, long long n_rows) {
+// d_w[p, k] = attrs[idx[p, k]] . g[p] for DW_SLOTS slots of pixel p a thread.
+template <bool VEC_SLOTS, bool VEC_D>
+__global__ void __launch_bounds__(THREADS, DW_BLOCKS_AN_SM)
+attr_dw_kernel(const int* __restrict__ idx, const float* __restrict__ g,
+               const float* __restrict__ attrs, float* __restrict__ d_w, long long n_pix,
+               int K, int d, long long n_rows) {
+  const int tpp = (K + DW_SLOTS - 1) / DW_SLOTS;  // threads a pixel
   const long long t = (long long)blockIdx.x * THREADS + threadIdx.x;
-  if (t >= n_slots) return;
-  const int id = idx[t];
-  float acc = 0.0f;
-  if (id >= 0 && id < n_rows) {
-    const float* gp = g + (t / K) * d;
-    const float* ap = attrs + (size_t)id * d;
-    for (int c = 0; c < d; ++c) acc += ap[c] * gp[c];
+  const long long p = t / tpp;
+  if (p >= n_pix) return;
+  const int k0 = DW_SLOTS * (int)(t - p * tpp);
+  const int ns = min(DW_SLOTS, K - k0);
+  const long long s0 = p * K + k0;
+  int id[DW_SLOTS];
+  if (VEC_SLOTS) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(idx + s0));
+    id[0] = v.x, id[1] = v.y, id[2] = v.z, id[3] = v.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < DW_SLOTS; ++q) id[q] = q < ns ? __ldg(idx + s0 + q) : -1;
   }
-  d_w[t] = acc;
+  bool ok[DW_SLOTS];
+  bool any = false;
+  const float* row[DW_SLOTS];
+#pragma unroll
+  for (int q = 0; q < DW_SLOTS; ++q) {
+    ok[q] = id[q] >= 0 && id[q] < n_rows;
+    any |= ok[q];
+    row[q] = attrs + (size_t)(ok[q] ? id[q] : 0) * d;
+  }
+  const float* gp = g + p * d;
+  float acc[DW_SLOTS] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (any) {  // most slots of a render are empty: their g row is not read
+    if (VEC_D) {
+      for (int c = 0; c < d; c += 4) {
+        const float4 gv = __ldg(reinterpret_cast<const float4*>(gp + c));
+#pragma unroll
+        for (int q = 0; q < DW_SLOTS; ++q) {
+          if (!ok[q]) continue;
+          const float4 a = __ldg(reinterpret_cast<const float4*>(row[q] + c));
+          acc[q] = __fmaf_rn(a.x, gv.x, acc[q]);
+          acc[q] = __fmaf_rn(a.y, gv.y, acc[q]);
+          acc[q] = __fmaf_rn(a.z, gv.z, acc[q]);
+          acc[q] = __fmaf_rn(a.w, gv.w, acc[q]);
+        }
+      }
+    } else {
+      for (int c = 0; c < d; ++c) {
+        const float gc = __ldg(gp + c);
+#pragma unroll
+        for (int q = 0; q < DW_SLOTS; ++q)
+          if (ok[q]) acc[q] = __fmaf_rn(__ldg(row[q] + c), gc, acc[q]);
+      }
+    }
+  }
+  if (VEC_SLOTS) {
+    *reinterpret_cast<float4*>(d_w + s0) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < DW_SLOTS; ++q)
+      if (q < ns) d_w[s0 + q] = acc[q];
+  }
 }
 
 // Thread t's partial sums (channels c0 .. c0 + nc) over the run q0 .. q1 for
@@ -186,10 +252,20 @@ attr_scatter_long_kernel(const int* __restrict__ order, const long long* __restr
 cudaError_t launch_dw(const void* idx, const void* g, const void* attrs,
                       void* d_w, long long n_pix, int K, int d,
                       long long n_rows, cudaStream_t s) {
-  const long long n = n_pix * K;
-  attr_dw_kernel<<<(unsigned)((n + THREADS - 1) / THREADS), THREADS, 0, s>>>(
-      (const int*)idx, (const float*)g, (const float*)attrs, (float*)d_w, n, K,
-      d, n_rows);
+  const long long n = n_pix * ((K + DW_SLOTS - 1) / DW_SLOTS);
+  const unsigned blocks = (unsigned)((n + THREADS - 1) / THREADS);
+  const int* i_ = (const int*)idx;
+  const float *g_ = (const float*)g, *a_ = (const float*)attrs;
+  float* o_ = (float*)d_w;
+  const bool vs = K % DW_SLOTS == 0, vd = d % 4 == 0;
+  if (vs && vd)
+    attr_dw_kernel<true, true><<<blocks, THREADS, 0, s>>>(i_, g_, a_, o_, n_pix, K, d, n_rows);
+  else if (vs)
+    attr_dw_kernel<true, false><<<blocks, THREADS, 0, s>>>(i_, g_, a_, o_, n_pix, K, d, n_rows);
+  else if (vd)
+    attr_dw_kernel<false, true><<<blocks, THREADS, 0, s>>>(i_, g_, a_, o_, n_pix, K, d, n_rows);
+  else
+    attr_dw_kernel<false, false><<<blocks, THREADS, 0, s>>>(i_, g_, a_, o_, n_pix, K, d, n_rows);
   return cudaGetLastError();
 }
 

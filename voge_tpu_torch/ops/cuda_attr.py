@@ -7,10 +7,13 @@ plain PyTorch version.
   ``voge_tpu/ops/pallas_attr.py::_fwd_kernel`` (``attr_merge_compact`` /
   ``attr_merge_fwd_pallas``), which id-matches candidate chunks and contracts
   them on the MXU because gathers are slow on a TPU.  On Hopper it is a direct
-  gather-and-reduce, one thread per (pixel, channel), sharing its device
-  function with K2's fused attribute image.
+  gather-and-reduce: each warp copies its pixels' ids once into shared
+  memory (16-byte ``cp.async``), then a thread sums up to four channels of a
+  pixel in registers, in slot order, loading the valid slots' weights beside
+  their attribute rows, and the block's outputs leave as 16-byte stores.
 - :func:`attr_dw`: ``d_w[..., k] = attrs[idx[..., k]] . g`` (replaces
-  ``_bwd_w_kernel``), a gather, one thread per slot.
+  ``_bwd_w_kernel``), a gather, four consecutive slots of a pixel a thread
+  (one 16-byte load of ids, the pixel's ``g`` row read once for the four).
 - :func:`slot_runs` (``csrc/slot_runs.cu``): the grouping every run kernel
   takes, the valid slots of the flattened ids grouped by id in slot order
   (``order``) and each id's run start (``starts``), by a stable radix sort of
@@ -27,8 +30,10 @@ plain PyTorch version.
   to that half's entry.
 
 Bound on the H100: memory (a few MB at the 10K-Gaussian headline, where
-launch latency dominates; ~110 MB of slots at the texture shapes, of which
-the grouping reads the ids and writes the valid slots' order).
+launch latency and the wrapper's host time dominate; ~110 MB of slots at the
+texture shapes, of which the grouping reads the ids and writes the valid
+slots' order).  The wrappers bind their C entries once
+(``_dispatch.bind``) and keep every check that raises.
 
 :class:`AttrMerge` wraps K3f as an autograd node whose backward is
 :func:`attr_merge_bwd`.
@@ -37,10 +42,17 @@ from __future__ import annotations
 
 import torch
 
-from voge_tpu_torch._build import load
 from voge_tpu_torch.ops._dispatch import (
-    INT, LONG, VOIDP, check, on_cuda, ptr, raise_on_error, stream,
+    INT, LONG, VOIDP, bind, check, on_cuda, ptr, raise_on_error, stream,
 )
+
+# (library, symbol, argtypes) of each C entry this module launches
+_MERGE = ("attr_merge", "voge_attr_merge", (VOIDP,) * 4 + (LONG, INT, INT, LONG, VOIDP))
+_RUNS = ("slot_runs", "voge_slot_runs", (VOIDP,) * 4 + (LONG, LONG, VOIDP))
+_RUNS_SCRATCH = ("slot_runs", "voge_slot_runs_scratch", (LONG,), LONG)
+_DW = ("attr_merge_bwd", "voge_attr_dw", (VOIDP,) * 4 + (LONG, INT, INT, LONG, VOIDP))
+_SCATTER = ("attr_merge_bwd", "voge_attr_scatter", (VOIDP,) * 6 + (LONG, INT, INT, LONG, VOIDP))
+_BWD = ("attr_merge_bwd", "voge_attr_merge_bwd", (VOIDP,) * 9 + (LONG, INT, INT, LONG, VOIDP))
 
 
 def attr_merge_plain(idx, w, attrs):
@@ -48,13 +60,6 @@ def attr_merge_plain(idx, w, attrs):
     valid = idx >= 0
     rows = attrs[torch.where(valid, idx, 0).long()]           # (..., K, d)
     return (rows * torch.where(valid, w, 0.0)[..., None]).sum(-2)
-
-
-def _kernel():
-    fn = load("attr_merge").voge_attr_merge
-    fn.argtypes = [VOIDP] * 4 + [LONG, INT, INT, LONG, VOIDP]
-    fn.restype = INT
-    return fn
 
 
 def attr_merge(idx: torch.Tensor, w: torch.Tensor, attrs: torch.Tensor):
@@ -74,9 +79,9 @@ def attr_merge(idx: torch.Tensor, w: torch.Tensor, attrs: torch.Tensor):
     if attrs.ndim != 2:
         raise ValueError(f"attrs: expected (rows, d), got {tuple(attrs.shape)}")
     n_pix, d = idx.numel() // K, attrs.shape[1]
-    out = torch.empty(idx.shape[:-1] + (d,), dtype=torch.float32, device=idx.device)
-    err = _kernel()(ptr(idx), ptr(w), ptr(attrs), ptr(out), n_pix, K, d,
-                    attrs.shape[0], stream(idx.device))
+    out = w.new_empty(idx.shape[:-1] + (d,))
+    err = bind(*_MERGE)(ptr(idx), ptr(w), ptr(attrs), ptr(out), n_pix, K, d,
+                        attrs.shape[0], stream(idx.device))
     raise_on_error(err, "attr_merge")
     attr_merge.launches += 1
     return out
@@ -144,15 +149,6 @@ def slot_runs_plain(idx, n_rows: int):
     return order.to(torch.int32), starts.to(torch.int64)
 
 
-def _runs_kernel():
-    lib = load("slot_runs")
-    fn, scratch = lib.voge_slot_runs, lib.voge_slot_runs_scratch
-    fn.argtypes = [VOIDP] * 4 + [LONG, LONG, VOIDP]
-    fn.restype = INT
-    scratch.argtypes, scratch.restype = [LONG], LONG
-    return fn, scratch
-
-
 def slot_runs(idx: torch.Tensor, n_rows: int):
     """Group the flattened slots by the id they hold.
 
@@ -170,25 +166,18 @@ def slot_runs(idx: torch.Tensor, n_rows: int):
         raise ValueError(f"idx: expected 1 to 2^31 - 1 slots, got {n}")
     if not 0 < n_rows < 2 ** 31 - 1:
         raise ValueError(f"n_rows: expected 1 to 2^31 - 2, got {n_rows}")
-    fn, scratch_len = _runs_kernel()
     dev = idx.device
-    scratch = torch.empty(scratch_len(n), dtype=torch.int32, device=dev)
-    order = torch.empty(n, dtype=torch.int32, device=dev)
-    starts = torch.empty(n_rows + 1, dtype=torch.int64, device=dev)
-    err = fn(ptr(idx), ptr(order), ptr(starts), ptr(scratch), n, n_rows, stream(dev))
+    scratch = idx.new_empty(bind(*_RUNS_SCRATCH)(n))
+    order = idx.new_empty(n)
+    starts = idx.new_empty(n_rows + 1, dtype=torch.int64)
+    err = bind(*_RUNS)(ptr(idx), ptr(order), ptr(starts), ptr(scratch), n, n_rows,
+                       stream(dev))
     raise_on_error(err, "slot_runs")
     slot_runs.launches += 1
     return order, starts
 
 
 slot_runs.launches = 0
-
-
-def _dw_kernel():
-    fn = load("attr_merge_bwd").voge_attr_dw
-    fn.argtypes = [VOIDP] * 4 + [LONG, INT, INT, LONG, VOIDP]
-    fn.restype = INT
-    return fn
 
 
 def attr_dw(idx: torch.Tensor, attrs: torch.Tensor, g: torch.Tensor):
@@ -202,22 +191,15 @@ def attr_dw(idx: torch.Tensor, attrs: torch.Tensor, g: torch.Tensor):
         return attr_dw_plain(idx, attrs, g)
     n_pix, K, d = _check_slots(idx, g)
     n_rows = _check_attrs(attrs, d)
-    d_w = torch.empty(idx.shape, dtype=torch.float32, device=idx.device)
-    err = _dw_kernel()(ptr(idx), ptr(g), ptr(attrs), ptr(d_w), n_pix, K, d,
-                       n_rows, stream(idx.device))
+    d_w = g.new_empty(idx.shape)
+    err = bind(*_DW)(ptr(idx), ptr(g), ptr(attrs), ptr(d_w), n_pix, K, d, n_rows,
+                     stream(idx.device))
     raise_on_error(err, "attr_dw")
     attr_dw.launches += 1
     return d_w
 
 
 attr_dw.launches = 0
-
-
-def _scatter_kernel():
-    fn = load("attr_merge_bwd").voge_attr_scatter
-    fn.argtypes = [VOIDP] * 6 + [LONG, INT, INT, LONG, VOIDP]
-    fn.restype = INT
-    return fn
 
 
 def attr_scatter(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
@@ -237,23 +219,16 @@ def attr_scatter(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     if n_rows <= 0:
         raise ValueError(f"n_rows: expected a positive count, got {n_rows}")
     order, starts = slot_runs(idx, n_rows)
-    out = torch.empty((n_rows, d), dtype=torch.float32, device=idx.device)
-    rows = torch.empty(n_rows + 1, dtype=torch.int32, device=idx.device)
-    err = _scatter_kernel()(ptr(order), ptr(starts), ptr(w), ptr(g), ptr(out), ptr(rows),
-                            n_pix, K, d, n_rows, stream(idx.device))
+    out = g.new_empty((n_rows, d))
+    rows = idx.new_empty(n_rows + 1)
+    err = bind(*_SCATTER)(ptr(order), ptr(starts), ptr(w), ptr(g), ptr(out), ptr(rows),
+                          n_pix, K, d, n_rows, stream(idx.device))
     raise_on_error(err, "attr_scatter")
     attr_scatter.launches += 1
     return out
 
 
 attr_scatter.launches = 0
-
-
-def _bwd_kernel():
-    fn = load("attr_merge_bwd").voge_attr_merge_bwd
-    fn.argtypes = [VOIDP] * 9 + [LONG, INT, INT, LONG, VOIDP]
-    fn.restype = INT
-    return fn
 
 
 def attr_merge_bwd(idx: torch.Tensor, w: torch.Tensor, attrs: torch.Tensor,
@@ -274,12 +249,11 @@ def attr_merge_bwd(idx: torch.Tensor, w: torch.Tensor, attrs: torch.Tensor,
     n_rows = _check_attrs(attrs, d)
     dev = idx.device
     order, starts = slot_runs(idx, n_rows)
-    d_w = torch.empty_like(w)
-    d_attr = torch.empty((n_rows, d), dtype=torch.float32, device=dev)
-    rows = torch.empty(n_rows + 1, dtype=torch.int32, device=dev)
-    err = _bwd_kernel()(ptr(idx), ptr(w), ptr(attrs), ptr(g), ptr(order),
-                        ptr(starts), ptr(d_w), ptr(d_attr), ptr(rows), n_pix, K, d,
-                        n_rows, stream(dev))
+    d_w = w.new_empty(w.shape)
+    d_attr = g.new_empty((n_rows, d))
+    rows = idx.new_empty(n_rows + 1)
+    err = bind(*_BWD)(ptr(idx), ptr(w), ptr(attrs), ptr(g), ptr(order), ptr(starts),
+                      ptr(d_w), ptr(d_attr), ptr(rows), n_pix, K, d, n_rows, stream(dev))
     raise_on_error(err, "attr_merge_bwd")
     attr_merge_bwd.launches += 1
     return d_w, d_attr

@@ -39,9 +39,8 @@ import math
 
 import torch
 
-from voge_tpu_torch._build import load
 from voge_tpu_torch.ops._dispatch import (
-    FLOAT, INT, VOIDP, check, on_cuda, ptr, raise_on_error, stream,
+    FLOAT, INT, VOIDP, bind, check, on_cuda, ptr, raise_on_error, stream,
 )
 
 MAX_WIN = 8          # the widest emission window K1 is built for
@@ -189,10 +188,8 @@ def _aligned(t):
 
 
 def _emit_kernel():
-    fn = load("emit").voge_emit_rows
-    fn.argtypes = [VOIDP] * 10 + [INT, INT, FLOAT, FLOAT] + [INT] * 7 + [VOIDP]
-    fn.restype = INT
-    return fn
+    return bind("emit", "voge_emit_rows",
+                [VOIDP] * 10 + [INT, INT, FLOAT, FLOAT] + [INT] * 7 + [VOIDP])
 
 
 def emit_rows(R, T, focal, principal, points, isigmas, thr: float,
@@ -273,10 +270,8 @@ def coarse_globals_plain(over, planes, starts, info, n_globals: int, nst: int,
 
 
 def _globals_kernel():
-    fn = load("emit").voge_coarse_globals
-    fn.argtypes = [VOIDP] * 8 + [INT] * 4 + [FLOAT, INT, INT, INT, VOIDP]
-    fn.restype = INT
-    return fn
+    return bind("emit", "voge_coarse_globals",
+                [VOIDP] * 8 + [INT] * 4 + [FLOAT, INT, INT, INT, VOIDP])
 
 
 def coarse_globals(over, planes, starts, info, n_globals: int, nst: int,
@@ -380,10 +375,8 @@ def coarse_rows_plain(order, starts, bits, gpos, bits_g, gstat, M: int, nst: int
 
 
 def _rows_kernel():
-    fn = load("emit").voge_coarse_rows
-    fn.argtypes = [VOIDP] * 11 + [INT, VOIDP, VOIDP] + [INT] * 6 + [VOIDP]
-    fn.restype = INT
-    return fn
+    return bind("emit", "voge_coarse_rows",
+                [VOIDP] * 11 + [INT, VOIDP, VOIDP] + [INT] * 6 + [VOIDP])
 
 
 def coarse_rows(order, starts, bits, gpos, bits_g, gstat, M: int, nst: int,

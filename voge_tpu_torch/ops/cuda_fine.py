@@ -42,9 +42,8 @@ from typing import Optional
 
 import torch
 
-from voge_tpu_torch._build import load
 from voge_tpu_torch.ops._dispatch import (
-    FLOAT, INT, LONG, VOIDP, check, on_cuda, ptr, raise_on_error, stream,
+    FLOAT, INT, LONG, VOIDP, bind, check, on_cuda, ptr, raise_on_error, stream,
 )
 from voge_tpu_torch.ops.coarse import supertile_grid
 from voge_tpu_torch.ops.cuda_attr import attr_merge_plain
@@ -216,10 +215,8 @@ def fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
 
 
 def _kernel():
-    fn = load("fine_select").voge_fine_select
-    fn.argtypes = [VOIDP] * 12 + [INT] * 9 + [LONG, FLOAT, FLOAT, VOIDP]
-    fn.restype = INT
-    return fn
+    return bind("fine_select", "voge_fine_select",
+                [VOIDP] * 12 + [INT] * 9 + [LONG, FLOAT, FLOAT, VOIDP])
 
 
 def fine_select(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
@@ -395,9 +392,7 @@ def cull_rows(table: torch.Tensor, thr_act: float) -> torch.Tensor:
         return cull_rows_plain(table, thr_act)
     check(table, "table", torch.float32, (table.shape[0], FEAT))
     out = torch.empty((table.shape[0], 4), dtype=torch.float32, device=table.device)
-    fn = load("fine_select").voge_cull_rows
-    fn.argtypes = [VOIDP, VOIDP, LONG, ctypes.c_double, VOIDP]
-    fn.restype = INT
+    fn = bind("fine_select", "voge_cull_rows", [VOIDP, VOIDP, LONG, ctypes.c_double, VOIDP])
     raise_on_error(fn(ptr(table), ptr(out), table.shape[0], thr_act, stream(table.device)),
                    "cull_rows")
     cull_rows.launches += 1
@@ -418,9 +413,7 @@ def block_cones(rays: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     TH, TW = (H - 1) // th + 1, (W - 1) // tw + 1
     nchunk = (th * tw - 1) // _BLOCK_RAYS + 1
     out = torch.empty((B * TH * TW * nchunk, 8), dtype=torch.float32, device=rays.device)
-    fn = load("fine_select").voge_block_cones
-    fn.argtypes = [VOIDP, VOIDP] + [INT] * 7 + [VOIDP]
-    fn.restype = INT
+    fn = bind("fine_select", "voge_block_cones", [VOIDP, VOIDP] + [INT] * 7 + [VOIDP])
     raise_on_error(fn(ptr(rays), ptr(out), B * TH * TW, H, W, th, tw, TW, TH * TW,
                       stream(rays.device)), "block_cones")
     block_cones.launches += 1
@@ -446,10 +439,8 @@ def cull_mask_plain(cones: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 
 def _kernel_global():
-    fn = load("fine_select").voge_fine_select_global
-    fn.argtypes = [VOIDP] * 10 + [INT] * 10 + [FLOAT, FLOAT, VOIDP]
-    fn.restype = INT
-    return fn
+    return bind("fine_select", "voge_fine_select_global",
+                [VOIDP] * 10 + [INT] * 10 + [FLOAT, FLOAT, VOIDP])
 
 
 def fine_select_global(rays, table, bits, thr_act: float, K: int,
@@ -536,10 +527,8 @@ def fine_select_bins_plain(rays, table, bin_points, thr_act: float, K: int,
 
 
 def _kernel_bins():
-    fn = load("fine_select").voge_fine_select_bins
-    fn.argtypes = [VOIDP] * 7 + [INT] * 8 + [LONG, INT, FLOAT, VOIDP]
-    fn.restype = INT
-    return fn
+    return bind("fine_select", "voge_fine_select_bins",
+                [VOIDP] * 7 + [INT] * 8 + [LONG, INT, FLOAT, VOIDP])
 
 
 def fine_select_bins(rays, table, bin_points, thr_act: float, K: int,

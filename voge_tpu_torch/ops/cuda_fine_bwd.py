@@ -62,9 +62,8 @@ from typing import Optional
 
 import torch
 
-from voge_tpu_torch._build import load
 from voge_tpu_torch.ops._dispatch import (
-    FLOAT, INT, LONG, VOIDP, check, on_cuda, ptr, raise_on_error, stream,
+    FLOAT, INT, LONG, VOIDP, bind, check, on_cuda, ptr, raise_on_error, stream,
 )
 from voge_tpu_torch.ops.cuda_attr import slot_runs
 from voge_tpu_torch.ops.cuda_fine import FEAT, MAX_K
@@ -96,10 +95,7 @@ def fold_weights_plain(length, act, dsd, w, g_w, ow: float):
 
 
 def _fold_kernel():
-    fn = load("fold_weights").voge_fold_weights
-    fn.argtypes = [VOIDP] * 8 + [LONG, INT, FLOAT, VOIDP]
-    fn.restype = INT
-    return fn
+    return bind("fold_weights", "voge_fold_weights", [VOIDP] * 8 + [LONG, INT, FLOAT, VOIDP])
 
 
 def fold_weights(length, act, dsd, w, g_w, ow: float):
@@ -298,12 +294,9 @@ def fine_bwd_global_plain(rays, table, idx, length, act, dsd, w, g_len, g_act,
 
 
 def _kernels():
-    lib = load("fine_bwd")
-    slots, runs = lib.voge_fine_bwd_slots, lib.voge_fine_bwd_runs
-    slots.argtypes = [VOIDP] * 16 + [LONG, LONG, INT, INT, FLOAT, VOIDP]
-    runs.argtypes = [VOIDP] * 8 + [LONG, INT, INT, INT, VOIDP]
-    slots.restype = runs.restype = INT
-    return slots, runs
+    return (bind("fine_bwd", "voge_fine_bwd_slots",
+                 [VOIDP] * 16 + [LONG, LONG, INT, INT, FLOAT, VOIDP]),
+            bind("fine_bwd", "voge_fine_bwd_runs", [VOIDP] * 8 + [LONG, INT, INT, INT, VOIDP]))
 
 
 def _slots_stage(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img,
