@@ -1,0 +1,9 @@
+"""fine backward: the least time of its work (``roofline.fine_bwd_ms``)
+over its device ms."""
+from portbench import roofline
+from portbench.harness import metric_module
+from portbench.layers import roofline_pct
+
+
+def read(ctx):
+    return roofline_pct(ctx, metric_module("fine_bwd.device_ms").PATTERNS, roofline.fine_bwd_ms)
