@@ -1517,7 +1517,7 @@ def main():
         sys.exit("chip_smoke: no CUDA device visible; the port's checks run only on a GPU")
     sys.path.insert(0, str(ROOT))
     import voge_tpu_torch as vt
-    from voge_tpu_torch import _build, timing
+    from voge_tpu_torch import _build, timing, trace
     from voge_tpu_torch.ops import coarse, fine
     from voge_tpu_torch.ops.cuda_attr import (
         attr_dw, attr_dw_plain, attr_merge, attr_merge_bwd, attr_merge_bwd_plain,
@@ -1545,28 +1545,30 @@ def main():
     dev = torch.device("cuda")
     OUT_DIR.mkdir(exist_ok=True)
     details = {}
-    launchers = {"emit_rows": emit_rows, "coarse_globals": coarse_globals,
-                 "coarse_rows": coarse_rows, "fine_select": fine_select,
-                 "attr_merge": attr_merge, "fold_weights": fold_weights,
-                 "fine_bwd": fine_bwd, "attr_merge_bwd": attr_merge_bwd,
-                 "fine_select_global": fine_select_global,
-                 "fine_bwd_global": fine_bwd_global, "attr_scatter": attr_scatter,
-                 "attr_dw": attr_dw, "fine_select_bins": fine_select_bins,
-                 "fine_bwd_gauss": fine_bwd_gauss, "fine_bwd_rays": fine_bwd_rays,
-                 "slot_runs": slot_runs}
+    # the kernel wrappers' launches, counted by the port's tracing
+    # (``launch.<name>``) between zero_counts() and read_counts(), which
+    # turn it on and off again so that no timing runs with it on
+    launchers = ("emit_rows", "coarse_globals", "coarse_rows", "fine_select", "attr_merge",
+                 "fold_weights", "fine_bwd", "attr_merge_bwd", "fine_select_global",
+                 "fine_bwd_global", "attr_scatter", "attr_dw", "fine_select_bins",
+                 "fine_bwd_gauss", "fine_bwd_rays", "slot_runs")
 
     # the two small kernels behind K2's global entry (its cone cull's glue):
     # counted like the entries, and held to one launch each a launch of it
-    glue_launchers = {"cull_rows": cuda_fine.cull_rows, "block_cones": cuda_fine.block_cones}
+    glue_launchers = ("cull_rows", "block_cones")
+
+    def launched(name):
+        return trace.counts().get(f"launch.{name}", 0)
 
     def zero_counts():
-        for fn in (*launchers.values(), *glue_launchers.values()):
-            fn.launches = 0
+        trace.reset()
+        trace.enable()
 
     def read_counts(path, required):
         torch.cuda.synchronize()
-        counts = {k: fn.launches for k, fn in launchers.items()}
-        glue = {k: fn.launches for k, fn in glue_launchers.items()}
+        counts = {k: launched(k) for k in launchers}
+        glue = {k: launched(k) for k in glue_launchers}
+        trace.disable()
         print(f"main path {path}: launches {counts}; K2 global's glue {glue}")
         for k in required:
             need(counts[k] > 0, f"{k} was not launched on the main path {path}")
@@ -2571,10 +2573,10 @@ def main():
     unified = fine.fine_bwd_global
     fine.fine_bwd_global = fold_then_pair       # the same step on the split backward
     try:
-        before = fine_bwd_gauss.launches
-        _, loss_u, leaves_u = cloud_step(verts_c, isig_c, cams_c, colors_c)
-        gu = torch.autograd.grad(loss_u, leaves_u)
-        need(fine_bwd_gauss.launches == before + 1, "the split pair did not run")
+        with trace.tracing():
+            _, loss_u, leaves_u = cloud_step(verts_c, isig_c, cams_c, colors_c)
+            gu = torch.autograd.grad(loss_u, leaves_u)
+        need(launched("fine_bwd_gauss") == 1, "the split pair did not run")
     finally:
         fine.fine_bwd_global = unified
     cloud_err = {}
@@ -2612,8 +2614,9 @@ def main():
     need(counts["fine_bwd_gauss"] == 0 and counts["fine_bwd_global"] == 0
          and counts["slot_runs"] == 0, "frozen scene: a per-Gaussian pass or a grouping ran")
     add(counts)
-    full = frozen_step(False)
-    need(slot_runs.launches == 1, "the full step's per-Gaussian pass did not group the slots")
+    with trace.tracing():
+        full = frozen_step(False)
+    need(launched("slot_runs") == 1, "the full step's per-Gaussian pass did not group the slots")
     need(all(bool(torch.isfinite(x).all()) for x in fz), "frozen scene: non-finite gradient")
     need(torch.equal(fz[1], full[1]), "frozen scene: the ray gradient is not the full step's")
     print(f"frozen scene 300K: one launch of the per-ray half (the fold fused in), no grouping; "
@@ -2657,9 +2660,9 @@ def main():
     # gradient, which is then unused): the same bits
     scorer.verts.requires_grad_(True)
     try:
-        before = fine_bwd.launches
-        _, pose_f, sim_f = pose_run()
-        need(fine_bwd.launches == before + 3, "pose refinement: K3 did not run whole")
+        with trace.tracing():
+            _, pose_f, sim_f = pose_run()
+        need(launched("fine_bwd") == 3, "pose refinement: K3 did not run whole")
     finally:
         scorer.verts.requires_grad_(False)
     need(torch.equal(pose_k, pose_f) and sim_k == sim_f,

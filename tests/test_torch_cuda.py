@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import voge_tpu_torch as vt
+from voge_tpu_torch import trace
 from voge_tpu_torch.aggregation import expend_sigma
 from voge_tpu_torch.ops import coarse, cuda_attr, fine
 from voge_tpu_torch.ops.cuda_attr import (
@@ -57,6 +58,19 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture(autouse=True)
+def _counted():
+    """Every test runs under the port's tracing, which counts each kernel
+    wrapper's launches (``launch.<name>``)."""
+    with trace.tracing():
+        yield
+
+
+def launches(fn) -> int:
+    """The launches of kernel wrapper ``fn`` counted since the test began."""
+    return trace.counts().get(f"launch.{fn.__name__}", 0)
 
 
 @pytest.fixture(scope="module", params=["random", "cuboid"])
@@ -93,11 +107,11 @@ def test_emit_kernel_equals_plain(stage):
     bs = 10
     nst, BH2, BW2, _, win = coarse.emission_geometry(points.shape[1], hw, bs)
     args = (*cams, points, isig, 0.01, bs, hw, nst, BH2, BW2, win)
-    before = emit_rows.launches
+    before = launches(emit_rows)
     got = emit_rows(*args)
     want = emit_rows_plain(*args)
     torch.cuda.synchronize()
-    assert emit_rows.launches == before + 1
+    assert launches(emit_rows) == before + 1
     for x, y in zip(got, want):
         assert x.dtype == y.dtype and torch.equal(x, y)
 
@@ -186,11 +200,11 @@ def test_select_kernel_matches_plain(stage, K, with_attrs):
     table = fine.candidate_table(points, isig, c.pos_c)
     args = (rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K,
             c.bin_size, 0.9, colors if with_attrs else None)
-    before = fine_select.launches
+    before = launches(fine_select)
     got = fine_select(*args)
     want = fine_select_plain(*args)
     torch.cuda.synchronize()
-    assert fine_select.launches == before + 1
+    assert launches(fine_select) == before + 1
     agree = (got[0] == want[0]).all(-1)
     assert 1.0 - agree.float().mean().item() < 1e-3
     assert (got[0] >= 0).any()
@@ -209,9 +223,9 @@ def test_attr_kernel_matches_plain(stage):
     table = fine.candidate_table(points, isig, c.pos_c)
     idx, _, _, _, w, _ = fine_select_plain(rays, table, c.bits_c, c.ids_c,
                                            c.counts_c, c.thr_act, 20, c.bin_size, 1.0)
-    before = attr_merge.launches
+    before = launches(attr_merge)
     got = attr_merge(idx, w, colors)
-    assert attr_merge.launches == before + 1
+    assert launches(attr_merge) == before + 1
     torch.testing.assert_close(got, attr_merge_plain(idx, w, colors), rtol=0, atol=1e-5)
 
 
@@ -259,11 +273,11 @@ def test_fold_kernel_matches_plain(stage, K):
     _, l, a, d, w, _ = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c,
                                    c.thr_act, K, c.bin_size, 0.9)
     (gw,) = _cotangents(w.shape, rays.device, 1, K)
-    before = fold_weights.launches
+    before = launches(fold_weights)
     got = fold_weights(l, a, d, w, gw, 0.9)
     want = fold_weights_plain(l, a, d, w, gw, 0.9)
     torch.cuda.synchronize()
-    assert fold_weights.launches == before + 1
+    assert launches(fold_weights) == before + 1
     for g, x in zip(got, want):
         _close(g, x)
 
@@ -284,12 +298,12 @@ def test_fine_bwd_kernel_matches_plain(stage, with_attrs, want_rays, K):
     cots = _cotangents(sel[1].shape, rays.device, 4, 3)
     g_img = _cotangents(rays.shape, rays.device, 1, 4)[0] if with_attrs else None
     args = (rays, table, *sel[:5], *cots, 0.9, attrs, g_img, want_rays)
-    before = fine_bwd.launches
+    before = launches(fine_bwd)
     got = fine_bwd(*args)
     again = fine_bwd(*args)
     want = fine_bwd_plain(*args)
     torch.cuda.synchronize()
-    assert fine_bwd.launches == before + 2
+    assert launches(fine_bwd) == before + 2
     assert got[0].shape == (table.shape[0], 15 if with_attrs else 12)
     _close(got[0], want[0])
     assert torch.equal(got[0], again[0])
@@ -307,12 +321,12 @@ def test_attr_merge_bwd_kernel_matches_plain(stage):
     idx, _, _, _, w, _ = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c,
                                      c.thr_act, 20, c.bin_size, 1.0)
     (g,) = _cotangents(rays.shape, rays.device, 1, 5)
-    before = attr_merge_bwd.launches
+    before = launches(attr_merge_bwd)
     got = attr_merge_bwd(idx, w, colors, g)
     again = attr_merge_bwd(idx, w, colors, g)
     want = attr_merge_bwd_plain(idx, w, colors, g)
     torch.cuda.synchronize()
-    assert attr_merge_bwd.launches == before + 2
+    assert launches(attr_merge_bwd) == before + 2
     for x, y, z in zip(got, want, again):
         _close(x, y)
         assert torch.equal(x, z)
@@ -363,9 +377,9 @@ def test_render_gradients_kernel_path_match_plain_path(dev):
                 + white.square().mean())
         return torch.autograd.grad(loss, (g.verts, g.sigmas, colors))
 
-    before = (fine_bwd.launches, attr_merge_bwd.launches)
+    before = (launches(fine_bwd), launches(attr_merge_bwd))
     k1, k2 = step(), step()
-    assert fine_bwd.launches == before[0] + 2 and attr_merge_bwd.launches == before[1] + 2
+    assert launches(fine_bwd) == before[0] + 2 and launches(attr_merge_bwd) == before[1] + 2
     with _PlainPath():
         p = step()
     torch.cuda.synchronize()
@@ -392,11 +406,11 @@ def _global_select(stage, K, bits_kind):
 @pytest.mark.parametrize("bits_kind", ["none", "random"])
 def test_select_global_kernel_matches_plain(stage, K, bits_kind):
     _, _, args = _global_select(stage, K, bits_kind)
-    before = fine_select_global.launches
+    before = launches(fine_select_global)
     got = fine_select_global(*args)
     want = fine_select_global_plain(*args)
     torch.cuda.synchronize()
-    assert fine_select_global.launches == before + 1
+    assert launches(fine_select_global) == before + 1
     assert torch.equal(got[0], want[0]) and (got[0] >= 0).any()
     for g, w in zip(got[1:4], want[1:4]):
         torch.testing.assert_close(g, w, rtol=1e-5, atol=1e-5)
@@ -414,12 +428,12 @@ def test_fine_bwd_global_kernel_matches_plain(stage, want_rays, g_w):
     elif g_w == "only":
         cots[:3] = [None] * 3
     b_args = (rays, table, *sel, *cots, 0.9, want_rays)
-    before = fine_bwd_global.launches
+    before = launches(fine_bwd_global)
     got = fine_bwd_global(*b_args)
     again = fine_bwd_global(*b_args)
     want = fine_bwd_global_plain(*b_args)
     torch.cuda.synchronize()
-    assert fine_bwd_global.launches == before + 2
+    assert launches(fine_bwd_global) == before + 2
     assert got[0].shape == (table.shape[0], 12)
     _close(got[0], want[0])
     assert torch.equal(got[0], again[0])
@@ -491,12 +505,12 @@ def test_shape_fitter_kernel_path_matches_plain_path(dev):
         losses = [fitter.step(R, T, t_rgb, t_sil) for _ in range(2)]
         return losses, {k: p.detach() for k, p in fitter.params.items()}
 
-    before = {fn: fn.launches for fn in (fine_select_global, fine_bwd_global, attr_merge,
+    before = {fn: launches(fn) for fn in (fine_select_global, fine_bwd_global, attr_merge,
                                          attr_merge_bwd, emit_rows)}
     lk, pk = run()
     torch.cuda.synchronize()
     for fn, n in before.items():
-        assert (fn.launches > n) == (fn is not emit_rows), fn.__name__
+        assert (launches(fn) > n) == (fn is not emit_rows), fn.__name__
     with _PlainPath():
         lp, pp = run()
     for a, b in zip(lk, lp):
@@ -531,11 +545,11 @@ def test_attr_halves_match_plain(dev, K, d):
 
     idx, w, g, attrs = _slots(dev, K, d)
     n_rows = attrs.shape[0]
-    before = attr_scatter.launches, attr_dw.launches
+    before = launches(attr_scatter), launches(attr_dw)
     out, out2 = attr_scatter(idx, w, g, n_rows), attr_scatter(idx, w, g, n_rows)
     d_w, d_w2 = attr_dw(idx, attrs, g), attr_dw(idx, attrs, g)
     torch.cuda.synchronize()
-    assert (attr_scatter.launches, attr_dw.launches) == (before[0] + 2, before[1] + 2)
+    assert (launches(attr_scatter), launches(attr_dw)) == (before[0] + 2, before[1] + 2)
     assert torch.equal(out, out2) and torch.equal(d_w, d_w2)
     want, want_w = attr_scatter_plain(idx, w, g, n_rows), attr_dw_plain(idx, attrs, g)
     assert (out - want).abs().max() <= 1e-4 * want.abs().max()
@@ -564,11 +578,11 @@ def test_attr_merge_and_dw_edge_shapes(dev, d, K):
     idx, w, g, attrs = _slots(dev, K, d, n_rows=n_rows, n_pix=(1001,), seed=7 * d + K)
     w = w / K                                   # weights summing to at most 1 a pixel
     attrs = attrs.abs()
-    before = attr_merge.launches, attr_dw.launches
+    before = launches(attr_merge), launches(attr_dw)
     img, img2 = attr_merge(idx, w, attrs), attr_merge(idx, w, attrs)
     d_w, d_w2 = attr_dw(idx, attrs, g), attr_dw(idx, attrs, g)
     torch.cuda.synchronize()
-    assert (attr_merge.launches, attr_dw.launches) == (before[0] + 2, before[1] + 2)
+    assert (launches(attr_merge), launches(attr_dw)) == (before[0] + 2, before[1] + 2)
     assert torch.equal(img, img2) and torch.equal(d_w, d_w2)
     outside = (idx < 0) | (idx >= n_rows)
     assert outside.any() and (idx >= n_rows).any()
@@ -605,14 +619,14 @@ def test_attr_wrappers_refuse_bad_views(dev):
     bad = [(shifted, w, attrs, g), (strided, w, attrs, g), (idx.long(), w, attrs, g)]
     mixed = [(idx.cpu(), w, attrs, g), (idx, w.double(), attrs.double(), g.double())]
     for name, call in calls.items():
-        before = fns[name].launches
+        before = launches(fns[name])
         # slot_runs takes the ids alone, and runs its plain version on CPU ids
         for args in bad + ([] if name == "slot_runs" else mixed):
             with pytest.raises((TypeError, ValueError)):
                 call(*args)
-        assert fns[name].launches == before, name
+        assert launches(fns[name]) == before, name
         call(idx, w, attrs, g)                  # and launches on good views
-        assert fns[name].launches == before + 1, name
+        assert launches(fns[name]) == before + 1, name
 
 
 def test_attr_scatter_long_runs(dev):
@@ -649,11 +663,11 @@ def test_sampler_kernel_path_matches_plain(dev):
         loss = (feat * cf).sum() + (sw * cw).sum()
         return feat, sw, torch.autograd.grad(loss, (wl, gl))
 
-    before = attr_scatter.launches, attr_dw.launches, attr_merge.launches
+    before = launches(attr_scatter), launches(attr_dw), launches(attr_merge)
     feat, sw, grads = run()
     _, _, grads2 = run()
     torch.cuda.synchronize()
-    assert (attr_scatter.launches, attr_dw.launches, attr_merge.launches) == tuple(
+    assert (launches(attr_scatter), launches(attr_dw), launches(attr_merge)) == tuple(
         b + 2 for b in before)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
     with _plain_sampler():
@@ -707,11 +721,11 @@ def test_select_bins_kernel_equals_plain(stage, K, bin_size):
         bp = ids.expand(B, BH, BW, P).clone()
         bp[..., ::7] = -1
     thr_act = -math.log(0.01 + 1e-10)
-    before = fine_select_bins.launches
+    before = launches(fine_select_bins)
     got = fine_select_bins(rays, table, bp, thr_act, K, bin_size)
     want = fine_select_bins_plain(rays, table, bp, thr_act, K, bin_size)
     torch.cuda.synchronize()
-    assert fine_select_bins.launches == before + 1
+    assert launches(fine_select_bins) == before + 1
     assert (got[0] >= 0).any()
     for a, b in zip(got, want):
         assert torch.equal(a, b)
@@ -742,11 +756,11 @@ def test_two_stage_tracer_matches_plain_and_the_render_path(stage):
         loss = torch.where(sel[0] >= 0, v, torch.zeros_like(v)).sum()
         return sel, torch.autograd.grad(loss, leaves)
 
-    before = fine_select_bins.launches, fine_bwd_global.launches
+    before = launches(fine_select_bins), launches(fine_bwd_global)
     sel, grads = run()
     _, grads2 = run()
     torch.cuda.synchronize()
-    assert (fine_select_bins.launches, fine_bwd_global.launches) == (before[0] + 2, before[1] + 2)
+    assert (launches(fine_select_bins), launches(fine_bwd_global)) == (before[0] + 2, before[1] + 2)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
     from voge_tpu_torch.ops import cuda_fine, cuda_fine_bwd
 
@@ -804,11 +818,11 @@ def test_split_halves_match_plain(stage, K, cots_kind):
     # some slots name no row of the table: they contribute nothing
     idx = torch.where(idx % 7 == 3, idx + table.shape[0], idx)
     halves = (rays, table, idx, length, dsd, *cots)
-    before = (fine_bwd_gauss.launches, fine_bwd_rays.launches)
+    before = (launches(fine_bwd_gauss), launches(fine_bwd_rays))
     rows, again = fine_bwd_gauss(*halves), fine_bwd_gauss(*halves)
     g_rays, g_again = fine_bwd_rays(*halves), fine_bwd_rays(*halves)
     torch.cuda.synchronize()
-    assert (fine_bwd_gauss.launches, fine_bwd_rays.launches) == (before[0] + 2, before[1] + 2)
+    assert (launches(fine_bwd_gauss), launches(fine_bwd_rays)) == (before[0] + 2, before[1] + 2)
     assert rows.shape == (table.shape[0], 12) and g_rays.shape == rays.shape
     assert torch.equal(rows, again) and torch.equal(g_rays, g_again)
     _close(rows, fine_bwd_gauss_plain(*halves))
@@ -845,11 +859,11 @@ def test_fold_then_split_pair_matches_unified_entry(stage, g_w):
         cots[3] = None
     want_rows, want_rays = _fold_then_pair(rays, table, *sel, *cots, 0.9)
     fns = (fold_weights, fine_bwd_gauss, fine_bwd_rays, fine_bwd_global)
-    before = [fn.launches for fn in fns]
+    before = [launches(fn) for fn in fns]
     rows, g_rays = fine.global_backward(rays, table, *sel, *cots, 0.9, True, True)
     none, frozen = fine.global_backward(rays, table, *sel, *cots, 0.9, False, True)
     torch.cuda.synchronize()
-    assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 0, 1, 1]
+    assert [launches(fn) - b for fn, b in zip(fns, before)] == [0, 0, 1, 1]
     assert none is None and torch.equal(frozen, want_rays)
     assert torch.equal(rows, want_rows) and torch.equal(g_rays, want_rays)
 
@@ -875,11 +889,11 @@ def test_rays_only_launch_matches_unified_entry_and_plain(stage, K, fold):
         g_img = _cotangents(rays.shape, rays.device, 1, 40 + K)[0]
         kw.update(attrs=attrs, g_img=g_img)
     halves = (rays, table, idx, length, dsd, *cots[:3])
-    before = fine_bwd_rays.launches
+    before = launches(fine_bwd_rays)
     g_rays, g_mu = fine_bwd_rays(*halves, **kw, return_mu=True)
     again = fine_bwd_rays(*halves, **kw)
     torch.cuda.synchronize()
-    assert fine_bwd_rays.launches == before + 2 and torch.equal(g_rays, again)
+    assert launches(fine_bwd_rays) == before + 2 and torch.equal(g_rays, again)
     g_w = cots[3] if fold != "none" else None
     _, u_rays, u_mu = fine_bwd(rays, table, *sel, *cots[:3], g_w, 0.9, attrs, g_img, True,
                                return_mu=True)
@@ -977,14 +991,14 @@ def test_point_cloud_render_takes_the_split_path(dev, monkeypatch):
         return frag, torch.autograd.grad(loss, leaves)
 
     fns = (fold_weights, fine_bwd_gauss, fine_bwd_rays, fine_bwd_global)
-    before = [fn.launches for fn in fns]
+    before = [launches(fn) for fn in fns]
     frag, got = step()
     torch.cuda.synchronize()
-    assert [fn.launches - b for fn, b in zip(fns, before)] == [0, 0, 0, 1]
+    assert [launches(fn) - b for fn, b in zip(fns, before)] == [0, 0, 0, 1]
     monkeypatch.setattr(fine, "fine_bwd_global", _fold_then_pair)
     _, want = step()
     torch.cuda.synchronize()
-    assert [fn.launches - b for fn, b in zip(fns, before)] == [1, 1, 1, 1]
+    assert [launches(fn) - b for fn, b in zip(fns, before)] == [1, 1, 1, 1]
     for a, b in zip(got, want):
         assert torch.isfinite(a).all() and (a - b).norm() <= 1e-5 * b.norm()
     coarse_frag = vt.render_pipeline(t(verts), t(isig), R0, T0, t([[120.0, 120.0]]),
@@ -1036,10 +1050,10 @@ def test_pose_kernel_path_matches_plain_path(dev):
         return scores, torch.stack([params[k] for k in ("dist", "elev", "azim", "theta")]), sim
 
     fns = (emit_rows, fine_select, fine_bwd, attr_merge, fine_bwd_rays, fine_bwd_gauss)
-    before = [fn.launches for fn in fns]
+    before = [launches(fn) for fn in fns]
     sk, pk, simk = run()
     torch.cuda.synchronize()
-    ran = [fn.launches - b for fn, b in zip(fns, before)]
+    ran = [launches(fn) - b for fn, b in zip(fns, before)]
     # 2 chunks + 3 steps; the scene is frozen, so the backward is the per-ray
     # half alone: no K3, no grouping of its slots
     assert ran[0] >= 5 and ran[1:] == [5, 0, 5, 3, 0]
@@ -1075,11 +1089,11 @@ def test_slice_entry_points_default_to_the_card(dev, tmp_path):
     assert all(t.device.type == "cuda" for t in made)
     assert tio.load_off(off, to_torch=True, device="cpu")[0].device.type == "cpu"
     R, T = vt.look_at_view_transform(dist=4.0, elev=20.0, azim=30.0)
-    before = fine_select.launches
+    before = launches(fine_select)
     frag = vt.render_pipeline(g.verts, g.sigmas, R, T, torch.tensor([[100.0, 100.0]], device="cuda"),
                               torch.tensor([[32.0, 32.0]], device="cuda"), image_size=(64, 64),
                               max_assign=8)
-    assert fine_select.launches == before + 1 and frag.vert_index.device.type == "cuda"
+    assert launches(fine_select) == before + 1 and frag.vert_index.device.type == "cuda"
     assert (frag.vert_index >= 0).any().item()
 
 
@@ -1223,12 +1237,12 @@ def test_global_select_is_the_same_with_and_without_the_cull(stage, K):
 
     _, _, args = _global_select(stage, K, "none")
     glue = (cuda_fine.cull_rows, cuda_fine.block_cones)
-    before = [fn.launches for fn in glue]
+    before = [launches(fn) for fn in glue]
     culled = fine_select_global(*args)
     again = fine_select_global(*args)
-    assert [fn.launches for fn in glue] == [n + 2 for n in before]
+    assert [launches(fn) for fn in glue] == [n + 2 for n in before]
     plain_walk = fine_select_global(*args, _cull=False)
-    assert [fn.launches for fn in glue] == [n + 2 for n in before]
+    assert [launches(fn) for fn in glue] == [n + 2 for n in before]
     torch.cuda.synchronize()
     for a, b, c in zip(culled, again, plain_walk):
         assert torch.equal(a, b) and torch.equal(a, c)
@@ -1290,12 +1304,12 @@ def _hold_runs(idx, n_rows):
     launch a call, two runs equal."""
     from voge_tpu_torch.ops.cuda_attr import slot_runs, slot_runs_plain
 
-    before = slot_runs.launches
+    before = launches(slot_runs)
     order, starts = slot_runs(idx, n_rows)
     again = slot_runs(idx, n_rows)
     p_order, p_starts = slot_runs_plain(idx, n_rows)
     torch.cuda.synchronize()
-    assert slot_runs.launches == before + 2
+    assert launches(slot_runs) == before + 2
     assert order.dtype == torch.int32 and starts.dtype == torch.int64
     v = int(p_starts[-1])
     assert torch.equal(starts, p_starts) and torch.equal(order[:v], p_order[:v])
@@ -1466,9 +1480,9 @@ def test_k_above_128_stays_off_the_kernels_and_k128_off_the_dense_route(dev, mon
     cams = (R, T, torch.tensor([[60.0, 60.0]], device=dev), torch.tensor([[20.0, 20.0]], device=dev))
     for K, want in ((128, []), (200, [1])):
         calls.clear()
-        fine_select.launches = 0
+        trace.reset()
         vt.render_pipeline(g.verts, g.sigmas, *cams, image_size=(40, 40), max_assign=K)
-        assert calls == want and (fine_select.launches > 0) == (K <= 128)
+        assert calls == want and (launches(fine_select) > 0) == (K <= 128)
 
 
 def _batch8_step(dev, verts, sigmas, colors):

@@ -24,6 +24,7 @@ from voge_tpu.ops.pallas_attr import (
     attr_merge_bwd_attr_pallas, attr_merge_bwd_unified_pallas,
 )
 from voge_tpu.rays import camera_rays
+from voge_tpu_torch import trace
 from voge_tpu_torch.ops.cuda_attr import (
     attr_merge_bwd_plain, attr_scatter_plain, slot_runs, slot_runs_plain,
 )
@@ -44,9 +45,9 @@ def _hold(idx, n_rows):
     """``slot_runs`` on a CPU tensor against numpy: types, run starts, the
     valid prefix of ``order``, each run in ascending slot order on its id."""
     t = torch.as_tensor(idx)
-    before = slot_runs.launches
-    order, starts = slot_runs(t, n_rows)
-    assert slot_runs.launches == before          # the plain version ran
+    with trace.tracing():
+        order, starts = slot_runs(t, n_rows)
+    assert trace.counts().get("launch.slot_runs", 0) == 0     # the plain version ran
     assert order.dtype == torch.int32 and starts.dtype == torch.int64
     assert order.shape == (t.numel(),) and starts.shape == (n_rows + 1,)
     want_order, want_starts = _numpy_runs(idx, n_rows)

@@ -43,6 +43,7 @@ from voge_tpu.ops.coarse import overlap_mask
 from voge_tpu.ops.pallas_bwd import fine_bwd_gauss_pallas, fine_bwd_rays_pallas
 from voge_tpu.rays import camera_rays
 import voge_tpu_torch as vt
+from voge_tpu_torch import trace
 from voge_tpu_torch.ops import cuda_fine_bwd, fine
 from voge_tpu_torch.ops.cuda_fine import fine_select_global_plain
 from voge_tpu_torch.ops.cuda_fine_bwd import (
@@ -109,10 +110,11 @@ def test_plain_halves_match_pallas_pair(K):
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6 * np.abs(want).max())
         assert _rel(got, want) <= 1e-5
     # on CPU tensors the wrappers are their plain versions, and count nothing
-    before = (fine_bwd_gauss.launches, fine_bwd_rays.launches)
-    assert torch.equal(fine_bwd_gauss(*halves), rows)
-    assert torch.equal(fine_bwd_rays(*halves), g_rays)
-    assert (fine_bwd_gauss.launches, fine_bwd_rays.launches) == before
+    with trace.tracing():
+        assert torch.equal(fine_bwd_gauss(*halves), rows)
+        assert torch.equal(fine_bwd_rays(*halves), g_rays)
+    n = trace.counts()
+    assert (n.get("launch.fine_bwd_gauss", 0), n.get("launch.fine_bwd_rays", 0)) == (0, 0)
 
 
 def _global_scene(K, seed=11):

@@ -25,7 +25,7 @@ __version__ = "0.1.0"
 
 from voge_tpu_torch import aggregation, cameras, checkpoint, converter, interop, meshes, models
 from voge_tpu_torch import camera_op as CameraOP
-from voge_tpu_torch import oracle, parallel, timing
+from voge_tpu_torch import oracle, parallel, timing, trace
 from voge_tpu_torch import ops
 from voge_tpu_torch import rays, renderer, sampler, utils
 from voge_tpu_torch.cameras import PerspectiveCameras, look_at_view_transform

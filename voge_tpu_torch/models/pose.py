@@ -22,6 +22,7 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from voge_tpu_torch import trace
 from voge_tpu_torch._device import resolve_device
 from voge_tpu_torch.cameras import look_at_view_transform
 from voge_tpu_torch.renderer import get_silhouette, interpolate_attr, render_pipeline
@@ -42,12 +43,13 @@ def pose_matrices(dist, elev, azim, theta=None, degrees: bool = False, device=No
 
 def feature_similarity(pred: torch.Tensor, target: torch.Tensor, mask=None) -> torch.Tensor:
     """Mean cosine similarity over pixels, (B,); pred / target (B, H, W, C)."""
-    pn = pred / (torch.linalg.norm(pred, dim=-1, keepdim=True) + 1e-8)
-    tn = target / (torch.linalg.norm(target, dim=-1, keepdim=True) + 1e-8)
-    sim = (pn * tn).sum(-1)
-    if mask is not None:
-        return (sim * mask).sum((1, 2)) / (mask.sum((1, 2)) + 1e-8)
-    return sim.mean((1, 2))
+    with trace.span("voge.similarity"):
+        pn = pred / (torch.linalg.norm(pred, dim=-1, keepdim=True) + 1e-8)
+        tn = target / (torch.linalg.norm(target, dim=-1, keepdim=True) + 1e-8)
+        sim = (pn * tn).sum(-1)
+        if mask is not None:
+            return (sim * mask).sum((1, 2)) / (mask.sum((1, 2)) + 1e-8)
+        return sim.mean((1, 2))
 
 
 class PoseHypothesisScorer(nn.Module):

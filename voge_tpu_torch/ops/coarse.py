@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from voge_tpu_torch import trace
 from voge_tpu_torch.ops.cuda_attr import slot_runs
 from voge_tpu_torch.ops.cuda_coarse import (  # noqa: F401  (re-exported)
     MAX_WIN,
@@ -132,10 +133,13 @@ def _emit_candidates(R, T, focal, principal, points, isigmas, image_size,
     gpos, g_valid, bits_g, gstat = coarse_globals(
         over, planes, starts, info, min(int(n_globals), P), nst, BW2, bin_size, (H, W))
     if row_align > 0 and nb:
-        densest, dropped, wider = info.tolist()   # the render's one host read
+        with trace.span("voge.coarse.read"):
+            densest, dropped, wider = info.tolist()   # the render's one host read
+        trace.count("host_reads")
         if dropped and win < MAX_WIN and wider > win:
             # more Gaussians outgrow the window than the global list holds:
             # emit once more with the window the finite ones need
+            trace.count("coarse.reemits")
             return _emit_candidates(
                 R, T, focal, principal, points, isigmas, image_size, thr,
                 bin_size, M_max, n_globals, row_align, return_dst, wider)
@@ -196,14 +200,19 @@ def _emit_candidates_sorted(R, T, focal, principal, points, isigmas, image_size,
     starts = torch.searchsorted(flat, edges)
     counts_full = starts[1:] - starts[:-1]
     if row_align > 0 and nb:
-        densest, dropped = torch.stack([counts_full.max(), g_over.max()]).tolist()
+        with trace.span("voge.coarse.read"):
+            densest, dropped = torch.stack([counts_full.max(), g_over.max()]).tolist()
+        trace.count("host_reads")
         if dropped and win < MAX_WIN:
             st_t = torch.tensor(st, dtype=torch.float32, device=dev)
             _, wx, finx = supertile_window(u, rx, fb, st_t)
             _, wy, finy = supertile_window(v, ry, fb, st_t)
             fits = oversize & finx & finy & (wx <= MAX_WIN) & (wy <= MAX_WIN)
-            wider = int(torch.where(fits, torch.maximum(wx, wy), 0).max())
+            with trace.span("voge.coarse.read"):
+                wider = int(torch.where(fits, torch.maximum(wx, wy), 0).max())
+            trace.count("host_reads")
             if wider > win:
+                trace.count("coarse.reemits")
                 return _emit_candidates_sorted(
                     R, T, focal, principal, points, isigmas, image_size, thr,
                     bin_size, M_max, n_globals, row_align, return_dst, wider)

@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import torch
 
+from voge_tpu_torch import trace
 from voge_tpu_torch.ops._dispatch import (
     INT, LONG, VOIDP, bind, check, on_cuda, ptr, raise_on_error, stream,
 )
@@ -83,11 +84,8 @@ def attr_merge(idx: torch.Tensor, w: torch.Tensor, attrs: torch.Tensor):
     err = bind(*_MERGE)(ptr(idx), ptr(w), ptr(attrs), ptr(out), n_pix, K, d,
                         attrs.shape[0], stream(idx.device))
     raise_on_error(err, "attr_merge")
-    attr_merge.launches += 1
+    trace.count("launch.attr_merge")
     return out
-
-
-attr_merge.launches = 0
 
 
 def attr_merge_bwd_plain(idx, w, attrs, g, need_w: bool = True,
@@ -158,26 +156,24 @@ def slot_runs(idx: torch.Tensor, n_rows: int):
         slots holding ``j`` are ``order[starts[j]:starts[j + 1]]`` in
         ascending slot order; ``order[starts[n_rows]:]`` is unspecified
     """
-    if not on_cuda(idx):
-        return slot_runs_plain(idx, n_rows)
-    check(idx, "idx", torch.int32)
-    n = idx.numel()
-    if not 0 < n < 2 ** 31:
-        raise ValueError(f"idx: expected 1 to 2^31 - 1 slots, got {n}")
-    if not 0 < n_rows < 2 ** 31 - 1:
-        raise ValueError(f"n_rows: expected 1 to 2^31 - 2, got {n_rows}")
-    dev = idx.device
-    scratch = idx.new_empty(bind(*_RUNS_SCRATCH)(n))
-    order = idx.new_empty(n)
-    starts = idx.new_empty(n_rows + 1, dtype=torch.int64)
-    err = bind(*_RUNS)(ptr(idx), ptr(order), ptr(starts), ptr(scratch), n, n_rows,
-                       stream(dev))
-    raise_on_error(err, "slot_runs")
-    slot_runs.launches += 1
-    return order, starts
-
-
-slot_runs.launches = 0
+    with trace.span("voge.grouping"):
+        if not on_cuda(idx):
+            return slot_runs_plain(idx, n_rows)
+        check(idx, "idx", torch.int32)
+        n = idx.numel()
+        if not 0 < n < 2 ** 31:
+            raise ValueError(f"idx: expected 1 to 2^31 - 1 slots, got {n}")
+        if not 0 < n_rows < 2 ** 31 - 1:
+            raise ValueError(f"n_rows: expected 1 to 2^31 - 2, got {n_rows}")
+        dev = idx.device
+        scratch = idx.new_empty(bind(*_RUNS_SCRATCH)(n))
+        order = idx.new_empty(n)
+        starts = idx.new_empty(n_rows + 1, dtype=torch.int64)
+        err = bind(*_RUNS)(ptr(idx), ptr(order), ptr(starts), ptr(scratch), n, n_rows,
+                           stream(dev))
+        raise_on_error(err, "slot_runs")
+        trace.count("launch.slot_runs")
+        return order, starts
 
 
 def attr_dw(idx: torch.Tensor, attrs: torch.Tensor, g: torch.Tensor):
@@ -195,11 +191,8 @@ def attr_dw(idx: torch.Tensor, attrs: torch.Tensor, g: torch.Tensor):
     err = bind(*_DW)(ptr(idx), ptr(g), ptr(attrs), ptr(d_w), n_pix, K, d, n_rows,
                      stream(idx.device))
     raise_on_error(err, "attr_dw")
-    attr_dw.launches += 1
+    trace.count("launch.attr_dw")
     return d_w
-
-
-attr_dw.launches = 0
 
 
 def attr_scatter(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
@@ -224,11 +217,8 @@ def attr_scatter(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     err = bind(*_SCATTER)(ptr(order), ptr(starts), ptr(w), ptr(g), ptr(out), ptr(rows),
                           n_pix, K, d, n_rows, stream(idx.device))
     raise_on_error(err, "attr_scatter")
-    attr_scatter.launches += 1
+    trace.count("launch.attr_scatter")
     return out
-
-
-attr_scatter.launches = 0
 
 
 def attr_merge_bwd(idx: torch.Tensor, w: torch.Tensor, attrs: torch.Tensor,
@@ -255,11 +245,8 @@ def attr_merge_bwd(idx: torch.Tensor, w: torch.Tensor, attrs: torch.Tensor,
     err = bind(*_BWD)(ptr(idx), ptr(w), ptr(attrs), ptr(g), ptr(order), ptr(starts),
                       ptr(d_w), ptr(d_attr), ptr(rows), n_pix, K, d, n_rows, stream(dev))
     raise_on_error(err, "attr_merge_bwd")
-    attr_merge_bwd.launches += 1
+    trace.count("launch.attr_merge_bwd")
     return d_w, d_attr
-
-
-attr_merge_bwd.launches = 0
 
 
 class AttrMerge(torch.autograd.Function):
@@ -269,12 +256,14 @@ class AttrMerge(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, attrs, idx):
         ctx.save_for_backward(w, attrs, idx)
-        return attr_merge(idx, w, attrs)
+        with trace.span("voge.attr"):
+            return attr_merge(idx, w, attrs)
 
     @staticmethod
     def backward(ctx, grad):
         w, attrs, idx = ctx.saved_tensors
-        d_w, d_attr = attr_merge_bwd(idx, w, attrs, grad.contiguous(),
-                                     ctx.needs_input_grad[0],
-                                     ctx.needs_input_grad[1])
+        with trace.span("voge.attr_bwd"):
+            d_w, d_attr = attr_merge_bwd(idx, w, attrs, grad.contiguous(),
+                                         ctx.needs_input_grad[0],
+                                         ctx.needs_input_grad[1])
         return d_w, d_attr, None

@@ -39,6 +39,7 @@ import math
 
 import torch
 
+from voge_tpu_torch import trace
 from voge_tpu_torch.ops._dispatch import (
     FLOAT, INT, VOIDP, bind, check, on_cuda, ptr, raise_on_error, stream,
 )
@@ -229,11 +230,8 @@ def emit_rows(R, T, focal, principal, points, isigmas, thr: float,
         H, W, BH2, BW2, nst, win, MAX_WIN, stream(dev),
     )
     raise_on_error(err, "emit_rows")
-    emit_rows.launches += 1
+    trace.count("launch.emit_rows")
     return rid, bits, planes, over, info
-
-
-emit_rows.launches = 0
 
 
 def coarse_globals_plain(over, planes, starts, info, n_globals: int, nst: int,
@@ -311,11 +309,8 @@ def coarse_globals(over, planes, starts, info, n_globals: int, nst: int,
         ptr(over), ptr(planes), ptr(starts), ptr(gpos), ptr(g_valid), ptr(bits_g),
         ptr(gstat), ptr(info), B, P, nst, BW2, float(bin_size), H, W, ng, stream(dev))
     raise_on_error(err, "coarse_globals")
-    coarse_globals.launches += 1
+    trace.count("launch.coarse_globals")
     return gpos, g_valid.view(torch.bool), bits_g, gstat
-
-
-coarse_globals.launches = 0
 
 
 def coarse_rows_plain(order, starts, bits, gpos, bits_g, gstat, M: int, nst: int,
@@ -421,9 +416,6 @@ def coarse_rows(order, starts, bits, gpos, bits_g, gstat, M: int, nst: int,
         ptr(pos_c), ptr(bits_c), ptr(ids_c), ptr(counts_c), ptr(overflow_c),
         int(return_dst), ptr(dst_l), ptr(dst_g), B, P, E, nst, ng, int(M), stream(dev))
     raise_on_error(err, "coarse_rows")
-    coarse_rows.launches += 1
+    trace.count("launch.coarse_rows")
     out = (pos_c, bits_c, ids_c, counts_c, overflow_c)
     return out + (dst_l, dst_g) if return_dst else out
-
-
-coarse_rows.launches = 0

@@ -42,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from voge_tpu_torch import trace
 from voge_tpu_torch.ops._dispatch import (
     FLOAT, INT, LONG, VOIDP, bind, check, on_cuda, ptr, raise_on_error, stream,
 )
@@ -254,11 +255,8 @@ def fine_select(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
         stream(dev),
     )
     raise_on_error(err, "fine_select")
-    fine_select.launches += 1
+    trace.count("launch.fine_select")
     return idx, sl, sa, sd, w, img
-
-
-fine_select.launches = 0
 
 
 def _check_global(rays, table, bits, K, bin_size):
@@ -395,11 +393,8 @@ def cull_rows(table: torch.Tensor, thr_act: float) -> torch.Tensor:
     fn = bind("fine_select", "voge_cull_rows", [VOIDP, VOIDP, LONG, ctypes.c_double, VOIDP])
     raise_on_error(fn(ptr(table), ptr(out), table.shape[0], thr_act, stream(table.device)),
                    "cull_rows")
-    cull_rows.launches += 1
+    trace.count("launch.cull_rows")
     return out
-
-
-cull_rows.launches = 0
 
 
 def block_cones(rays: torch.Tensor, th: int, tw: int) -> torch.Tensor:
@@ -416,11 +411,8 @@ def block_cones(rays: torch.Tensor, th: int, tw: int) -> torch.Tensor:
     fn = bind("fine_select", "voge_block_cones", [VOIDP, VOIDP] + [INT] * 7 + [VOIDP])
     raise_on_error(fn(ptr(rays), ptr(out), B * TH * TW, H, W, th, tw, TW, TH * TW,
                       stream(rays.device)), "block_cones")
-    block_cones.launches += 1
+    trace.count("launch.block_cones")
     return out
-
-
-block_cones.launches = 0
 
 
 def cull_mask_plain(cones: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
@@ -474,18 +466,16 @@ def fine_select_global(rays, table, bits, thr_act: float, K: int,
     TH, TW = (H - 1) // th + 1, (W - 1) // tw + 1
     cull = cones = None
     if _cull:
-        cull, cones = cull_rows(table, thr_act), block_cones(rays, th, tw)
+        with trace.span("voge.select.cull"):
+            cull, cones = cull_rows(table, thr_act), block_cones(rays, th, tw)
     err = _kernel_global()(
         ptr(rays), ptr(table), ptr(bits), ptr(cull), ptr(cones), ptr(idx),
         ptr(sl), ptr(sa), ptr(sd), ptr(w), B * TH * TW, H, W, bin_size, th, tw,
         TW, TH * TW, P, K, thr_act, agg_ow, stream(dev),
     )
     raise_on_error(err, "fine_select_global")
-    fine_select_global.launches += 1
+    trace.count("launch.fine_select_global")
     return idx, sl, sa, sd, w
-
-
-fine_select_global.launches = 0
 
 
 def _check_bins(rays, table, bin_points, K, bin_size):
@@ -559,8 +549,5 @@ def fine_select_bins(rays, table, bin_points, thr_act: float, K: int,
         K, thr_act, stream(dev),
     )
     raise_on_error(err, "fine_select_bins")
-    fine_select_bins.launches += 1
+    trace.count("launch.fine_select_bins")
     return idx, sl, sa, sd
-
-
-fine_select_bins.launches = 0

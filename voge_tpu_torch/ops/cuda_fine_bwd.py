@@ -62,6 +62,7 @@ from typing import Optional
 
 import torch
 
+from voge_tpu_torch import trace
 from voge_tpu_torch.ops._dispatch import (
     FLOAT, INT, LONG, VOIDP, bind, check, on_cuda, ptr, raise_on_error, stream,
 )
@@ -120,11 +121,8 @@ def fold_weights(length, act, dsd, w, g_w, ow: float):
         ptr(length), ptr(act), ptr(dsd), ptr(w), ptr(g_w), ptr(dl), ptr(da),
         ptr(dd), length.numel() // K, K, float(ow), stream(length.device))
     raise_on_error(err, "fold_weights")
-    fold_weights.launches += 1
+    trace.count("launch.fold_weights")
     return dl, da, dd
-
-
-fold_weights.launches = 0
 
 
 GROUP_MIN = 4    # the fewest lanes a Gaussian in K3's per-Gaussian kernel
@@ -374,11 +372,8 @@ def fine_bwd(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
                               attrs, g_img, want_rays, return_mu)
     out = _launch(rays, table, idx, length, act, dsd, w, grads, agg_ow, attrs, g_img,
                   want_rays, return_mu)
-    fine_bwd.launches += 1
+    trace.count("launch.fine_bwd")
     return out if return_mu else out[:2]
-
-
-fine_bwd.launches = 0
 
 
 def fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
@@ -395,11 +390,8 @@ def fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
                                      agg_ow, want_rays)
     out = _launch(rays, table, idx, length, act, dsd, w, grads, agg_ow, None, None,
                   want_rays)
-    fine_bwd_global.launches += 1
+    trace.count("launch.fine_bwd_global")
     return out[:2]
-
-
-fine_bwd_global.launches = 0
 
 
 def fine_bwd_gauss_plain(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
@@ -433,11 +425,8 @@ def fine_bwd_gauss(rays, table, idx, length, dsd, g_len, g_act, g_dsd):
                               1.0, None, None, True, False)
     order, starts = slot_runs(idx, n_tab)
     rows = _runs_stage(rays, table, coef, None, None, order, starts)
-    fine_bwd_gauss.launches += 1
+    trace.count("launch.fine_bwd_gauss")
     return rows
-
-
-fine_bwd_gauss.launches = 0
 
 
 def fine_bwd_rays_plain(rays, table, idx, length, dsd, g_len, g_act, g_dsd, *,
@@ -477,8 +466,5 @@ def fine_bwd_rays(rays, table, idx, length, dsd, g_len, g_act, g_dsd, *,
     _check_k(K, "fine_bwd_rays")
     _, g_rays, g_mu = _slots_stage(rays, table, idx, length, act, dsd, w, grads, agg_ow,
                                    attrs, g_img, False, True, return_mu)
-    fine_bwd_rays.launches += 1
+    trace.count("launch.fine_bwd_rays")
     return (g_rays, g_mu) if return_mu else g_rays
-
-
-fine_bwd_rays.launches = 0

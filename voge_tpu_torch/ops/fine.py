@@ -61,6 +61,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
+from voge_tpu_torch import trace
 from voge_tpu_torch.ops.coarse import (
     coarse_bin_config,
     emit_supertile_candidates,
@@ -142,28 +143,33 @@ def compact_candidates(R, T, focal, principal, points: torch.Tensor,
     """Coarse stage: the per-supertile candidate rows of camera-centred
     ``points`` (B, P, 3) with precisions ``isigmas`` (B, P, 3, 3).  Discrete,
     so not differentiable."""
-    B, P = points.shape[0], points.shape[1]
-    H, W = int(image_size[0]), int(image_size[1])
-    bs, mppb = production_bin_geometry((H, W), n_assign, P, bin_size,
-                                       max_points_per_bin)
-    if mppb == -1:
-        raise ValueError("max_point_per_bin=-1 has no coarse stage: ray_tracing "
-                         "serves it over the global candidate space")
-    _check_k(n_assign)
-    BH2, BW2 = supertile_grid(H, W, bs)
-    nst = BH2 * BW2
-    cc = _pick_cand_chunk(P)
-    # Rows are sized from the sorted counts: the densest supertile rounded up
-    # to ``cc``.  ``voge_tpu``'s static capacity heuristic stays a floor only
-    # where the caller asked for a capacity (a positive ``max_point_per_bin``).
-    M_floor = 0
-    if max_points_per_bin is not None and max_points_per_bin > 0:
-        # voge_tpu's padded Gaussian count (its chunk widths' lcm, 1024)
-        P_pad = _ceil_to(max(P, 1024), 1024)
-        M_floor = _pick_m_max(P_pad, nst, cc, 4 * mppb)
-    rows = emit_supertile_candidates(R, T, focal, principal, points, isigmas,
-                                     (H, W), thr, bs, M_floor, row_align=cc)
-    return Candidates(*rows, bs, -math.log(thr + 1.0 / 1e10))
+    with trace.span("voge.coarse"):
+        B, P = points.shape[0], points.shape[1]
+        H, W = int(image_size[0]), int(image_size[1])
+        bs, mppb = production_bin_geometry((H, W), n_assign, P, bin_size,
+                                           max_points_per_bin)
+        if mppb == -1:
+            raise ValueError("max_point_per_bin=-1 has no coarse stage: ray_tracing "
+                             "serves it over the global candidate space")
+        _check_k(n_assign)
+        BH2, BW2 = supertile_grid(H, W, bs)
+        nst = BH2 * BW2
+        cc = _pick_cand_chunk(P)
+        # Rows are sized from the sorted counts: the densest supertile rounded up
+        # to ``cc``.  ``voge_tpu``'s static capacity heuristic stays a floor only
+        # where the caller asked for a capacity (a positive ``max_point_per_bin``).
+        M_floor = 0
+        if max_points_per_bin is not None and max_points_per_bin > 0:
+            # voge_tpu's padded Gaussian count (its chunk widths' lcm, 1024)
+            P_pad = _ceil_to(max(P, 1024), 1024)
+            M_floor = _pick_m_max(P_pad, nst, cc, 4 * mppb)
+        rows = emit_supertile_candidates(R, T, focal, principal, points, isigmas,
+                                         (H, W), thr, bs, M_floor, row_align=cc)
+        c = Candidates(*rows, bs, -math.log(thr + 1.0 / 1e10))
+        trace.count("coarse.slots", c.pos_c.numel())
+        trace.count_device("coarse.members", c.counts_c)
+        trace.count_device("coarse.overflow", c.overflow_c)
+        return c
 
 
 @torch.no_grad()
@@ -171,7 +177,8 @@ def feature_table(points: torch.Tensor, isigmas: torch.Tensor) -> torch.Tensor:
     """(B * P, 16) feature rows of camera-centred ``points`` (B, P, 3) with
     precisions ``isigmas`` (B, P, 3, 3), row ``b * P + n``; built without
     autograd (the backward kernels return the rows' gradients)."""
-    return _gauss_feature_cols(points.reshape(-1, 3), isigmas.reshape(-1, 3, 3)).contiguous()
+    with trace.span("voge.select.table"):
+        return _gauss_feature_cols(points.reshape(-1, 3), isigmas.reshape(-1, 3, 3)).contiguous()
 
 
 @torch.no_grad()
@@ -186,10 +193,11 @@ def candidate_table(points: torch.Tensor, isigmas: torch.Tensor,
 
 def _gather_candidates(table: torch.Tensor, pos_c: torch.Tensor, B: int) -> torch.Tensor:
     """(nb, M, 16) rows of the (B * P, 16) ``table`` that ``pos_c`` names."""
-    nb, M = pos_c.shape
-    P = table.shape[0] // B
-    img_row = torch.arange(nb, device=table.device)[:, None] // (nb // B)
-    return table[(img_row * P + pos_c).reshape(-1)].reshape(nb, M, FEAT).contiguous()
+    with trace.span("voge.select.gather"):
+        nb, M = pos_c.shape
+        P = table.shape[0] // B
+        img_row = torch.arange(nb, device=table.device)[:, None] // (nb // B)
+        return table[(img_row * P + pos_c).reshape(-1)].reshape(nb, M, FEAT).contiguous()
 
 
 def gather_back_rows(rows: torch.Tensor, dst) -> torch.Tensor:
@@ -243,53 +251,55 @@ class FineSelect(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, points, isigmas, rays, attrs, origins, cand, K, agg_ow, camera_grad):
-        table = feature_table(points, isigmas)
-        table_c = _gather_candidates(table, cand.pos_c, points.shape[0])
-        attr_rows = None
-        if attrs is not None:
-            attr_rows = attrs.to(torch.float32).reshape(-1, attrs.shape[-1]).contiguous()
-        out = fine_select(rays, table_c, cand.bits_c, cand.ids_c, cand.counts_c,
-                          cand.thr_act, K, cand.bin_size, agg_ow, attr_rows)
-        ctx.mark_non_differentiable(out[0])
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(rays, table, attr_rows, *out[:5])
-        ctx.agg_ow, ctx.camera_grad = agg_ow, camera_grad
-        ctx.attrs_shape = None if attrs is None else attrs.shape
-        return out if attrs is not None else out[:5]
+        with trace.span("voge.select"):
+            table = feature_table(points, isigmas)
+            table_c = _gather_candidates(table, cand.pos_c, points.shape[0])
+            attr_rows = None
+            if attrs is not None:
+                attr_rows = attrs.to(torch.float32).reshape(-1, attrs.shape[-1]).contiguous()
+            out = fine_select(rays, table_c, cand.bits_c, cand.ids_c, cand.counts_c,
+                              cand.thr_act, K, cand.bin_size, agg_ow, attr_rows)
+            ctx.mark_non_differentiable(out[0])
+            ctx.set_materialize_grads(False)
+            ctx.save_for_backward(rays, table, attr_rows, *out[:5])
+            ctx.agg_ow, ctx.camera_grad = agg_ow, camera_grad
+            ctx.attrs_shape = None if attrs is None else attrs.shape
+            return out if attrs is not None else out[:5]
 
     @staticmethod
     def backward(ctx, _g_idx, g_len, g_act, g_dsd, g_w, g_img=None):
-        rays, table, attr_rows, idx, length, act, dsd, w = ctx.saved_tensors
-        needs = ctx.needs_input_grad
-        want_rays = bool(ctx.camera_grad) and needs[2]
-        want_origins = needs[4]
-        if g_img is None:
-            attr_rows = None
-        want_attrs = attr_rows is not None and needs[3]
-        cont = lambda g: None if g is None else g.contiguous()
-        grads = (cont(g_len), cont(g_act), cont(g_dsd), cont(g_w))
-        g_img = cont(g_img)
-        rows = g_rays = g_mu = None
-        if needs[0] or needs[1] or want_attrs:
-            out = fine_bwd(rays, table, idx, length, act, dsd, w, *grads, ctx.agg_ow,
-                           attr_rows, g_img, want_rays, return_mu=want_origins)
-            rows, g_rays = out[:2]
-            g_mu = out[2] if want_origins else None
-        elif want_rays or want_origins:
-            g_rays, g_mu = fine_bwd_rays(
-                rays, table, idx, length, dsd, *grads[:3], act=act, w=w, g_w=grads[3],
-                agg_ow=ctx.agg_ow, attrs=attr_rows, g_img=g_img, return_mu=True)
-            g_rays = g_rays if want_rays else None
-        B = rays.shape[0]
-        g_points = g_isigmas = g_attrs = g_origins = None
-        if rows is not None:
-            rows = rows.reshape(B, -1, rows.shape[-1])
-            g_points, g_isigmas = rows[..., 0:3], rows[..., 3:12].reshape(B, -1, 3, 3)
-            if want_attrs:
-                g_attrs = rows[..., 12:].reshape(ctx.attrs_shape)
-        if want_origins:
-            g_origins = -g_mu.reshape(B, -1, 3).sum(1)
-        return (g_points, g_isigmas, g_rays, g_attrs, g_origins, None, None, None, None)
+        with trace.span("voge.fine_bwd"):
+            rays, table, attr_rows, idx, length, act, dsd, w = ctx.saved_tensors
+            needs = ctx.needs_input_grad
+            want_rays = bool(ctx.camera_grad) and needs[2]
+            want_origins = needs[4]
+            if g_img is None:
+                attr_rows = None
+            want_attrs = attr_rows is not None and needs[3]
+            cont = lambda g: None if g is None else g.contiguous()
+            grads = (cont(g_len), cont(g_act), cont(g_dsd), cont(g_w))
+            g_img = cont(g_img)
+            rows = g_rays = g_mu = None
+            if needs[0] or needs[1] or want_attrs:
+                out = fine_bwd(rays, table, idx, length, act, dsd, w, *grads, ctx.agg_ow,
+                               attr_rows, g_img, want_rays, return_mu=want_origins)
+                rows, g_rays = out[:2]
+                g_mu = out[2] if want_origins else None
+            elif want_rays or want_origins:
+                g_rays, g_mu = fine_bwd_rays(
+                    rays, table, idx, length, dsd, *grads[:3], act=act, w=w, g_w=grads[3],
+                    agg_ow=ctx.agg_ow, attrs=attr_rows, g_img=g_img, return_mu=True)
+                g_rays = g_rays if want_rays else None
+            B = rays.shape[0]
+            g_points = g_isigmas = g_attrs = g_origins = None
+            if rows is not None:
+                rows = rows.reshape(B, -1, rows.shape[-1])
+                g_points, g_isigmas = rows[..., 0:3], rows[..., 3:12].reshape(B, -1, 3, 3)
+                if want_attrs:
+                    g_attrs = rows[..., 12:].reshape(ctx.attrs_shape)
+            if want_origins:
+                g_origins = -g_mu.reshape(B, -1, 3).sum(1)
+            return (g_points, g_isigmas, g_rays, g_attrs, g_origins, None, None, None, None)
 
 
 def global_backward(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
@@ -314,15 +324,16 @@ def global_backward(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd,
     :return: (rows (B * P, 12) per Gaussian: grad mu (3), grad Lambda (9),
         or None when ``want_scene`` is False; g_rays (B, H, W, 3) or None)
     """
-    cont = lambda g: None if g is None else g.contiguous()
-    g_len, g_act, g_dsd, g_w = (cont(g) for g in (g_len, g_act, g_dsd, g_w))
-    if want_scene:
-        return fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
-                               g_dsd, g_w, agg_ow, want_rays)
-    if not want_rays:
-        return None, None
-    return None, fine_bwd_rays(rays, table, idx, length, dsd, g_len, g_act, g_dsd,
-                               act=act, w=w, g_w=g_w, agg_ow=agg_ow)
+    with trace.span("voge.fine_bwd"):
+        cont = lambda g: None if g is None else g.contiguous()
+        g_len, g_act, g_dsd, g_w = (cont(g) for g in (g_len, g_act, g_dsd, g_w))
+        if want_scene:
+            return fine_bwd_global(rays, table, idx, length, act, dsd, w, g_len, g_act,
+                                   g_dsd, g_w, agg_ow, want_rays)
+        if not want_rays:
+            return None, None
+        return None, fine_bwd_rays(rays, table, idx, length, dsd, g_len, g_act, g_dsd,
+                                   act=act, w=w, g_w=g_w, agg_ow=agg_ow)
 
 
 class FineSelectGlobal(torch.autograd.Function):
@@ -338,13 +349,14 @@ class FineSelectGlobal(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, points, isigmas, rays, thr_act, K, bin_size, agg_ow, camera_grad):
-        table = feature_table(points, isigmas)
-        out = fine_select_global(rays, table, None, thr_act, K, bin_size, agg_ow)
-        ctx.mark_non_differentiable(out[0])
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(rays, table, *out)
-        ctx.agg_ow, ctx.camera_grad = agg_ow, camera_grad
-        return out
+        with trace.span("voge.select"):
+            table = feature_table(points, isigmas)
+            out = fine_select_global(rays, table, None, thr_act, K, bin_size, agg_ow)
+            ctx.mark_non_differentiable(out[0])
+            ctx.set_materialize_grads(False)
+            ctx.save_for_backward(rays, table, *out)
+            ctx.agg_ow, ctx.camera_grad = agg_ow, camera_grad
+            return out
 
     @staticmethod
     def backward(ctx, _g_idx, g_len, g_act, g_dsd, g_w):
@@ -374,12 +386,13 @@ class RayTraceFine(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, mus, isigmas, rays, bin_points, thr_act, bin_size, K):
-        table = feature_table(mus[None], isigmas[None])
-        out = fine_select_bins(rays, table, bin_points, thr_act, K, bin_size)
-        ctx.mark_non_differentiable(out[0])
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(rays, table, *out)
-        return out
+        with trace.span("voge.select"):
+            table = feature_table(mus[None], isigmas[None])
+            out = fine_select_bins(rays, table, bin_points, thr_act, K, bin_size)
+            ctx.mark_non_differentiable(out[0])
+            ctx.set_materialize_grads(False)
+            ctx.save_for_backward(rays, table, *out)
+            return out
 
     @staticmethod
     def backward(ctx, _g_idx, g_len, g_act, g_dsd):

@@ -18,6 +18,7 @@ from typing import Optional, Tuple, Union
 import torch
 from torch import nn
 
+from voge_tpu_torch import trace
 from voge_tpu_torch._device import resolve_device
 from voge_tpu_torch.aggregation import expend_sigma
 from voge_tpu_torch.cameras import PerspectiveCameras
@@ -175,19 +176,20 @@ def render_pipeline(
     ``MAX_K``) takes the dense route, as ``voge_tpu`` takes its XLA select
     there.
     """
-    cams, verts, isigma, rays, origins, attrs_b = _render_inputs(
-        verts, sigmas, R, T, focal, principal, image_size, inverse_sigma, cam_ctx, attrs,
-        torch.float32)
-    # verts are centred on the cameras inside, so that a scene that needs no
-    # gradient (pose refinement) takes the backward's per-ray route
-    (idx, length, _act, _dsd, weight, img), overflow = ray_tracing(
-        cams, verts, isigma, rays, image_size,
-        thr=thr_activation, n_assign=max_assign, bin_size=bin_size,
-        max_points_per_bin=max_point_per_bin, agg_ow=float(absorptivity),
-        attrs=attrs_b, camera_grad=camera_grad, origins=origins,
-    )
-    return Fragments(weight, idx, (idx >= 0).sum(-1), length,
-                     overflow_points=overflow, attr_img=img)
+    with trace.span("voge.render"):
+        cams, verts, isigma, rays, origins, attrs_b = _render_inputs(
+            verts, sigmas, R, T, focal, principal, image_size, inverse_sigma, cam_ctx, attrs,
+            torch.float32)
+        # verts are centred on the cameras inside, so that a scene that needs no
+        # gradient (pose refinement) takes the backward's per-ray route
+        (idx, length, _act, _dsd, weight, img), overflow = ray_tracing(
+            cams, verts, isigma, rays, image_size,
+            thr=thr_activation, n_assign=max_assign, bin_size=bin_size,
+            max_points_per_bin=max_point_per_bin, agg_ow=float(absorptivity),
+            attrs=attrs_b, camera_grad=camera_grad, origins=origins,
+        )
+        return Fragments(weight, idx, (idx >= 0).sum(-1), length,
+                         overflow_points=overflow, attr_img=img)
 
 
 def _render_inputs(verts, sigmas, R, T, focal, principal, image_size, inverse_sigma,
@@ -276,6 +278,7 @@ class GaussianRenderer(nn.Module):
             return None
         key = (tuple(x.detach().cpu().numpy().tobytes() for x in cams),
                R.device, image_size)
+        trace.count("host_reads", len(cams))
         if getattr(self, "_cam_ctx_key", None) != key:
             self._cam_ctx_val = precompute_camera_ctx(R, T, focal, principal,
                                                       image_size, device=R.device)
@@ -288,13 +291,14 @@ def interpolate_attr(fragments: Fragments, vert_attr: torch.Tensor) -> torch.Ten
     float32 (attributes of any floating dtype are promoted to it).
     ``vert_index`` holds flattened ``b * N + n`` indices, so with a camera
     batch above one, N-row attributes are tiled over the batch."""
-    idx = fragments.vert_index
-    attrs = torch.as_tensor(vert_attr, device=idx.device).to(torch.float32)
-    B = idx.shape[0]
-    if fragments.valid_num.ndim == 3 and B > 1 and attrs.ndim == 2:
-        attrs = attrs.repeat(B, 1)
-    return AttrMerge.apply(fragments.vert_weight.contiguous(),
-                           attrs.contiguous(), idx.contiguous())
+    with trace.span("voge.attr"):
+        idx = fragments.vert_index
+        attrs = torch.as_tensor(vert_attr, device=idx.device).to(torch.float32)
+        B = idx.shape[0]
+        if fragments.valid_num.ndim == 3 and B > 1 and attrs.ndim == 2:
+            attrs = attrs.repeat(B, 1)
+        return AttrMerge.apply(fragments.vert_weight.contiguous(),
+                               attrs.contiguous(), idx.contiguous())
 
 
 def get_overflow_points(fragments: Fragments) -> int:
