@@ -802,7 +802,58 @@ def cull_stats(rays, table, thr_act, bin_size):
                 passing += int((act < thr_act).sum())
     return dict(blocks=cones.shape[0], block_pairs=cones.shape[0] * P, culled=culled,
                 culled_share=culled / (cones.shape[0] * P), tested_pairs=tested,
-                passing_pairs=passing, glue_err=dict(cones=e_cone, u=e_u, q_rel=e_q))
+                passing_pairs=passing, glue_err=dict(cones=e_cone, u=e_u, q_rel=e_q),
+                two_level=two_level_stats(rays, table, rows))
+
+
+def print_two_level(tag, st):
+    print(f"K2 global {tag} two-level cull: {st['level1_pairs']} (super-tile, Gaussian) pairs "
+          f"at level 1 over {st['super_tiles']} super-tiles keep {st['kept_rows']} rows; level 2's "
+          f"blocks examine {st['level2_rows']} rows and stage {st['staged_rows']}; its warps test "
+          f"{st['warp_tested_pairs']} (ray, Gaussian) pairs; super-tile cones vs plain "
+          f"{st['super_cone_err']:.2e}, level 1's masks equal to plain")
+
+
+def two_level_stats(rays, table, rows):
+    """What the two-level route of K2's global entry does on these inputs:
+    (super-tile, Gaussian) pairs level 1 tests, the rows its masks keep, the
+    rows level 2's 8 x 16 blocks examine (their super-tile's) and stage (kept
+    by a warp's cone), and the (ray, Gaussian) pairs its warps test (their
+    rays times the staged rows their own cone keeps); level 1's kernel held
+    to its plain version, the super-tiles' cones to theirs."""
+    from voge_tpu_torch.ops import cuda_fine as cf
+
+    B, H, W, _ = rays.shape
+    P, S = table.shape[0] // B, cf._SUPER
+    cones, sup, (TH4, TW4) = cf.two_level_cones(rays)
+    e_sup = (sup - cf.super_cones_plain(cones, B, TH4, TW4, 2 * S)).abs().max().item()
+    mask = cf.cull_lists(rows, sup, B, P)
+    need(e_sup <= 1e-6 and torch.equal(mask, cf.cull_lists_plain(rows, sup, B, P)),
+         f"K2 global level 1 vs plain: super-tile cones {e_sup}, masks equal "
+         f"{torch.equal(mask, cf.cull_lists_plain(rows, sup, B, P))}")
+    kept = cf.mask_bits(mask, P)                                  # (B, nsup, P)
+    STW = cf.super_grid(TH4, TW4, 2 * S)[1]
+    live = tile_rays(H, W, 4, 8, rays.device)                     # (TH4, TW4)
+    TH, TW = (TH4 + 1) // 2, (TW4 + 1) // 2
+    examined = staged = tested = 0
+    for b in range(B):
+        rows_b = rows[b * P:(b + 1) * P]
+        for ty in range(TH):
+            wy = torch.arange(2 * ty, min(2 * ty + 2, TH4), device=rays.device)
+            q = (wy[:, None] * TW4 + torch.arange(TW4, device=rays.device)[None]).reshape(-1)
+            own = ~cf.cull_mask_plain(cones[b * TH4 * TW4 + q], rows_b)   # (warps, P)
+            st = (ty // S) * STW + torch.arange(TW4, device=rays.device) // (2 * S)
+            st = st.repeat(wy.numel())
+            wk = own & kept[b, st]
+            tested += int((wk.sum(1) * live[wy].reshape(-1)).sum())
+            for tx in range(TW):
+                cols = (q % TW4) // 2 == tx
+                staged += int(wk[cols].any(0).sum())
+                examined += int(kept[b, (ty // S) * STW + tx // S].sum())
+    nsup = sup.shape[0]
+    return dict(super_tiles=nsup, level1_pairs=nsup * P, kept_rows=int(kept.sum()),
+                level2_rows=examined, staged_rows=staged, warp_tested_pairs=tested,
+                super_cone_err=e_sup)
 
 
 # ---- the attribute merge's kernels K3f and attr_dw (rows 3 and 12) ----
@@ -1844,6 +1895,7 @@ def main():
           f"Gaussian) pairs culled ({cull_sf['culled_share']:.4f}) over {cull_sf['blocks']} "
           f"blocks; {cull_sf['tested_pairs']} (ray, Gaussian) pairs left to test, "
           f"{cull_sf['passing_pairs']} pass; glue kernels vs plain {cull_sf['glue_err']}")
+    print_two_level("shapefit", cull_sf["two_level"])
     details["cull_shapefit"] = cull_sf
     g_sf = [seeded(sel_sf[1].shape, dev, 50 + q) for q in range(4)]
     # (g_len, g_act, g_dsd, g_w): all set, g_w zero, and the trainer's own
@@ -2074,7 +2126,25 @@ def main():
           f"{cull_c['tested_pairs']} (ray, Gaussian) pairs left to test of "
           f"{rays_c.numel() // 3 * P_c}, {cull_c['passing_pairs']} pass; the whole image equal to "
           f"the bit with the cull off")
+    print_two_level("300K", cull_c["two_level"])
     details["cull_300k"] = cull_c
+    # the benchmark cell's four cameras over the 300K cloud: the two-level
+    # route (as the rule picks it there), equal to the bit with the cull off
+    R4, T4 = vt.look_at_view_transform(dist=[4.0] * 4, elev=[10.0, 16.7, 23.3, 30.0],
+                                       azim=[20.0, 30.0, 40.0, 50.0], device=dev)
+    cams4 = (R4, T4, cams_c[2].expand(4, 2), cams_c[3].expand(4, 2))
+    rays4, origins4 = camera_rays(*cams4, CLOUD_HW)
+    table4 = fine.feature_table(verts_c[None] - origins4[:, None, :], isg_c.expand(4, -1, 3, 3))
+    args4 = (rays4, table4, None, thr_act, CLOUD_K, bs_c, 1.0)
+    with trace.tracing():
+        sel4 = fine_select_global(*args4)
+        lists = launched("cull_lists")
+    need(lists == 1, "K2 global 300K B=4: the two-level route did not run")
+    need(all(torch.equal(a, b) for a, b in zip(sel4, fine_select_global(*args4, _cull=False))),
+         "K2 global 300K B=4: the two-level cull changed a result")
+    print(f"K2 global 300K B=4 (the cell's cameras): two-level route, valid slots "
+          f"{int((sel4[0] >= 0).sum())}; the whole images equal to the bit with the cull off")
+    del sel4, table4, rays4
     g_c = [seeded(sel_c[1].shape, dev, 90 + q) for q in range(4)]
     head["halves"], pair_c = hold_halves("cloud 300K", rays_c, table_cl, sel_c, g_c)
     head["k3c"] = (rays_c, table_cl, *sel_c, None, None, None, g_c[3], 1.0, True)
@@ -3324,12 +3394,20 @@ def main():
           f"{cp['row_width_texture']}) {cp['gather_texture_ms']:.4f} ms")
     details["fine_select_cloud_100k"] = cp
     th_g, tw_g = cuda_fine.global_tile(False, bs_c)
+    def level1(r, t):
+        """The two-level route's glue past the cull rows: the warps' and the
+        super-tiles' cones and level 1's masks."""
+        rows = cuda_fine.cull_rows(t, thr_act)
+        return lambda: cuda_fine.cull_lists(rows, cuda_fine.two_level_cones(r)[1], r.shape[0],
+                                            t.shape[0] // r.shape[0])
+
     glue = {tag: dict(cull_rows_ms=cuda_ms(lambda: cuda_fine.cull_rows(t, thr_act), 20),
-                      block_cones_ms=cuda_ms(lambda: cuda_fine.block_cones(r, th_g, tw_g), 20))
+                      block_cones_ms=cuda_ms(lambda: cuda_fine.block_cones(r, th_g, tw_g), 20),
+                      level1_ms=cuda_ms(level1(r, t), 20))
             for tag, r, t in (("shapefit", rays_sf, table_sf), ("cloud_300k", rays_c, table_cl))}
     print("K2 global glue (inside the wrapper's time): " + "; ".join(
-        f"{tag} cull_rows {v['cull_rows_ms']:.4f} ms, block_cones {v['block_cones_ms']:.4f} ms"
-        for tag, v in glue.items()))
+        f"{tag} cull_rows {v['cull_rows_ms']:.4f} ms, block_cones {v['block_cones_ms']:.4f} ms, "
+        f"two-level cones and level 1 {v['level1_ms']:.4f} ms" for tag, v in glue.items()))
     details["fine_select_global_glue"] = glue
 
     # the global entry against the same kernel walking every Gaussian (its

@@ -1253,6 +1253,120 @@ def test_global_select_is_the_same_with_and_without_the_cull(stage, K):
     assert 0 < mask.float().mean() < 1
 
 
+def _route(monkeypatch, two: bool, S=None):
+    """Force the global entry's route: two levels (super-tiles of ``S``
+    blocks a side) or one, whatever the rule would pick."""
+    from voge_tpu_torch.ops import cuda_fine
+
+    monkeypatch.setattr(cuda_fine, "_TWO_LEVEL_MIN_PAIRS", 0 if two else 1 << 62)
+    if S is not None:
+        monkeypatch.setattr(cuda_fine, "_SUPER", S)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("K", [5, 20, 40])
+def test_two_level_route_equals_one_level_and_the_cull_off(stage, monkeypatch, K, S):
+    """The two-level cull (super-tiles of S x S blocks; at S = 2 and 4 the
+    52 x 60 images' 7 x 4 blocks leave super-tiles cut by the edge; a warp
+    of a block walks the rows its own 4 x 8 pixels' cone keeps) gives every
+    output bit of the single-level route and of the kernel with the cull
+    off; its level 1 is launched once a call, with its super-tiles' cones,
+    and the glue kernels hold to their plain versions."""
+    from voge_tpu_torch.ops import cuda_fine
+
+    _, _, args = _global_select(stage, K, "none")
+    rays, table = args[0], args[1]
+    _route(monkeypatch, True, S)
+    before = [launches(fn) for fn in (cuda_fine.cull_lists, cuda_fine.super_cones)]
+    two = fine_select_global(*args)
+    assert [launches(fn) for fn in (cuda_fine.cull_lists, cuda_fine.super_cones)] == [
+        n + 1 for n in before]
+    _route(monkeypatch, False)
+    one = fine_select_global(*args)
+    off = fine_select_global(*args, _cull=False)
+    assert [launches(fn) for fn in (cuda_fine.cull_lists, cuda_fine.super_cones)] == [
+        n + 1 for n in before]
+    torch.cuda.synchronize()
+    for a, b, c in zip(two, one, off):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert (two[0] >= 0).any()
+    B = rays.shape[0]
+    P = table.shape[0] // B
+    cones, sup, (TH4, TW4) = cuda_fine.two_level_cones(rays, S)
+    sup_p = cuda_fine.super_cones_plain(cones, B, TH4, TW4, 2 * S)
+    torch.testing.assert_close(sup, sup_p, rtol=0, atol=1e-6)
+    rows = cuda_fine.cull_rows(table, args[3])
+    mask, mask_p = cuda_fine.cull_lists(rows, sup, B, P), cuda_fine.cull_lists_plain(rows, sup, B, P)
+    assert torch.equal(mask, mask_p)
+
+
+@pytest.mark.parametrize("K", [5, 20, 40])
+@pytest.mark.parametrize("side", ["below", "above"])
+def test_two_level_rule_by_shape(dev, K, side):
+    """The rule picks the route from P and the blocks of an image alone: one
+    level launch of ``cull_lists`` a call at or above the threshold, none
+    below it; either way every output bit is the cull-off kernel's."""
+    from voge_tpu_torch.ops import cuda_fine
+
+    H, W = 37, 45
+    blocks = ((H - 1) // 8 + 1) * ((W - 1) // 16 + 1)
+    edge = -(-cuda_fine._TWO_LEVEL_MIN_PAIRS // blocks)
+    P = edge if side == "above" else edge - 1
+    assert cuda_fine.two_level(P, blocks) == (side == "above")
+    rng = np.random.RandomState(31)
+    yy, xx = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    d = np.stack([(xx - W / 2 + 0.5) / 40.0, (yy - H / 2 + 0.5) / 40.0, np.ones((H, W))], -1)
+    rays = torch.as_tensor((d / np.linalg.norm(d, axis=-1, keepdims=True))[None],
+                           dtype=torch.float32, device=dev)
+    mus = np.concatenate([rng.uniform(-0.6, 0.6, (P, 2)), rng.uniform(2, 4, (P, 1))], -1)
+    lam = np.broadcast_to(np.eye(3) * 2.0 / (2 * 0.01 ** 2), (P, 3, 3))
+    t = lambda x: torch.as_tensor(np.asarray(x, np.float32), device=dev)
+    table = fine.feature_table(t(mus)[None], t(lam)[None])
+    args = (rays, table, None, -math.log(0.01 + 1e-10), K, 8, 1.0)
+    before = launches(cuda_fine.cull_lists)
+    got = fine_select_global(*args)
+    assert launches(cuda_fine.cull_lists) == before + (side == "above")
+    torch.cuda.synchronize()
+    for a, b in zip(got, fine_select_global(*args, _cull=False)):
+        assert torch.equal(a, b)
+    assert (got[0] >= 0).any()
+
+
+def test_global_entry_kernels_are_the_select_layers(stage, monkeypatch):
+    """Every kernel the global entry launches on either route is one of the
+    select layer's (``portbench``'s ``select.device_ms`` patterns, matched
+    as whole identifiers), so none of its time counts as glue."""
+    import importlib.util
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from portbench.layers import matches
+
+    path = Path(__file__).resolve().parent.parent / "portbench" / "metrics" / "select.device_ms.py"
+    spec = importlib.util.spec_from_file_location("select_device_ms", path)
+    layer = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(layer)
+    _, _, args = _global_select(stage, 20, "none")
+    names = set()
+    trace.disable()            # the counters' own sums are tracing's, not the entry's
+    try:
+        for two in (True, False):
+            _route(monkeypatch, two)
+            fine_select_global(*args)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fine_select_global(*args)
+                torch.cuda.synchronize()
+            names |= {ev.key for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CUDA
+                      and not ev.is_user_annotation}
+    finally:
+        trace.enable()
+    assert len(names) >= 5, names          # cull rows, block and super-tile cones, two selects
+    assert [n for n in names if not matches(n, layer.PATTERNS)] == []
+
+
 def test_renderer_takes_numpy_camera_kwargs_on_the_card(dev):
     """``renderer(gmesh, R=R, T=T)`` with numpy arrays beside cameras on the
     card renders, equal to the call with card tensors to the bit."""

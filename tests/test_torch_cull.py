@@ -10,6 +10,12 @@
 - the selection as a key: the plain select's stable sort equals a sort by
   (len, candidate position), also on exact ties, and so does a streaming
   stable insertion over candidates that arrive in batches with some dropped;
+- the two-level cull: a super-tile's cone holds every ray and every cone of
+  its warps' 4 x 8 tiles in float64 (``hypothesis``); level 1's mask keeps
+  every Gaussian that a warp's own cone keeps, super-tiles cut by the image's
+  edge and two cameras included, and drops none that passes the hit test; the
+  plain two-level select equals the plain select to the bit, on duplicated
+  Gaussians (ties in len) too;
 - the compacted rows' width and the renderer's camera kwargs.
 """
 import math
@@ -194,6 +200,116 @@ def test_cull_rows_never_cull_what_they_cannot_bound():
     assert bool(cf.cull_mask_plain(cf.block_cones(rays, 1, 16), good).all())
     rays[0, 0, 3, 1] = float("nan")
     assert not bool(cf.cull_mask_plain(cf.block_cones(rays, 1, 16), good).any())
+
+
+@settings(max_examples=60, deadline=None)
+@given(seed=st.integers(0, 2 ** 31 - 1),
+       H=st.integers(1, 70), W=st.integers(1, 90),
+       log_focal=st.floats(1.0, 3.0),
+       G=st.integers(1, 8))
+def test_super_cone_holds_every_ray_and_cone_of_its_tiles_in_float64(seed, H, W, log_focal, G):
+    """The cone of a super-tile of G x G warps' tiles (4 x 8 pixels), as
+    stored (float32), holds in float64 every ray of its tiles and every
+    tile's stored cone with 1e-6 to spare (the slack the proof needs for the
+    kernel's rounding of ``len r``), also where the image's edge cuts the
+    super-tile; a cone at pi / 2 culls nothing."""
+    rays = torch.as_tensor(_camera_rays(1, H, W, 10.0 ** log_focal, seed))
+    th, tw = cf._WARP_TILE
+    TH, TW = (H - 1) // th + 1, (W - 1) // tw + 1
+    STH, STW = cf.super_grid(TH, TW, G)
+    cones = cf.block_cones(rays, th, tw)
+    sup = cf.super_cones(cones, 1, TH, TW, G)
+    assert sup.shape == (STH * STW, 8) and torch.isfinite(sup).all()
+    f64 = lambda x: x.to(torch.float64)
+    unit = lambda x: x / x.norm(dim=-1, keepdim=True)
+    tiles = f64(cf._tiles(rays, th, tw, float("nan")))                     # (TH * TW, 128, 3)
+    c_b, th_b = unit(f64(cones[:, :3])), torch.atan2(f64(cones[:, 3]), f64(cones[:, 4]))
+    for t in range(STH * STW):
+        c_t, th_t = unit(f64(sup[t, :3])), math.atan2(float(sup[t, 3]), float(sup[t, 4]))
+        if th_t >= 0.5 * math.pi - 1e-6:
+            assert float(sup[t, 4]) < 1e-4                                   # culls nothing
+            continue
+        sy, sx = divmod(t, STW)
+        for by in range(sy * G, min(sy * G + G, TH)):
+            for bx in range(sx * G, min(sx * G + G, TW)):
+                q = by * TW + bx
+                r = unit(tiles[q][torch.isfinite(tiles[q]).all(1)])
+                assert r.shape[0] > 0
+                ang = torch.acos((r @ c_t).clamp(-1.0, 1.0))
+                assert float(ang.max()) <= th_t - 1e-6
+                reach = math.acos(min(1.0, float(c_b[q] @ c_t))) + float(th_b[q])
+                assert reach <= th_t - 1e-6
+
+
+def _super_layout(rays, S):
+    """The warps' tiles and super-tiles of ``S`` x ``S`` blocks of an image:
+    (th, tw, TH, TW, super-tiles, the super-tile of each warp's tile)."""
+    B, H, W, _ = rays.shape
+    th, tw = cf._WARP_TILE
+    TH, TW = (H - 1) // th + 1, (W - 1) // tw + 1
+    STH, STW = cf.super_grid(TH, TW, 2 * S)
+    q = torch.arange(TH * TW)
+    return th, tw, TH, TW, STH * STW, (q // TW // (2 * S)) * STW + (q % TW) // (2 * S)
+
+
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("kind", ["shell", "cloud", "needles"])
+def test_level_one_keeps_every_survivor_of_its_warps(kind, S):
+    """Level 1's mask (two cameras; at S = 2 the 3 x 3 blocks of a 21 x 37
+    image make four super-tiles, three cut by the image's edge) keeps every
+    Gaussian that a warp's own cone keeps, and drops none that passes the
+    hit test for a ray of its super-tile; no bit at or past P."""
+    rays, table, P = _cull_scene(kind)
+    B = rays.shape[0]
+    th, tw, TH, TW, nsup, st_of = _super_layout(rays, S)
+    rows = cf.cull_rows(table, THR_ACT)
+    cones, sup, grid = cf.two_level_cones(rays, S)
+    assert grid == (TH, TW) and sup.shape == (B * nsup, 8)
+    mask = cf.cull_lists(rows, sup, B, P)
+    assert mask.shape == (B, nsup, cf._mask_words(P)) and mask.dtype == torch.int32
+    kept = cf.mask_bits(mask, P)
+    assert not cf.mask_bits(mask, mask.shape[2] * 32)[..., P:].any()      # nothing past P
+    blocks = cf._tiles(rays, th, tw, float("nan"))                         # (B * TH * TW, 32, 3)
+    for b in range(B):
+        own = ~cf.cull_mask_plain(cones[b * TH * TW:(b + 1) * TH * TW], rows[b * P:(b + 1) * P])
+        assert not (own & ~kept[b, st_of]).any()
+        r = [blocks[b * TH * TW:(b + 1) * TH * TW][:, :, None, i] for i in range(3)]
+        _, act, _ = cf.hit_plain(table[b * P:(b + 1) * P][None, None], r)
+        passing = (act < THR_ACT).any(1)                                   # (blocks, P)
+        assert passing.any() and not (passing & ~kept[b, st_of]).any()
+    if S <= 2:
+        assert float(kept.float().mean()) < 0.7                            # level 1 culls
+
+
+def _tied(table, B, P, seed=11):
+    """Every Gaussian of ``table`` (B * P, 16) three times, shuffled: exact
+    ties in len."""
+    perm = torch.as_tensor(np.random.RandomState(seed).permutation(3 * P))
+    return table.reshape(B, P, 16).repeat(1, 3, 1)[:, perm].reshape(B * 3 * P, 16)
+
+
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("K,kind", [(8, "shell"), (8, "cloud"), (8, "needles"), (3, "ties"),
+                                    (20, "ties")])
+def test_two_level_plain_select_equals_the_plain_select(kind, K, S):
+    """The plain two-level route (every warp's candidates: its super-tile's
+    survivors that its own cone keeps) equals the plain select over every
+    Gaussian to the bit: selections, their order, len / act / dsd and the
+    weights; with three copies of each Gaussian the copies tie in len and
+    the lower id wins."""
+    rays, table, P = _cull_scene("cloud" if kind == "ties" else kind)
+    B = rays.shape[0]
+    if kind == "ties":
+        table, P = _tied(table, B, P), 3 * P
+    got = cf.fine_select_two_level_plain(rays, table, THR_ACT, K, 1.0, S)
+    want = cf.fine_select_global_plain(rays, table, None, THR_ACT, K, 5, 1.0)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    valid = got[0] >= 0
+    assert valid.any()
+    if kind == "ties":
+        same = (got[1][..., 1:] == got[1][..., :-1]) & valid[..., 1:]
+        assert same.any() and (got[0][..., 1:] > got[0][..., :-1])[same].all()
 
 
 def _dense_lengths(rays, table, thr_act):

@@ -4,7 +4,9 @@ CPU ``torch.profiler`` and its counters hold what the code did (the coarse
 stage's host reads counted against a spy on every read of a tensor's values,
 its re-emissions, its slots and members).  On the card (marker ``cuda``):
 torch's sync debug mode counts exactly ``host_reads`` synchronising calls in
-one ``render_pipeline``.  No JAX here, so the card runs this file too:
+one ``render_pipeline``, and the global entry's two-level cull counts its
+launches, its level-1 pairs and the rows it keeps.  No JAX here, so the card
+runs this file too:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_trace.py
 """
@@ -250,3 +252,38 @@ def test_sync_debug_mode_counts_host_reads_on_the_card(entry, reads):
     assert n["host_reads"] == len(syncs) == reads, [str(w.message) for w in syncs]
     assert n["launch.fine_select"] == 1 and n["launch.emit_rows"] == 1
     assert n["coarse.members"] <= n["coarse.slots"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("two", [True, False])
+def test_cull_counters_of_the_global_entry(monkeypatch, two):
+    """The two-level cull's counters on the card: its level 1 and its
+    super-tiles' cones launched once a call, ``cull.level1_pairs`` the
+    super-tiles times P, ``cull.kept_rows`` the bits set in its mask (a
+    device sum); the single-level route counts none of them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from voge_tpu_torch.ops import cuda_fine as cf
+
+    monkeypatch.setattr(cf, "_TWO_LEVEL_MIN_PAIRS", 0 if two else 1 << 62)
+    monkeypatch.setattr(cf, "_SUPER", 1)
+    B, P = 2, 3000
+    verts, sig, _, R, T, focal, pp = _scene("cuda", P)
+    rays, origins = camera_rays(R, T, focal, pp, HW)
+    table = fine.feature_table(verts[None] - origins[:, None, :],
+                               (2.0 * sig)[None].expand(B, -1, 3, 3))
+    thr = -np.log(0.01 + 1e-10)
+    with trace.tracing():
+        cf.fine_select_global(rays, table, None, thr, 8, 4, 1.0)
+    n = trace.counts()
+    assert n["launch.fine_select_global"] == 1 and n["launch.cull_rows"] == 1
+    if not two:
+        assert not [k for k in n if k.startswith("cull.") or k in (
+            "launch.cull_lists", "launch.super_cones")]
+        return
+    TH, TW = (HW[0] - 1) // 8 + 1, (HW[1] - 1) // 16 + 1          # S = 1: a block each
+    mask = cf.cull_lists(cf.cull_rows(table, thr), cf.two_level_cones(rays)[1], B, P)
+    kept = int(cf.mask_bits(mask, P).sum())
+    assert n["launch.cull_lists"] == 1 and n["launch.super_cones"] == 1
+    assert n["cull.level1_pairs"] == B * TH * TW * P
+    assert n["cull.kept_rows"] == kept and 0 < kept < B * TH * TW * P

@@ -1,6 +1,7 @@
 // K2: streaming top-K select with fused erf weights and fused attribute image.
 //
-// Three entries share one kernel.  Two replace
+// Three entries share one kernel (the global one in two modes, with one
+// level of cone cull or two).  Two replace
 // voge_tpu/ops/pallas_fine2.py::_kernel_tc through both of its entries:
 //  - compacted (voge_fine_select; fine_select_compact_pallas <-
 //    fine._rt_fine_compact_impl): the candidates of a supertile are its
@@ -106,7 +107,7 @@
 // The cone cull (global entry), and why it drops nothing that could pass.
 // Points are camera-centred, so every ray of a block is a line through the
 // origin.  The glue beside the wrapper (ops/cuda_fine.py: block_cones,
-// cull_rows; on the card the two small kernels at the end of this file, held
+// cull_rows; on the card small kernels at the end of this file, held
 // against their plain versions) gives each block a cone: a unit axis c and a
 // half-angle theta with angle(r, c) <= theta for each of its rays r; and each
 // Gaussian a row (u, q): u = mu / |mu| and
@@ -155,6 +156,50 @@
 // Gaussian with this same kernel, the reference where the dense plain
 // version cannot reach (a whole 320x320 image of 300,000 Gaussians).
 //
+// The two-level cull (global entry without bits, where the 8 x 16 blocks of
+// the launch times P reach 2^22; ops/cuda_fine.py::two_level).  One level
+// tests every (block, Gaussian) pair: 240 M cone tests an image for the
+// 300,000-point cloud at 320x320, 99.7% of them dropping the pair, and on an
+// H100 the scan took most of the kernel.  Two levels:
+//  1. Super-tiles of S x S blocks (S = 2: 16 x 32 pixels) each get a cone
+//     holding the cones of their warps' 4 x 8 tiles (block_cones over 4 x 8
+//     tiles, then the super-tiles' overload of block_cones_kernel), and
+//     level 1 (the overload of fine_select_kernel; ops/cuda_fine.py::
+//     cull_lists) tests every (super-tile, Gaussian) pair by cone_culls, the
+//     blocks' own test, on the same cull rows: bit n % 32 of word n / 32 of
+//     the super-tile's row of a (B, nsup, ceil(P / 128) * 4) mask, so a row
+//     lists its survivors in ascending index with no scan, no capacity to
+//     overflow and no host read (30 MB for the 300K cloud at B = 4).
+//  2. fine_select_kernel<MASKED>: a block walks the set bits of its
+//     super-tile's row in ascending index, reads each one's cull row by id,
+//     tests the cones of its four warps and stages the rows some warp keeps,
+//     their position the Gaussian's index n and their bits the warps that
+//     keep them; a warp's 32 rays are the 4 x 8 quarter of the block its cone
+//     covers, and it walks only the staged rows its cone keeps.  Each ray's
+//     stream is then its image's Gaussians in ascending index less pairs
+//     proven unable to pass, so the key (len, n), the selections, their
+//     order and every output bit stay those of one level and of the cull off.
+// Why a super-tile's cone drops nothing that could pass.  Steps 1-4 above
+// ask only that every ray of the block (here: of the super-tile) lie within
+// theta of the axis, with the 1e-6 to spare for the rounding of len r.  The
+// float64 cone of a warp's tile j (before its float32 rounding) holds each
+// of its rays within theta_j - 1e-6 of c_j.  Stored in float32 as (c'_j,
+// sin, cos), its axis moves by at most ~sqrt(3) 2^-24 and atan2(sin, cos)
+// by at most ~2^-24 from theta_j, so each ray lies within
+// t_j = atan2(sin, cos) of u_j = c'_j / |c'_j|, with about 1e-6 - 2e-7 to
+// spare.  The super-tile's axis a is the unit mean of the u_j and its
+// half-angle theta = max_j (angle(a, u_j) + t_j) + 1e-5, at most pi / 2,
+// both in float64 (errors near 1e-8, acos near 1 included).  By the triangle
+// inequality for angles, a ray r of tile j has angle(r, a) <= angle(r, u_j)
+// + angle(u_j, a) <= theta - 1e-5 - (1e-6 - 2e-7), and the float32 rounding
+// of (a, sin theta, cos theta) costs a few 2^-24 more: steps 1-4 hold with
+// the 1e-6 they need and room besides.  The 1e-5 beyond the proof's needs
+// lets the super-tile's float32 test keep whatever a warp's keeps
+// (tests/test_torch_cull.py checks it on the edge cases), so level 1 never
+// leaves level 2 less than the warps would keep.  A NaN in any tile's cone
+// makes the super-tile's NaN, which drops nothing.  A warp's cone in level 2
+// is a block's cone over 32 rays: the same glue and the same proof.
+//
 // Exactness: compiled with -fmad=false.  The TPU kernel evaluates the hit
 // test as separate multiplies and adds on its vector unit; keeping every
 // product rounded once makes this kernel agree with the plain PyTorch
@@ -176,7 +221,9 @@ constexpr int CAP = 256;      // staged survivor rows; flushed above CAP - THREA
 constexpr float INF = 1e10f;  // fill for len / act
 constexpr float E_HALF = 1.6487212707001282f;
 constexpr float CULL_EPS = 1e-4f;
-constexpr int COMPACT = 0, GLOBAL = 1, LISTS = 2;
+constexpr int COMPACT = 0, GLOBAL = 1, LISTS = 2, MASKED = 3;
+constexpr int ROUND_WORDS = 4 * THREADS;  // level-1 mask words a round of MASKED: a uint4 a thread
+constexpr int WARP_TH = 4, WARP_TW = 8;   // masked: a warp's rays, 4 x 8 of the 8 x 16 tile
 
 struct Args {
   const float* rays;   // (B, H, W, 3)
@@ -201,6 +248,9 @@ struct Args {
   int nchunk;             // blocks of THREADS rays a tile
   long long n_rows, n_tab;
   float thr_act, ow;
+  const unsigned* mask;        // masked: (B, nsup, nwords) level-1 bits of the super-tiles
+  int sup, STW, nsup, nwords;  // masked: tiles a super-tile's side, super-tiles a
+                               // row and an image, mask words a super-tile
 };
 
 struct Hit {
@@ -246,6 +296,31 @@ __device__ __forceinline__ void copy_row_async(float4* dst, const float4* src) {
                  "l"(src + q));
 }
 
+// Does the cone (c, sin, cos) prove that no ray in it passes the hit test of
+// the Gaussian with cull row q = (u, q)?  See the proof in the note above.
+__device__ __forceinline__ bool cone_culls(const float4 q, const float c0, const float c1,
+                                           const float c2, const float c_sin,
+                                           const float c_cos) {
+  const float t = fabsf((q.x * c0 + q.y * c1) + q.z * c2);
+  const float x0 = q.y * c2 - q.z * c1;
+  const float x1 = q.z * c0 - q.x * c2;
+  const float x2 = q.x * c1 - q.y * c0;
+  const float sp = sqrtf((x0 * x0 + x1 * x1) + x2 * x2);
+  const float sd = (sp * c_cos - t * c_sin) - CULL_EPS;
+  return sd > 0.0f && q.w * (sd * sd) >= 1.0f;
+}
+
+// The position of the set bit of w that has `rank` set bits below it.
+__device__ __forceinline__ int nth_bit(unsigned w, int rank) {
+  int bit = 0;
+#pragma unroll
+  for (int sh = 16; sh > 0; sh >>= 1) {
+    const int below = __popc(w & ((1u << sh) - 1u));
+    if (rank >= below) { rank -= below; w >>= sh; bit += sh; }
+  }
+  return bit;
+}
+
 // One candidate's words, loaded a step ahead: its sub-bin bits (compacted,
 // global) or its list id (lists), and its cull row (global with a cull).
 struct Meta {
@@ -270,12 +345,15 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
   const int sy = (s % a.ntile) / a.TW;
   const int sx = (s % a.ntile) % a.TW;
   const int r = chunk * THREADS + tid;
-  const int lr = r / a.tw, lc = r % a.tw;
+  // masked: warp w takes the 4 x 8 quarter (w / 2, w % 2) of its 8 x 16 tile
+  const int lr = MODE == MASKED ? WARP_TH * (warp / 2) + lane / WARP_TW : r / a.tw;
+  const int lc = MODE == MASKED ? WARP_TW * (warp % 2) + lane % WARP_TW : r % a.tw;
   const int y = sy * a.th + lr, x = sx * a.tw + lc;
   const bool live = (r < a.th * a.tw) && (y < a.H) && (x < a.W);
   // sub-bin: bit 2*iy + ix of a row's bits; without a bits plane every row
-  // carries all four
-  const int g = a.bits != nullptr ? 2 * (lr / a.bs) + (lc / a.bs) : 0;
+  // carries all four; masked: bit w of a staged row's bits is set when warp
+  // w's cone keeps it
+  const int g = MODE == MASKED ? warp : a.bits != nullptr ? 2 * (lr / a.bs) + (lc / a.bs) : 0;
   if (tid == 0) s_gmask = 0;
   __syncthreads();
   if (live) atomicOr(&s_gmask, 1 << g);
@@ -298,9 +376,11 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
     for (int j = 0; j < 3; ++j) rr[3 * i + j] = rv[i] * rv[j];
 
   // compacted: the supertile's own rows; global: its image's Gaussians;
-  // lists: the rows the bin's ids name
-  const int cnt = a.counts != nullptr ? a.counts[s] : a.M;
-  const size_t row0 = MODE == COMPACT ? (size_t)s * a.M : MODE == GLOBAL ? (size_t)b * a.M : 0;
+  // lists: the rows the bin's ids name; masked: the loop below the next one
+  // walks its super-tile's survivors instead
+  const int cnt = MODE == MASKED ? 0 : a.counts != nullptr ? a.counts[s] : a.M;
+  const size_t row0 = MODE == COMPACT ? (size_t)s * a.M
+                      : MODE == GLOBAL || MODE == MASKED ? (size_t)b * a.M : 0;
   const float4* rows = reinterpret_cast<const float4*>(a.table);
   const int* brow = a.bits != nullptr ? a.bits + (size_t)s * a.M : nullptr;
   const int* lrow = MODE == LISTS ? a.ids + (size_t)s * a.M : nullptr;
@@ -326,16 +406,7 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
   auto keeps = [&](const Meta& m) {
     if (MODE == LISTS) return m.m >= 0 && m.m < a.n_tab;
     bool keep = (m.m & gmask) != 0;
-    if (culling) {
-      // (u, q) against the block's cone: see the proof in the note above
-      const float t = fabsf((m.q.x * c0 + m.q.y * c1) + m.q.z * c2);
-      const float x0 = m.q.y * c2 - m.q.z * c1;
-      const float x1 = m.q.z * c0 - m.q.x * c2;
-      const float x2 = m.q.x * c1 - m.q.y * c0;
-      const float sp = sqrtf((x0 * x0 + x1 * x1) + x2 * x2);
-      const float sd = (sp * c_cos - t * c_sin) - CULL_EPS;
-      keep = keep && !(sd > 0.0f && m.q.w * (sd * sd) >= 1.0f);
-    }
+    if (culling) keep = keep && !cone_culls(m.q, c0, c1, c2, c_sin, c_cos);
     return keep;
   };
 
@@ -384,7 +455,9 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
     if (nfill < K) {
       my_ent[nfill * THREADS] = e;
       if (++nfill < K) return;
-#pragma unroll
+      // masked: one copy of the scan (unrolled, the kernel measured 1.2x
+      // slower on the 300K cloud)
+#pragma unroll(MODE == MASKED ? 1 : 4)
       for (int i = 0; i < 4; ++i) scan_quarter(i);     // the list is full
     } else {
       my_ent[kth_slot * THREADS] = e;
@@ -430,6 +503,37 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
                               s_tab[4 * c1 + 3], r0, r1, r2, rr);
       accept(m0, h0, c);
       accept(m1, h1, c1);
+    }
+  };
+  // masked: a warp walks only the staged rows its own cone keeps (bit g of
+  // their bits, the same for its 32 lanes), two a turn, in order
+  auto test_warp = [&](int n) {
+    for (int c0 = 0; c0 < n; c0 += 32) {
+      unsigned mine =
+          __ballot_sync(0xffffffffu, c0 + lane < n && ((s_cbits[c0 + lane] >> g) & 1));
+      while (mine != 0u) {
+        const int c = c0 + __ffs(mine) - 1;
+        mine &= mine - 1u;
+        const bool two = mine != 0u;
+        const int c1 = two ? c0 + __ffs(mine) - 1 : c;
+        if (two) mine &= mine - 1u;
+        const Hit h0 = hit_test(s_tab[4 * c], s_tab[4 * c + 1], s_tab[4 * c + 2],
+                                s_tab[4 * c + 3], r0, r1, r2, rr);
+        const Hit h1 = hit_test(s_tab[4 * c1], s_tab[4 * c1 + 1], s_tab[4 * c1 + 2],
+                                s_tab[4 * c1 + 3], r0, r1, r2, rr);
+        // one copy of accept, and of the insertion it may run, takes both
+        // rows: with two copies the masked kernel measured 1.3x slower on
+        // the 300K cloud, where a warp's rows pass often and the insertion
+        // runs often
+        Hit h = h0;
+        bool member = live;
+        int cc = c;
+#pragma unroll 1
+        for (int t = 0; t < 2; ++t) {
+          accept(member, h, cc);
+          h = h1; member = live && two; cc = c1;
+        }
+      }
     }
   };
 
@@ -482,10 +586,135 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
 #pragma unroll
     for (int j = 0; j < SUB; ++j) cur[j] = nxt[j];
   }
+  if (MODE == MASKED) {
+    // Level 2 of the two-level cull: the candidates are the Gaussians whose
+    // bit is set in the block's super-tile row of the level-1 mask, in
+    // ascending index.  A round takes ROUND_WORDS words (a uint4 a thread,
+    // the next round's loaded meanwhile) and numbers their set bits by a
+    // scan over the block; candidate k of the round is the bit that has k
+    // set bits before it, found by a binary search over the words' running
+    // counts.  Candidates then go SUB * THREADS at a time through the cone
+    // test of each of the block's four warps (4 x 8 rays each; their cones
+    // in a.cones, one a 4 x 8 tile of the image), on the cull row read by
+    // id, and through the packing above with the Gaussian's index as their
+    // position and the warps that keep it as their bits.
+    unsigned* s_word = reinterpret_cast<unsigned*>(s_wcnt + 2 * SUB * WARPS);  // [ROUND_WORDS]
+    int* s_run = reinterpret_cast<int*>(s_word + ROUND_WORDS);  // [ROUND_WORDS] inclusive counts
+    int* s_wsum = s_run + ROUND_WORDS;                          // [WARPS]
+    float* s_wcone = reinterpret_cast<float*>(s_wsum + WARPS);  // [WARPS][8]
+    if (tid < 8 * WARPS) {
+      // warp w's 4 x 8 tile; one with no ray in the image is never read
+      const int w = tid / 8, ty = 2 * sy + w / 2, tx = 2 * sx + w % 2;
+      const int TW4 = (a.W + WARP_TW - 1) / WARP_TW, TH4 = (a.H + WARP_TH - 1) / WARP_TH;
+      s_wcone[tid] = ((gmask >> w) & 1)
+                         ? a.cones[(((size_t)b * TH4 + ty) * TW4 + tx) * 8 + tid % 8]
+                         : 0.0f;
+    }
+    const uint4* mrow = reinterpret_cast<const uint4*>(
+        a.mask + ((size_t)b * a.nsup + (sy / a.sup) * a.STW + sx / a.sup) * a.nwords);
+    const int nq = a.nwords / 4;
+    const uint4 none = make_uint4(0u, 0u, 0u, 0u);
+    uint4 wnext = tid < nq ? __ldg(mrow + tid) : none;
+    for (int q0 = 0; q0 < nq; q0 += THREADS) {
+      const uint4 wq = wnext;
+      wnext = q0 + THREADS + tid < nq ? __ldg(mrow + q0 + THREADS + tid) : none;
+      const unsigned w4[4] = {wq.x, wq.y, wq.z, wq.w};
+      int run[4], mine = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) { mine += __popc(w4[j]); run[j] = mine; }
+      int incl = mine;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int v = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += v;
+      }
+      if (lane == 31) s_wsum[warp] = incl;
+      __syncthreads();
+      int before = 0, n_round = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        const int v = s_wsum[w];
+        if (w < warp) before += v;
+        n_round += v;
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s_word[4 * tid + j] = w4[j];
+        s_run[4 * tid + j] = before + incl - mine + run[j];
+      }
+      __syncthreads();
+      for (int k0 = 0; k0 < n_round; k0 += SUB * THREADS) {
+        Meta m[SUB];
+        int id[SUB];
+#pragma unroll
+        for (int j = 0; j < SUB; ++j) {
+          const int k = k0 + j * THREADS + tid;
+          m[j].q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          m[j].m = 0;
+          id[j] = 0;
+          if (k < n_round) {
+            int lo = 0, hi = ROUND_WORDS - 1;   // the first word whose count passes k
+            while (lo < hi) {
+              const int mid = (lo + hi) >> 1;
+              if (s_run[mid] > k) hi = mid; else lo = mid + 1;
+            }
+            const unsigned wd = s_word[lo];
+            id[j] = 32 * (4 * q0 + lo) + nth_bit(wd, k - (s_run[lo] - __popc(wd)));
+            m[j].q = a.cull[row0 + id[j]];
+            m[j].m = gmask;
+          }
+        }
+        bool keep[SUB];
+        unsigned ballot[SUB];
+        int wkeep[SUB];
+        int* wcnt = s_wcnt + par * SUB * WARPS;
+#pragma unroll
+        for (int j = 0; j < SUB; ++j) {
+          wkeep[j] = 0;
+#pragma unroll
+          for (int w = 0; w < WARPS; ++w) {
+            const float* c = s_wcone + 8 * w;
+            if ((m[j].m >> w) & 1 && !cone_culls(m[j].q, c[0], c[1], c[2], c[3], c[4]))
+              wkeep[j] |= 1 << w;
+          }
+          keep[j] = wkeep[j] != 0;
+          ballot[j] = __ballot_sync(0xffffffffu, keep[j]);
+          if (lane == 0) wcnt[j * WARPS + warp] = __popc(ballot[j]);
+        }
+        __syncthreads();
+#pragma unroll
+        for (int j = 0; j < SUB; ++j) {
+          int wbefore = 0, total = 0;
+#pragma unroll
+          for (int w = 0; w < WARPS; ++w) {
+            const int n = wcnt[j * WARPS + w];
+            if (w < warp) wbefore += n;
+            total += n;
+          }
+          if (keep[j]) {
+            const int o = fill + wbefore + __popc(ballot[j] & ((1u << lane) - 1u));
+            s_cpos[o] = id[j];
+            s_cbits[o] = wkeep[j];
+            copy_row_async(s_tab + 4 * o, rows + 4 * (row0 + id[j]));
+          }
+          fill += total;
+          if (fill > CAP - THREADS) {
+            asm volatile("cp.async.wait_all;\n" ::: "memory");
+            __syncthreads();
+            test_warp(fill);
+            __syncthreads();
+            fill = 0;
+          }
+        }
+        par ^= 1;
+      }
+    }
+  }
   if (fill > 0) {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();
-    test_staged(fill);
+    if (MODE == MASKED) test_warp(fill);
+    else test_staged(fill);
   }
   drain();
 
@@ -519,7 +748,7 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
   for (int k = 0; k < nfill; ++k) {
     const float2 e = my_ent[k * THREADS];
     const int c = __float_as_int(e.y);
-    const int id = MODE == GLOBAL ? (int)(row0 + c) : __ldg(id_of + c);
+    const int id = MODE == GLOBAL || MODE == MASKED ? (int)(row0 + c) : __ldg(id_of + c);
     const float4* src = rows + 4 * (MODE == LISTS ? (size_t)id : row0 + c);
     const Hit h = hit_test(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3),
                            r0, r1, r2, rr);
@@ -583,7 +812,8 @@ template <int MODE>
 int launch(Args& a, int nb, cudaStream_t stream) {
   a.nchunk = (a.th * a.tw + THREADS - 1) / THREADS;
   const size_t smem = (size_t)CAP * 64 + (size_t)a.K * THREADS * 8 + (size_t)CAP * 8 +
-                      2 * SUB * WARPS * sizeof(int);
+                      2 * SUB * WARPS * sizeof(int) +
+                      (MODE == MASKED ? (2 * ROUND_WORDS + 9 * WARPS) * sizeof(int) : 0);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fine_select_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -699,6 +929,97 @@ __global__ void __launch_bounds__(THREADS) block_cones_kernel(
   out[5] = out[6] = out[7] = 0.0f;
 }
 
+// ---- the two-level cull's level 1 ------------------------------------------
+// The cones of the super-tiles, as ops/cuda_fine.py::super_cones_plain
+// computes them: super-tile (b, SY, SX) holds the tiles (SY G + i, SX G + j)
+// of image b's TH x TW grid that exist (tiles of a warp's 4 x 8 rays), and
+// its cone holds each of their float32 cones with SUPER_SLACK to spare
+// (float64 inside; see the note).  One warp a super-tile, its lanes over the
+// tiles, the sums and the widest reach by a fixed shuffle tree.  (An
+// overload of the blocks' cones' kernel: the same layer's glue.)
+constexpr double SUPER_SLACK = 1e-5;
+
+__device__ __forceinline__ double nan_max(double x, double y) {
+  return x != x ? x : (y != y ? y : (x > y ? x : y));
+}
+
+__global__ void __launch_bounds__(THREADS) block_cones_kernel(
+    const float* __restrict__ cones, float* __restrict__ sup, int n, int TH, int TW, int G,
+    int STH, int STW) {
+  const int i = (blockIdx.x * THREADS + threadIdx.x) >> 5, lane = threadIdx.x & 31;
+  if (i >= n) return;   // a whole warp
+  const int nst = STH * STW, b = i / nst, SY = (i % nst) / STW, SX = (i % nst) % STW;
+  const int y0 = SY * G, x0 = SX * G, gw = min(G, TW - x0), m = min(G, TH - y0) * gw;
+  auto cone = [&](int k) { return cones + (((size_t)b * TH + y0 + k / gw) * TW + x0 + k % gw) * 8; };
+  double a0 = 0.0, a1 = 0.0, a2 = 0.0;
+  for (int k = lane; k < m; k += 32) {
+    const float* c = cone(k);
+    const double u0 = c[0], u1 = c[1], u2 = c[2];
+    const double inv = 1.0 / sqrt(u0 * u0 + u1 * u1 + u2 * u2);
+    a0 += u0 * inv; a1 += u1 * inv; a2 += u2 * inv;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    a0 += __shfl_xor_sync(0xffffffffu, a0, o);
+    a1 += __shfl_xor_sync(0xffffffffu, a1, o);
+    a2 += __shfl_xor_sync(0xffffffffu, a2, o);
+  }
+  const double inv = 1.0 / sqrt(a0 * a0 + a1 * a1 + a2 * a2);
+  a0 *= inv; a1 *= inv; a2 *= inv;
+  // the widest a tile's cone reaches from the axis
+  double theta = 0.0;
+  for (int k = lane; k < m; k += 32) {
+    const float* c = cone(k);
+    const double u0 = c[0], u1 = c[1], u2 = c[2];
+    const double cs = (a0 * u0 + a1 * u1 + a2 * u2) / sqrt(u0 * u0 + u1 * u1 + u2 * u2);
+    theta = nan_max(theta, acos(fmin(fmax(cs, -1.0), 1.0)) + atan2((double)c[3], (double)c[4]));
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) theta = nan_max(theta, __shfl_xor_sync(0xffffffffu, theta, o));
+  if (lane != 0) return;
+  if (theta == theta && a0 == a0) theta = fmin(theta + SUPER_SLACK, 1.5707963267948966);
+  else theta = __longlong_as_double(0x7ff8000000000000LL);
+  float* out = sup + (size_t)i * 8;
+  out[0] = (float)a0; out[1] = (float)a1; out[2] = (float)a2;
+  out[3] = (float)sin(theta); out[4] = (float)cos(theta);
+  out[5] = out[6] = out[7] = 0.0f;
+}
+
+// Level 1: bit n % 32 of word n / 32 of super-tile t's row is set when
+// Gaussian n of the image survives t's cone by the warps' own test, so a
+// row lists its survivors in ascending index with no scan and nothing to
+// overflow.  One thread a Gaussian, its cull row read once; a warp's ballot
+// is one word.  A block's 32 warps take 32 consecutive words of 32
+// super-tiles (blockIdx.z the super-tiles' group), gathered in shared memory
+// and stored a row's 128 bytes by one warp.  (An overload of the select's
+// kernel: the same layer.)
+constexpr int L1_WARPS = 32;
+
+__global__ void __launch_bounds__(32 * L1_WARPS) fine_select_kernel(
+    const float4* __restrict__ cull, const float4* __restrict__ sup,
+    unsigned* __restrict__ mask, unsigned long long* __restrict__ kept, int P, int nsup,
+    int nwords) {
+  __shared__ unsigned s_w[32][L1_WARPS];  // [super-tile of the 32][warp]
+  const int b = blockIdx.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n = blockIdx.x * 32 * L1_WARPS + threadIdx.x, w0 = blockIdx.x * L1_WARPS;
+  const float4 q = n < P ? cull[(size_t)b * P + n] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  const float4* cone = sup + (size_t)b * nsup * 2;
+  const int t0 = blockIdx.z * 32, nt = min(32, nsup - t0);
+  unsigned long long n_kept = 0;
+  for (int i = 0; i < nt; ++i) {
+    const float4 c = __ldg(cone + 2 * (t0 + i)), e = __ldg(cone + 2 * (t0 + i) + 1);
+    const unsigned word =
+        __ballot_sync(0xffffffffu, n < P && !cone_culls(q, c.x, c.y, c.z, c.w, e.x));
+    if (lane == 0) s_w[i][warp] = word;
+    n_kept += __popc(word);
+  }
+  // tracing's count of the rows kept (integer sums: the same in any order)
+  if (kept != nullptr && lane == 0 && n_kept > 0) atomicAdd(kept, n_kept);
+  __syncthreads();
+  if (warp < nt && w0 + lane < nwords)
+    mask[((size_t)b * nsup + t0 + warp) * nwords + w0 + lane] = s_w[warp][lane];
+}
+
 }  // namespace
 
 // Cull rows (n, 4) of the feature rows ``table`` (n, 16).
@@ -719,6 +1040,35 @@ extern "C" int voge_block_cones(const void* rays, void* cones, int nb, int H,
   const int nchunk = (th * tw + THREADS - 1) / THREADS;
   block_cones_kernel<<<(unsigned)nb * nchunk, THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)rays, (float*)cones, H, W, th, tw, TW, ntile, nchunk);
+  return (int)cudaGetLastError();
+}
+
+// Cones (B * STH * STW, 8) of the super-tiles of G x G tiles over the tiles'
+// cones ``cones`` (B * TH * TW, 8).
+extern "C" int voge_super_cones(const void* cones, void* sup, int B, int TH, int TW,
+                                int G, void* stream) {
+  if (B <= 0 || TH <= 0 || TW <= 0 || G <= 0) return (int)cudaErrorInvalidValue;
+  const int STH = (TH + G - 1) / G, STW = (TW + G - 1) / G, n = B * STH * STW;
+  const int warps = THREADS / 32;
+  block_cones_kernel<<<(unsigned)((n + warps - 1) / warps), THREADS, 0,
+                       (cudaStream_t)stream>>>((const float*)cones, (float*)sup, n, TH, TW,
+                                               G, STH, STW);
+  return (int)cudaGetLastError();
+}
+
+// Level 1's mask (B, nsup, ceil(P / 128) * 4) of the cull rows ``cull``
+// (B * P, 4) against the super-tiles' cones ``sup`` (B * nsup, 8); the bits
+// it sets are added to ``kept`` (one int64) unless it is null.
+extern "C" int voge_cull_lists(const void* cull, const void* sup, void* mask, void* kept,
+                               int B, int P, int nsup, void* stream) {
+  if (B <= 0 || P <= 0 || nsup <= 0 || B > 65535 || nsup > 32 * 65535)
+    return (int)cudaErrorInvalidValue;
+  const int nwords = (P + THREADS - 1) / THREADS * 4;
+  const int nblk = (nwords + L1_WARPS - 1) / L1_WARPS;
+  fine_select_kernel<<<dim3((unsigned)nblk, (unsigned)B, (unsigned)((nsup + 31) / 32)),
+                       32 * L1_WARPS, 0, (cudaStream_t)stream>>>(
+      (const float4*)cull, (const float4*)sup, (unsigned*)mask, (unsigned long long*)kept, P,
+      nsup, nwords);
   return (int)cudaGetLastError();
 }
 
@@ -755,13 +1105,20 @@ extern "C" int voge_fine_select(
 // ``table`` (B * P, 16).  ``bits`` (nb, P) or null for all members; with bits
 // the tiles are the supertiles (th = tw = 2 bs).  ``cull`` (B * P, 4) and
 // ``cones`` (nb * ceil(th tw / 128), 8), or both null for no cull.
+// Two levels (S > 0; a cull, no bits, tiles of 8 x 16): ``cones``, ``sup``
+// and ``mask`` are the route's workspace, which this call fills before the
+// select: the cones of the 4 x 8 tiles of the warps (B * TH4 * TW4, 8), of
+// the super-tiles of S x S tiles (B * nsup, 8), and level 1's mask (B, nsup,
+// ceil(P / 128) * 4), its kept bits added to ``kept`` unless it is null.
 extern "C" int voge_fine_select_global(
     const void* rays, const void* table, const void* bits, const void* cull,
-    const void* cones, void* o_idx, void* o_len, void* o_act, void* o_dsd,
-    void* o_w, int nb, int H, int W, int bs, int th, int tw, int TW, int ntile,
-    int P, int K, float thr_act, float ow, void* stream) {
+    void* cones, void* sup, void* mask, void* kept, void* o_idx, void* o_len,
+    void* o_act, void* o_dsd, void* o_w, int nb, int H, int W, int bs, int th, int tw,
+    int TW, int ntile, int P, int K, int S, float thr_act, float ow, void* stream) {
   if (nb <= 0 || bs <= 0 || th <= 0 || tw <= 0 || P <= 0 || K <= 0 || K > 128 ||
-      (cull == nullptr) != (cones == nullptr))
+      (cull == nullptr) != (cones == nullptr) ||
+      (S > 0 && (cull == nullptr || bits != nullptr || th != 2 * WARP_TH ||
+                 tw != 2 * WARP_TW || sup == nullptr || mask == nullptr)))
     return (int)cudaErrorInvalidValue;
   Args a = {};
   a.rays = (const float*)rays;
@@ -777,7 +1134,18 @@ extern "C" int voge_fine_select_global(
   a.H = H; a.W = W; a.bs = bs; a.M = P; a.K = K;
   a.th = th; a.tw = tw; a.TW = TW; a.ntile = ntile;
   a.thr_act = thr_act; a.ow = ow;
-  return launch<GLOBAL>(a, nb, (cudaStream_t)stream);
+  if (S <= 0) return launch<GLOBAL>(a, nb, (cudaStream_t)stream);
+  const int B = nb / ntile, TH4 = (H + WARP_TH - 1) / WARP_TH, TW4 = (W + WARP_TW - 1) / WARP_TW;
+  int err = voge_block_cones(rays, cones, B * TH4 * TW4, H, W, WARP_TH, WARP_TW, TW4,
+                             TH4 * TW4, stream);
+  if (err == 0) err = voge_super_cones(cones, sup, B, TH4, TW4, 2 * S, stream);
+  a.mask = (const unsigned*)mask;
+  a.sup = S;
+  a.STW = (TW + S - 1) / S;
+  a.nsup = ((ntile / TW + S - 1) / S) * a.STW;
+  a.nwords = (P + THREADS - 1) / THREADS * 4;
+  if (err == 0) err = voge_cull_lists(cull, sup, mask, kept, B, P, a.nsup, stream);
+  return err != 0 ? err : launch<MASKED>(a, nb, (cudaStream_t)stream);
 }
 
 // The per-bin-list entry: candidates of bin s (nb = B * BH * BW bins of

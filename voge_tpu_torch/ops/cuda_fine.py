@@ -26,11 +26,13 @@ candidates examined 512 at a time and only those that can matter to the
 block packed into shared memory in ascending position (sub-bin bits, list
 ids, and on the global entry a cone cull proven conservative:
 :func:`cull_rows`, :func:`block_cones`, :func:`cull_mask_plain`, the first
-two small kernels of their own on the card); rows copied by ``cp.async``
-while the next candidates are examined; accepted candidates entering the
-list on a warp vote; blocks of 8 x 16 pixels on the global entry without a
-bits plane.  Compiled with ``-fmad=false`` so that len / act / dsd equal
-:func:`fine_select_plain`'s bit for bit.
+two small kernels of their own on the card; at larger shapes two levels,
+super-tiles of 2 x 2 blocks first, :func:`two_level`, :func:`cull_lists`);
+rows copied by ``cp.async`` while the next candidates are examined;
+accepted candidates entering the list on a warp vote; blocks of 8 x 16
+pixels on the global entry without a bits plane.  Compiled with
+``-fmad=false`` so that len / act / dsd equal :func:`fine_select_plain`'s
+bit for bit.
 
 The forward runs inside ``ops.fine.FineSelect`` / ``FineSelectGlobal``,
 whose backward is K3 (``ops/cuda_fine_bwd.py``).
@@ -38,6 +40,7 @@ whose backward is K3 (``ops/cuda_fine_bwd.py``).
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -57,12 +60,18 @@ _E_HALF = 1.6487212707001282
 _PLAIN_CHUNK = 1 << 24
 _BLOCK_RAYS = 128          # rays a block of the kernel holds
 _GLOBAL_TILE = (8, 16)     # the global entry's ray tile without a bits plane
+_WARP_TILE = (4, 8)        # a warp's rays in it on the two-level route
 # The cone cull's slack (proof in the source note of csrc/fine_select.cu):
 # off the sine of the angle between a Gaussian's line and the cone's edge,
 # on the threshold, on the cone's half-angle, and off the eigenvalue bound
 # in units of ||Lambda||_F.
 _CULL_EPS, _CULL_MARGIN, _CONE_SLACK, _EIG_SLACK = 1e-4, 1e-3, 1e-6, 4e-6
 _EIG_NEWTON_STEPS = 6
+# The two-level cull: super-tiles of _SUPER x _SUPER blocks, their cones
+# widened by _SUPER_SLACK past their warps' (proof in the source note), and
+# the least (blocks of an image) x P at which level 1 pays.
+_SUPER, _SUPER_SLACK = 2, 1e-5
+_TWO_LEVEL_MIN_PAIRS = 1 << 22
 
 
 def _tiles(x, th: int, tw: int, fill=0):
@@ -177,6 +186,18 @@ def _select_tiles_plain(r_all, table_c, ids_c, member, thr_act: float, K: int):
     return idx, sl, sa, sd
 
 
+def _weights_plain(sl, sa, sd, agg_ow: float):
+    """The fused erf weights (pallas_fine2.py:386-406) of selections
+    (..., K), summed over k ascending."""
+    ea = torch.exp(-sa)
+    sq = torch.sqrt(sd + 1e-10)
+    occ = torch.zeros_like(sl)
+    for k in range(sl.shape[-1]):
+        ca = (sl - sl[..., k:k + 1]) * sq[..., k:k + 1]
+        occ = occ + ea[..., k:k + 1] * (0.5 * (torch.erf(ca) + 1.0))
+    return torch.exp(-agg_ow * occ) * ea * _E_HALF
+
+
 def fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
                       K: int, bin_size: int, agg_ow: float,
                       attrs: Optional[torch.Tensor] = None):
@@ -199,16 +220,7 @@ def fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
 
     idx, sl, sa, sd = _select_tiles_plain(_supertile(rays, bin_size), table_c,
                                           ids_c, member, thr_act, K)
-
-    # fused erf weights (pallas_fine2.py:386-406), k ascending
-    ea = torch.exp(-sa)
-    sq = torch.sqrt(sd + 1e-10)
-    occ = torch.zeros_like(sl)
-    for k in range(K):
-        ca = (sl - sl[..., k:k + 1]) * sq[..., k:k + 1]
-        occ = occ + ea[..., k:k + 1] * (0.5 * (torch.erf(ca) + 1.0))
-    w = torch.exp(-agg_ow * occ) * ea * _E_HALF
-
+    w = _weights_plain(sl, sa, sd, agg_ow)
     to_img = lambda x: _to_image(x, B, H, W, bin_size).contiguous()
     idx, w = to_img(idx.to(torch.int32)), to_img(w)
     img = None if attrs is None else attr_merge_plain(idx, w, attrs)
@@ -430,9 +442,179 @@ def cull_mask_plain(cones: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return (sd > 0) & (u[3] * (sd * sd) >= 1.0)
 
 
+def super_grid(TH: int, TW: int, G: int):
+    """(STH, STW): super-tiles of ``G`` x ``G`` tiles over a TH x TW grid
+    of tiles, the last row and column cut by the image's edge."""
+    return (TH - 1) // G + 1, (TW - 1) // G + 1
+
+
+@torch.no_grad()
+def super_cones_plain(cones: torch.Tensor, B: int, TH: int, TW: int, G: int) -> torch.Tensor:
+    """Plain version of :func:`super_cones`: (B * STH * STW, 8) float32 cones
+    ``(c, sin theta, cos theta, 0, 0, 0)`` of the super-tiles of ``G`` x ``G``
+    tiles (row-major, :func:`super_grid`) over the tiles' float32 cones
+    ``cones`` (B * TH * TW, 8) of :func:`block_cones` (one a tile).  ``c`` is
+    the unit mean of the tiles' unit axes and ``theta`` the widest that a
+    tile's cone reaches from it, ``max (angle(c, c_j) + atan2(sin_j,
+    cos_j))``, in float64, widened by 1e-5, at most pi / 2.  A NaN in any of
+    the tiles' cones makes the super-tile's NaN, which culls nothing."""
+    f64 = torch.float64
+    STH, STW = super_grid(TH, TW, G)
+    grid = cones.to(f64).reshape(B, TH, TW, 8)
+    pad = grid.new_zeros((B, STH * G, STW * G, 8))
+    pad[:, :TH, :TW] = grid
+    have = torch.zeros((B, STH * G, STW * G), dtype=torch.bool, device=cones.device)
+    have[:, :TH, :TW] = True
+    group = lambda x: x.reshape(B, STH, G, STW, G, *x.shape[3:]).transpose(2, 3).reshape(
+        B * STH * STW, G * G, *x.shape[3:])
+    pad, have = group(pad), group(have)
+    unit = pad[..., :3] / pad[..., :3].norm(dim=-1, keepdim=True)
+    axis = torch.where(have[..., None], unit, 0.0).sum(1)
+    axis = axis / axis.norm(dim=-1, keepdim=True)
+    cos = (unit * axis[:, None, :]).sum(-1).clamp(-1.0, 1.0)
+    reach = torch.acos(cos) + torch.atan2(pad[..., 3], pad[..., 4])
+    theta = torch.where(have, reach, float("-inf")).amax(1)            # a NaN stays
+    theta = torch.where(torch.isnan(axis).any(1), float("nan"), theta)
+    theta = (theta + _SUPER_SLACK).clamp(max=0.5 * torch.pi)
+    zero = torch.zeros_like(theta)
+    cone = torch.stack([axis[:, 0], axis[:, 1], axis[:, 2], torch.sin(theta),
+                        torch.cos(theta), zero, zero, zero], dim=1)
+    return cone.to(torch.float32).contiguous()
+
+
+def super_cones(cones: torch.Tensor, B: int, TH: int, TW: int, G: int) -> torch.Tensor:
+    """(B * STH * STW, 8) float32 cones of the two-level cull's super-tiles
+    of ``G`` x ``G`` tiles: a small kernel of ``csrc/fine_select.cu`` on the
+    card, :func:`super_cones_plain` (which documents them) on the CPU."""
+    if not on_cuda(cones):
+        return super_cones_plain(cones, B, TH, TW, G)
+    check(cones, "cones", torch.float32, (B * TH * TW, 8))
+    STH, STW = super_grid(TH, TW, G)
+    out = torch.empty((B * STH * STW, 8), dtype=torch.float32, device=cones.device)
+    fn = bind("fine_select", "voge_super_cones", [VOIDP, VOIDP] + [INT] * 4 + [VOIDP])
+    raise_on_error(fn(ptr(cones), ptr(out), B, TH, TW, G, stream(cones.device)),
+                   "super_cones")
+    trace.count("launch.super_cones")
+    return out
+
+
+def _mask_words(P: int) -> int:
+    """Words a super-tile's row of the level-1 mask takes: 32 ids a word,
+    rounded up to 128 ids (a uint4 of the select's rounds)."""
+    return (P - 1) // _BLOCK_RAYS * 4 + 4
+
+
+@torch.no_grad()
+def cull_lists_plain(rows: torch.Tensor, sup: torch.Tensor, B: int, P: int) -> torch.Tensor:
+    """Plain version of :func:`cull_lists`: (B, nsup, words) int32, bit
+    ``n % 32`` of word ``n // 32`` of row (b, t) set when Gaussian n of image
+    b survives super-tile t's cone (``sup`` (B * nsup, 8)) by the blocks' own
+    test (:func:`cull_mask_plain` on the cull ``rows`` (B * P, 4)); no bit at
+    or past P."""
+    nsup = sup.shape[0] // B
+    words = _mask_words(P)
+    keep = torch.zeros((B, nsup, words * 32), dtype=torch.int64, device=rows.device)
+    for b in range(B):
+        keep[b, :, :P] = ~cull_mask_plain(sup[b * nsup:(b + 1) * nsup], rows[b * P:(b + 1) * P])
+    weight = torch.ones((), dtype=torch.int64, device=rows.device) << torch.arange(
+        32, device=rows.device)
+    word = (keep.reshape(B, nsup, words, 32) * weight).sum(-1)
+    return torch.where(word >= 1 << 31, word - (1 << 32), word).to(torch.int32)
+
+
+def mask_bits(mask: torch.Tensor, P: int) -> torch.Tensor:
+    """(B, nsup, P) bool: the ids the level-1 ``mask`` (B, nsup, words) keeps."""
+    bits = (mask.to(torch.int64)[..., None] >> torch.arange(32, device=mask.device)) & 1
+    return bits.reshape(*mask.shape[:2], -1)[..., :P] > 0
+
+
+def _count_level1(device, pairs: int):
+    """Tracing's counters of one level-1 pass: its launch, its (super-tile,
+    Gaussian) pairs (host); the accumulator its kernel adds the kept rows
+    into, or None while tracing is off."""
+    trace.count("launch.cull_lists")
+    trace.count("cull.level1_pairs", pairs)
+    return trace.device_counter("cull.kept_rows", device)
+
+
+def cull_lists(rows: torch.Tensor, sup: torch.Tensor, B: int, P: int) -> torch.Tensor:
+    """Level 1 of the two-level cull: (B, nsup, words) int32 masks of the
+    Gaussians that survive each super-tile's cone, in ascending index: a
+    kernel of ``csrc/fine_select.cu`` on the card (one thread a Gaussian, a
+    warp's ballot a word), :func:`cull_lists_plain` (which documents them)
+    on the CPU."""
+    if not on_cuda(rows, sup):
+        return cull_lists_plain(rows, sup, B, P)
+    nsup = sup.shape[0] // B
+    check(rows, "rows", torch.float32, (B * P, 4))
+    check(sup, "sup", torch.float32, (B * nsup, 8))
+    out = torch.empty((B, nsup, _mask_words(P)), dtype=torch.int32, device=rows.device)
+    kept = _count_level1(rows.device, B * nsup * P)
+    fn = bind("fine_select", "voge_cull_lists", [VOIDP] * 4 + [INT] * 3 + [VOIDP])
+    raise_on_error(fn(ptr(rows), ptr(sup), ptr(out), ptr(kept), B, P, nsup,
+                      stream(rows.device)), "cull_lists")
+    return out
+
+
+def two_level(P: int, blocks: int) -> bool:
+    """Whether the global entry without bits takes the two-level cull: where
+    the single level's scan, ``blocks`` (8 x 16 pixel blocks of the launch,
+    every image's) x ``P`` cone tests, reaches ``_TWO_LEVEL_MIN_PAIRS`` (card
+    measurements in :func:`fine_select_global`'s docstring)."""
+    return P * blocks >= _TWO_LEVEL_MIN_PAIRS
+
+
+def two_level_cones(rays: torch.Tensor, S: int = None):
+    """The two-level route's cones: (warps' (B * TH4 * TW4, 8), super-tiles'
+    (B * nsup, 8), (TH4, TW4)), a warp's tile 4 x 8 pixels and a super-tile
+    ``S`` x ``S`` blocks of 8 x 16 (``2 S`` x ``2 S`` warps' tiles)."""
+    S = _SUPER if S is None else S
+    B, H, W, _ = rays.shape
+    th, tw = _WARP_TILE
+    TH4, TW4 = (H - 1) // th + 1, (W - 1) // tw + 1
+    cones = block_cones(rays, th, tw)
+    return cones, super_cones(cones, B, TH4, TW4, 2 * S), (TH4, TW4)
+
+
+def fine_select_two_level_plain(rays, table, thr_act: float, K: int, agg_ow: float,
+                                S: int = None):
+    """Plain version of the two-level route of :func:`fine_select_global`
+    (no bits plane): every 4 x 8 pixels (a warp's rays) take as candidates
+    the Gaussians of their image that survive their super-tile's cone
+    (:func:`cull_lists_plain`) and their own (:func:`cull_mask_plain`), in
+    ascending index, with ids ``b * P + n``; evaluated densely by the select
+    the other plain versions share.  Equal to
+    :func:`fine_select_global_plain` to the bit: a culled pair never passes
+    the hit test."""
+    S = _SUPER if S is None else S
+    B, H, W, _ = rays.shape
+    P = table.shape[0] // B
+    th, tw = _WARP_TILE
+    TH, TW = (H - 1) // th + 1, (W - 1) // tw + 1
+    STH, STW = super_grid(TH, TW, 2 * S)
+    rows, cones = cull_rows_plain(table, thr_act), block_cones_plain(rays, th, tw)
+    sup = super_cones_plain(cones, B, TH, TW, 2 * S)
+    kept = mask_bits(cull_lists_plain(rows, sup, B, P), P)
+    nt = TH * TW
+    own = torch.cat([~cull_mask_plain(cones[b * nt:(b + 1) * nt], rows[b * P:(b + 1) * P])
+                     for b in range(B)])                                 # (B * nt, P)
+    dev = rays.device
+    s = torch.arange(B * nt, device=dev)
+    img, sy, sx = s // nt, s % nt // TW, s % TW
+    st = (sy // (2 * S)) * STW + sx // (2 * S)
+    table_c = table.reshape(B, P, FEAT)[img]
+    ids_c = (img[:, None] * P + torch.arange(P, device=dev)).to(torch.int32)
+    member = lambda s0, s1: (kept[img[s0:s1], st[s0:s1]] & own[s0:s1])[:, None, :]
+
+    sel = _select_tiles_plain(_tiles(rays, th, tw), table_c, ids_c, member, thr_act, K)
+    w = _weights_plain(sel[1], sel[2], sel[3], agg_ow)
+    idx, sl, sa, sd, w = (_untile(x, B, H, W, th, tw).contiguous() for x in (*sel, w))
+    return idx.to(torch.int32), sl, sa, sd, w
+
+
 def _kernel_global():
     return bind("fine_select", "voge_fine_select_global",
-                [VOIDP] * 10 + [INT] * 10 + [FLOAT, FLOAT, VOIDP])
+                [VOIDP] * 13 + [INT] * 11 + [FLOAT, FLOAT, VOIDP])
 
 
 def fine_select_global(rays, table, bits, thr_act: float, K: int,
@@ -440,6 +622,29 @@ def fine_select_global(rays, table, bits, thr_act: float, K: int,
     """Select the K nearest passing Gaussians of every pixel over the global
     candidate space: every Gaussian of the pixel's image, in ascending index
     (the no-coarse path; ``voge_tpu``'s ``fine_select_mask_pallas``).
+
+    Without a bits plane the cone cull takes one of two routes, by shape
+    alone (:func:`two_level`).  One level: every 8 x 16 block tests all P
+    cull rows of its image against its cone.  Two levels, where the blocks
+    of the launch times P reach 2**22: super-tiles of 2 x 2 blocks test them
+    once (:func:`cull_lists`), and each block walks only its super-tile's
+    survivors, each of its warps (4 x 8 rays) the rows its own cone keeps.
+    Both drop only pairs that cannot pass, so the outputs are the same bits.
+    Device ms a call on an H100 80GB HBM3 (700 W), one level / two levels
+    (``tools/torch_cull_levels.py``; the point cloud at 128x128 or 320x320,
+    one view, K = 20): P = 256 at 128x128 (32,768 block x Gaussian pairs)
+    0.0163 / 0.0312; 1,000 (128,000) 0.0251 / 0.0364; 2,562 (327,936)
+    0.0439 / 0.0433; 10,000 (1.28 M) 0.1282 / 0.0777; the ShapeFitting shape
+    (2,562 Gaussians, 5 views at 128x128, K = 25; 1.64 M) 0.4081 / 0.2369;
+    30,000 at 320x320 (24 M) 0.2334 / 0.1222; 100,000 0.6993 / 0.3162;
+    300,000 1.9985 / 0.8374; 300,000 under 4 views 6.5322 / 3.0033.  There
+    super-tiles of 4 x 4 blocks took 3.42 ms, of 8 x 8 5.31 (2 x 2: 3.02, in
+    the same run).  Two levels launch two kernels more; below 2**22 the
+    device time they save is small against what two launches cost a caller
+    that the host paces: the ShapeFitting step (render, loss, backward)
+    measured 4.304 ms a step on two levels against 4.212 on one (medians of
+    eight turns of 40 steps, in one process), though its select took 0.19
+    device ms less, so it keeps one level.
 
     :param rays: (B, H, W, 3) float32 unit world directions
     :param table: (B * P, 16) float32 feature rows
@@ -464,14 +669,30 @@ def fine_select_global(rays, table, bits, thr_act: float, K: int,
     sl, sa, sd, w = (torch.empty((B, H, W, K), **f32) for _ in range(4))
     th, tw = global_tile(bits is not None, bin_size)
     TH, TW = (H - 1) // th + 1, (W - 1) // tw + 1
-    cull = cones = None
+    cull = cones = sup = mask = kept = None
+    S = 0
     if _cull:
         with trace.span("voge.select.cull"):
-            cull, cones = cull_rows(table, thr_act), block_cones(rays, th, tw)
+            cull = cull_rows(table, thr_act)
+            if bits is None and two_level(P, B * TH * TW):
+                # one workspace, which the call fills before its select: the
+                # warps' cones, the super-tiles' cones and level 1's mask
+                S = _SUPER
+                TH4, TW4 = (H - 1) // _WARP_TILE[0] + 1, (W - 1) // _WARP_TILE[1] + 1
+                nsup = math.prod(super_grid(TH4, TW4, 2 * S))
+                sizes = [B * TH4 * TW4 * 8, B * nsup * 8, B * nsup * _mask_words(P)]
+                work = torch.empty(sum(sizes), dtype=torch.int32, device=dev)
+                cones, sup, mask = work.split(sizes)
+                trace.count("launch.block_cones")
+                trace.count("launch.super_cones")
+                kept = _count_level1(dev, B * nsup * P)
+            else:
+                cones = block_cones(rays, th, tw)
     err = _kernel_global()(
-        ptr(rays), ptr(table), ptr(bits), ptr(cull), ptr(cones), ptr(idx),
+        ptr(rays), ptr(table), ptr(bits), ptr(cull), ptr(cones), ptr(sup), ptr(mask),
+        ptr(kept), ptr(idx),
         ptr(sl), ptr(sa), ptr(sd), ptr(w), B * TH * TW, H, W, bin_size, th, tw,
-        TW, TH * TW, P, K, thr_act, agg_ow, stream(dev),
+        TW, TH * TW, P, K, S, thr_act, agg_ow, stream(dev),
     )
     raise_on_error(err, "fine_select_global")
     trace.count("launch.fine_select_global")

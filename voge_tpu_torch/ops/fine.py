@@ -20,7 +20,8 @@ two-stage tracer's second stage :func:`ray_tracing_fine`.
   whose bound is not proven conservative, is not copied).  K2's global entry
   reads the (B * P, 16) feature table in place and skips, block by block,
   only the Gaussians a cone bound proves no ray of the block can pass
-  (``ops.cuda_fine.cull_rows`` / ``block_cones``; the proof is in
+  (``ops.cuda_fine.cull_rows`` / ``block_cones``; at larger shapes first by
+  super-tiles of 2 x 2 blocks, ``cull_lists``; the proof is in
   ``csrc/fine_select.cu``), so its results are those of testing every pair;
   K3's global entry sums each Gaussian's gradient over its slots, and
   attributes go through the attribute merge (K3f / K4b).  Nothing is

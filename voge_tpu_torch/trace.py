@@ -15,8 +15,9 @@ launched.  On (:func:`enable`, or ``with tracing():``):
   nothing.
 - counters accumulate in the registry until :func:`reset`.  Host counts are
   Python integers; device counts (:func:`count_device`) are summed into a
-  device tensor on the device's stream and read once, by :func:`counts`, so
-  tracing adds no host read to a render.
+  device tensor on the device's stream, or added into it by a kernel
+  (:func:`device_counter`), and read once, by :func:`counts`, so tracing
+  adds no host read to a render.
 
 Spans, by layer:
 
@@ -44,7 +45,12 @@ Counters:
   walks; ``coarse.members``: the occupied ones (device);
   ``coarse.overflow``: members dropped (device);
 - ``launch.<entry>``: launches of each kernel wrapper of ``ops/cuda_*.py``
-  (their CUDA branch; the plain versions count nothing).
+  (their CUDA branch; the plain versions count nothing); ``launch.cull_lists``
+  counts the two-level cull's level 1, so it shows that the route engaged;
+- ``cull.level1_pairs``: (super-tile, Gaussian) pairs level 1 tests (host);
+  ``cull.kept_rows``: the Gaussians its masks keep, over every super-tile
+  (device): their ratio is the keep rate, and ``kept_rows`` the rows that
+  level 2's blocks examine, a super-tile's rows once for each of its blocks.
 """
 from __future__ import annotations
 
@@ -137,6 +143,19 @@ def count_device(name: str, values: torch.Tensor):
             _device[name] = total
         else:
             acc.add_(total.to(acc.device))
+
+
+def device_counter(name: str, device: torch.device):
+    """While tracing is on, the int64 accumulator of counter ``name`` on
+    ``device`` (made at 0), for a kernel to add into with no launch of its
+    own; None while tracing is off."""
+    if not _on:
+        return None
+    with _lock:
+        acc = _device.get(name)
+        if acc is None:
+            acc = _device[name] = torch.zeros((), dtype=torch.int64, device=device)
+    return acc
 
 
 def counts() -> dict:
