@@ -190,7 +190,11 @@ Run from the root of a checkout.  Phases:
      ms and its host µs a call (enqueue time, no synchronisation); rows 3,
      12 and 10 (K3f, ``attr_dw``, K4b) at both the headline and the texture
      shapes, their device ms also with the inputs rotated through copies
-     that together exceed the L2 twice (``past_l2``); each kernel's
+     that together exceed the L2 twice (``past_l2``); the similarity
+     kernel at pose scoring's (32, 256, 256, 128) (``similarity_row``:
+     against its plain version in float64, device ms also past the L2,
+     beside the nine passes it replaces and ``cosine_similarity`` as the
+     library call); each kernel's
      bound (the larger of its bytes over the card's memory rate and its
      operations over the card's FP32 rate, counted from this run's inputs;
      K2's global entry both with every pair tested and with the passing
@@ -292,6 +296,9 @@ KERNELS = {  # name -> (library, source, replaced TPU kernel)
     # port of the scatter kernel, whose one-hot match it replaces
     "slot_runs": ("slot_runs", "voge_tpu_torch/csrc/slot_runs.cu",
                   "voge_tpu/ops/pallas_attr.py:168"),
+    # pose scoring's similarity, which voge_tpu leaves to XLA
+    "feature_similarity": ("similarity", "voge_tpu_torch/csrc/similarity.cu",
+                           "none: XLA (voge_tpu/models/pose.py)"),
 }
 # The card's published peaks (H100 SXM): device memory 3.35 TB/s, FP32
 # outside the tensor cores 67 TFLOP/s.  A kernel's bound is the larger of its
@@ -514,9 +521,12 @@ def plain_path():
     """Route a render and its backward through the plain versions on CUDA
     tensors."""
     from voge_tpu_torch import sampler
-    from voge_tpu_torch.ops import coarse, cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd, fine
+    from voge_tpu_torch.ops import (
+        coarse, cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd, cuda_similarity, fine,
+    )
 
-    swaps = [(coarse, "emit_rows", cuda_coarse.emit_rows_plain),
+    swaps = [(cuda_similarity, "feature_similarity", cuda_similarity.feature_similarity_plain),
+             (coarse, "emit_rows", cuda_coarse.emit_rows_plain),
              (coarse, "slot_runs", cuda_attr.slot_runs_plain),
              (coarse, "coarse_globals", cuda_coarse.coarse_globals_plain),
              (coarse, "coarse_rows", cuda_coarse.coarse_rows_plain),
@@ -980,6 +990,75 @@ def attr_rows_at_shapes(shapes, plain):
                   f"{b_ms / r['device_ms']:.4f} device, "
                   f"{b_ms / r['device_ms_past_l2']:.4f} device past the L2)")
     return out
+
+
+# ---- pose scoring's cosine similarity (csrc/similarity.cu) ----
+SIM_SHAPE = (32, 256, 256, 128)         # cuboid10k.score32's stack: 32 poses, 128 features
+SIM_TOL = 1e-6                          # against the plain version in float64 (tests/test_torch_similarity.py)
+
+
+def similarity_row(dev):
+    """The similarity kernel at pose scoring's shape, a stack against one
+    target map expanded (batch stride 0): held to the plain version in
+    float64, two calls equal to the bit, one launch a call; then its
+    CUDA-event and device ms, device ms with the inputs past the L2 (two
+    stacks, and targets that together exceed the L2 twice, in turn: back to
+    back on one input, the 33.5 MB
+    target stays in the 50 MB L2 while the stack streams past it with
+    evict-first loads, so the share can read over 100%; in pose scoring the
+    merge's 1.07 GB write evicts it between calls), host µs a call, its bound
+    (the stack and the target read once, B floats written; 4 operations a
+    (batch, pixel, channel), 2 a (pixel, channel) of the target), the plain
+    version's ms (the nine PyTorch passes), and
+    ``cosine_similarity(...).mean((1, 2))``'s as the library yardstick (the
+    port never calls it)."""
+    from voge_tpu_torch import trace
+    from voge_tpu_torch.ops.cuda_similarity import feature_similarity, feature_similarity_plain
+
+    B, H, W, C = SIM_SHAPE
+    g = torch.Generator(dev).manual_seed(19)
+    target = torch.randn((H, W, C), generator=g, device=dev)
+    pred = 0.8 * target + torch.randn(SIM_SHAPE, generator=g, device=dev)
+    tx = target.expand(SIM_SHAPE)
+    with trace.tracing():
+        got, again = feature_similarity(pred, tx), feature_similarity(pred, tx)
+        torch.cuda.synchronize()
+        n = trace.counts().get("launch.feature_similarity", 0)
+    need(n == 2, f"feature_similarity: {n} launches for two calls")
+    need(torch.equal(got, again), "feature_similarity: two calls differ")
+    want = feature_similarity_plain(pred.double(), target.double()[None])
+    err = (got.double() - want).abs().max().item()
+    need(err <= SIM_TOL, f"feature_similarity vs plain (float64) {err:.3e}")
+    del want
+    e_lib = (torch.nn.functional.cosine_similarity(pred, tx, dim=-1).mean((1, 2))
+             - got).abs().max().item()
+    call = lambda: feature_similarity(pred, tx)
+    stacks = [pred, pred.clone()]
+    targets = [tx] + [target.clone().expand(SIM_SHAPE)
+                      for _ in range(-(-2 * L2_BYTES // nbytes(target)) - 1)]
+    turn = itertools.count()
+
+    def call_past_l2():
+        i = next(turn)
+        return feature_similarity(stacks[i % len(stacks)], targets[i % len(targets)])
+
+    b_ms, b_by = bound_ms(nbytes(pred, target) + B * 4, B * H * W * C * 4 + H * W * C * 2)
+    r = dict(ms=cuda_ms(call, 50), device_ms=device_ms(call, 20),
+             device_ms_past_l2=device_ms(call_past_l2, 24), host_us=host_us(call),
+             plain_ms=cuda_ms(lambda: feature_similarity_plain(pred, tx), 5),
+             library_ms=cuda_ms(lambda: torch.nn.functional.cosine_similarity(
+                 pred, tx, dim=-1).mean((1, 2)), 5),
+             bound_ms=b_ms, bound_by=b_by, max_abs_err=err, library_gap=e_lib)
+    del stacks, targets
+    print(f"kernel feature_similarity at score32's shape {SIM_SHAPE} (target batch stride 0): "
+          f"{r['ms']:.5f} ms (device {r['device_ms']:.5f}, past the L2 "
+          f"{r['device_ms_past_l2']:.5f}, host {r['host_us']:.2f} us a call), plain "
+          f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by} (share {b_ms / r['ms']:.4f} "
+          f"event, {b_ms / r['device_ms']:.4f} device, {b_ms / r['device_ms_past_l2']:.4f} "
+          "device past the L2), library "
+          f"{r['library_ms']:.4f} ms; vs plain in float64 {err:.3e}, vs the library {e_lib:.3e}; "
+          "two calls equal to the bit, one launch a call")
+    return r
 
 
 # ---- the occlusion and B = 8 steps, the dense route (K > 128) ----
@@ -1602,7 +1681,7 @@ def main():
     launchers = ("emit_rows", "coarse_globals", "coarse_rows", "fine_select", "attr_merge",
                  "fold_weights", "fine_bwd", "attr_merge_bwd", "fine_select_global",
                  "fine_bwd_global", "attr_scatter", "attr_dw", "fine_select_bins",
-                 "fine_bwd_gauss", "fine_bwd_rays", "slot_runs")
+                 "fine_bwd_gauss", "fine_bwd_rays", "slot_runs", "feature_similarity")
 
     # the two small kernels behind K2's global entry (its cone cull's glue):
     # counted like the entries, and held to one launch each a launch of it
@@ -2720,11 +2799,13 @@ def main():
     # alone; the scene is frozen, so K3's backward is its per-ray half alone,
     # once a refinement step, and the only grouping is the coarse stage's)
     counts = read_counts("pose", (*COARSE, "fine_select", "fine_bwd_rays", "attr_merge",
-                                  "attr_dw"))
+                                  "attr_dw", "feature_similarity"))
     need(counts["fine_bwd"] == 0 and counts["fine_bwd_gauss"] == 0
          and counts["fine_bwd_rays"] == 3, "pose refinement: K3's per-Gaussian pass ran")
     need(counts["slot_runs"] == counts["emit_rows"],
          "pose refinement: a grouping ran outside the coarse stage")
+    need(counts["feature_similarity"] == 1,
+         "pose: score's chunk did not take the similarity kernel once, or refinement took it")
     add(counts)
     # the same three steps with K3 whole (the scene's verts made to need a
     # gradient, which is then unused): the same bits
@@ -3308,6 +3389,7 @@ def main():
                 "attr_dw": lambda tag: lambda: attr_dw_plain(*a_sh[tag][1]),
                 "attr_merge_bwd": lambda tag: lambda: attr_merge_bwd_plain(*a_sh[tag][2])}
     at_shapes = details["attr_rows_at_shapes"] = attr_rows_at_shapes(a_sh, plain_at)
+    details["similarity"] = similarity_row(dev)
 
     kern = []
     details["kernels_device_ms"] = {}
@@ -3329,8 +3411,15 @@ def main():
                          library_ms=lib_ms, device_ms=dev_ms, host_us=h_us))
         if name in at_shapes:
             kern[-1]["shapes"] = at_shapes[name]
+    sim = details["similarity"]
+    _, src, rep = KERNELS["feature_similarity"]
+    print(f"kernel feature_similarity: launches on the main paths {launches['feature_similarity']}")
+    kern.append(dict(name="feature_similarity", route="cuda", source=src, replaces=rep,
+                     launches=launches["feature_similarity"], max_abs_err=sim["max_abs_err"],
+                     **{k: sim[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                            "device_ms", "device_ms_past_l2", "host_us")}))
     details["kernels"] = kern
-    need(len(kern) == len(KERNELS) == 16, "the kernels line lists every entry")
+    need(len(kern) == len(KERNELS) == 17, "the kernels line lists every entry")
 
     # K2's global entry and the unified backward once more, at the 300K
     # shapes (the lines above hold them at the ShapeFitting shapes)

@@ -336,9 +336,11 @@ class _PlainPath:
     """Route a render and its backward through the plain versions."""
 
     def __enter__(self):
-        from voge_tpu_torch.ops import cuda_coarse
+        from voge_tpu_torch.ops import cuda_coarse, cuda_similarity
 
-        self.saved = [(coarse, "emit_rows", cuda_coarse.emit_rows_plain),
+        self.saved = [(cuda_similarity, "feature_similarity",
+                       cuda_similarity.feature_similarity_plain),
+                      (coarse, "emit_rows", cuda_coarse.emit_rows_plain),
                       (coarse, "slot_runs", cuda_attr.slot_runs_plain),
                       (coarse, "coarse_globals", cuda_coarse.coarse_globals_plain),
                       (coarse, "coarse_rows", cuda_coarse.coarse_rows_plain),

@@ -25,6 +25,7 @@ from torch import nn
 from voge_tpu_torch import trace
 from voge_tpu_torch._device import resolve_device
 from voge_tpu_torch.cameras import look_at_view_transform
+from voge_tpu_torch.ops import cuda_similarity
 from voge_tpu_torch.renderer import get_silhouette, interpolate_attr, render_pipeline
 from voge_tpu_torch.utils import rotation_theta
 
@@ -42,14 +43,17 @@ def pose_matrices(dist, elev, azim, theta=None, degrees: bool = False, device=No
 
 
 def feature_similarity(pred: torch.Tensor, target: torch.Tensor, mask=None) -> torch.Tensor:
-    """Mean cosine similarity over pixels, (B,); pred / target (B, H, W, C)."""
+    """Mean cosine similarity over pixels, (B,); pred / target (B, H, W, C).
+
+    Float32 inputs with no mask and no gradient wanted (``score``, under
+    ``no_grad``) take ``ops.cuda_similarity.feature_similarity``: one pass
+    over the stack on the card.  Everything else (``refine_pose``'s pose
+    gradient, a mask, other dtypes) takes the differentiable expression."""
     with trace.span("voge.similarity"):
-        pn = pred / (torch.linalg.norm(pred, dim=-1, keepdim=True) + 1e-8)
-        tn = target / (torch.linalg.norm(target, dim=-1, keepdim=True) + 1e-8)
-        sim = (pn * tn).sum(-1)
-        if mask is not None:
-            return (sim * mask).sum((1, 2)) / (mask.sum((1, 2)) + 1e-8)
-        return sim.mean((1, 2))
+        needs_grad = torch.is_grad_enabled() and (pred.requires_grad or target.requires_grad)
+        if mask is None and not needs_grad and pred.dtype == target.dtype == torch.float32:
+            return cuda_similarity.feature_similarity(pred, target)
+        return cuda_similarity.feature_similarity_plain(pred, target, mask)
 
 
 class PoseHypothesisScorer(nn.Module):

@@ -4,7 +4,8 @@ backward, and the hand-written CUDA kernels with their plain PyTorch versions
 per-bin-list entries, ``cuda_fine_bwd``: K3 fine backward and its global
 entry and the weight fold, ``cuda_attr``: K3f attribute merge, K4b its
 backward and the two halves of it, and the grouping of slots by id that the
-run kernels take); ``dense`` and ``dense_select``: the dense ray tracing and
+run kernels take, ``cuda_similarity``: pose scoring's cosine similarity
+over a feature stack); ``dense`` and ``dense_select``: the dense ray tracing and
 the dense select, the route above K = 128 and the float64 oracle.
 Importing builds nothing: each kernel
 is compiled at its first launch."""

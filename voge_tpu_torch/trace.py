@@ -37,7 +37,8 @@ Spans, by layer:
 - ``voge.sample`` / ``voge.sample_bwd``: the texture sampler
   (``sampler.SampleFeatures``: the scatter of image rows onto the Gaussians,
   its grouping inside as ``voge.grouping``) and its backward.
-- ``voge.similarity``: ``models.pose.feature_similarity``.
+- ``voge.similarity``: ``models.pose.feature_similarity`` (on its
+  no-gradient route the two kernels of ``ops.cuda_similarity``).
 
 Counters:
 
@@ -50,6 +51,8 @@ Counters:
 - ``launch.<entry>``: launches of each kernel wrapper of ``ops/cuda_*.py``
   (their CUDA branch; the plain versions count nothing); ``launch.cull_lists``
   counts the two-level cull's level 1, so it shows that the route engaged;
+  ``launch.feature_similarity`` the similarity kernel's calls
+  (``ops.cuda_similarity``), so it shows that pose scoring took it;
 - ``cull.level1_pairs``: (super-tile, Gaussian) pairs level 1 tests (host);
   ``cull.kept_rows``: the Gaussians its masks keep, over every super-tile
   (device): their ratio is the keep rate, and ``kept_rows`` the rows that
