@@ -5,7 +5,7 @@ camera ``look_at_view_transform(dist=6, elev=10, azim=70)``, colours
 
     JAX_PLATFORMS=cpu python tests/data/make_voge_tpu_golden.py
 
-The GPU smoke check (``chip_smoke.py``) holds the PyTorch port against it,
+The card's tests (``tests/test_torch_cuda_paths.py``) hold the PyTorch port against it,
 since the GPU machine has no JAX; ``tests/test_torch_renderer.py``
 regenerates it and asserts that the file is unchanged.
 """

@@ -18,7 +18,8 @@ camera's hit tensors at once.
 
     JAX_PLATFORMS=cpu python tests/data/make_voge_tpu_golden_batch8.py
 
-``chip_smoke.py`` holds the port's B = 8 step on the GPU against this file;
+``tests/test_torch_cuda_paths.py`` holds the port's B = 8 step on the GPU
+against this file;
 ``tests/test_torch_batch8.py`` asserts that it is current (marked ``slow``).
 """
 from pathlib import Path

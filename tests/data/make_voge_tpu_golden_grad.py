@@ -12,7 +12,7 @@ run with JAX on the CPU.  Two cases:
 
     JAX_PLATFORMS=cpu python tests/data/make_voge_tpu_golden_grad.py
 
-The GPU smoke check (``chip_smoke.py``) holds the PyTorch port's gradients
+The card's tests (``tests/test_torch_cuda_paths.py``) hold the PyTorch port's gradients
 against them, since the GPU machine has no JAX; ``tests/test_torch_renderer.py``
 regenerates them and asserts that the files are current.
 """

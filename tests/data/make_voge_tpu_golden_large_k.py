@@ -15,7 +15,8 @@ selections' digest ``valid_num`` / ``id_sum`` (64, 64).
 
     JAX_PLATFORMS=cpu python tests/data/make_voge_tpu_golden_large_k.py
 
-``chip_smoke.py`` holds the port's dense route on the GPU against this file;
+``tests/test_torch_cuda_paths.py`` holds the port's dense route on the GPU
+against this file;
 ``tests/test_torch_dense.py`` asserts that it is current.
 """
 from pathlib import Path

@@ -14,7 +14,8 @@ and its gradients for verts, sigmas and colours, run with JAX on the CPU:
 
     JAX_PLATFORMS=cpu python tests/data/make_voge_tpu_golden_occlusion.py
 
-``chip_smoke.py`` holds the PyTorch port's step on the GPU against this file
+``tests/test_torch_cuda_paths.py`` holds the PyTorch port's step on the GPU
+against this file
 (the GPU machine has no JAX); ``tests/test_torch_occlusion.py`` regenerates
 it and asserts that it is current (a test marked ``slow``).
 """

@@ -17,7 +17,7 @@ on the CPU:
 
     JAX_PLATFORMS=cpu python tests/data/make_voge_tpu_golden_shapefit.py
 
-``chip_smoke.py`` holds the PyTorch port's ShapeFitting step on the GPU
+``tests/test_torch_cuda_paths.py`` holds the PyTorch port's ShapeFitting step on the GPU
 against this file (the GPU machine has no JAX); ``tests/test_torch_shapefit.py``
 regenerates it and asserts that it is current.
 """

@@ -20,8 +20,8 @@ nothing dropped).
 
     JAX_PLATFORMS=cpu python tests/data/make_voge_tpu_golden_texture.py
 
-``chip_smoke.py`` holds the PyTorch port's texture path on the GPU against
-this file (the GPU machine has no JAX); ``tests/test_torch_sampler.py``
+``tests/test_torch_cuda_paths.py`` holds the PyTorch port's texture path on
+the GPU against this file (the GPU machine has no JAX); ``tests/test_torch_sampler.py``
 regenerates it and asserts that it is current.
 """
 from pathlib import Path

@@ -12,7 +12,7 @@ sigmas and colours within 1e-3 normwise of ``jax.grad`` at B = 8, two
 backward runs equal to the bit; ``voge_tpu``'s B = 8 step equals the mean of
 its eight one-camera steps (how the full-width golden file is made), and
 that file (``tests/data/voge_tpu_golden_batch8_256.npz``, which
-``chip_smoke.py`` holds the card to) is what ``voge_tpu`` computes now.
+``tests/test_torch_cuda_paths.py`` holds the card to) is what ``voge_tpu`` computes now.
 """
 import importlib.util
 import sys

@@ -49,6 +49,10 @@ from voge_tpu_torch.ops.cuda_fine_bwd import (
 )
 from voge_tpu_torch.rays import camera_rays
 
+from cuda_common import (
+    equal_select, fold_then_pair, grad_err, hold_runs, plain_path, scene, stage_inputs,
+)
+
 torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
 
@@ -73,13 +77,16 @@ def launches(fn) -> int:
     return trace.counts().get(f"launch.{fn.__name__}", 0)
 
 
-@pytest.fixture(scope="module", params=["random", "cuboid"])
-def stage(request, dev):
+def _stage(dev, kind):
     """Two cameras over a random anisotropic scene (with one oversize
-    global member) or the 1K cuboid: rays, camera-centred points and
-    precisions, colours."""
+    global member) or the 1K cuboid at 52x60, or the 1K cuboid at 128x128
+    from the quickstart's one camera (``1k_128``): rays, camera-centred
+    points and precisions, colours."""
+    if kind == "1k_128":
+        g, cams, colors = scene(1000, (128, 128), 150.0, dev)
+        return (cams, (128, 128), *stage_inputs(g, cams, (128, 128)), colors)
     B, hw = 2, (52, 60)
-    if request.param == "random":
+    if kind == "random":
         rng = np.random.RandomState(3)
         verts = rng.uniform(-1, 1, size=(400, 3)).astype(np.float32)
         a = rng.uniform(-1, 1, size=(400, 3, 3)).astype(np.float32)
@@ -100,6 +107,18 @@ def stage(request, dev):
     colors = torch.rand(B * verts.shape[0], 3, device=dev,
                         generator=torch.Generator(dev).manual_seed(0))
     return cams, hw, rays, points, isig, colors
+
+
+@pytest.fixture(scope="module", params=["random", "cuboid"])
+def stage(request, dev):
+    """``_stage``'s two small scenes."""
+    return _stage(dev, request.param)
+
+
+@pytest.fixture(scope="module", params=["random", "cuboid", "1k_128"])
+def every_k_stage(request, dev):
+    """``_stage``'s two small scenes and the 1K cuboid at 128x128."""
+    return _stage(dev, request.param)
 
 
 def test_emit_kernel_equals_plain(stage):
@@ -253,13 +272,6 @@ def test_wrappers_check_their_inputs(stage):
         attr_merge_bwd(sel[0], sel[4], colors, torch.ones_like(rays).cpu())
 
 
-def _close(got, want):
-    """max |kernel - plain| <= 1e-4 max |plain|."""
-    assert want.abs().max() > 0
-    err = (got - want).abs().max().item()
-    assert err <= 1e-4 * want.abs().max().item(), err
-
-
 def _cotangents(shape, dev, n, seed):
     gen = torch.Generator(dev).manual_seed(seed)
     return [torch.randn(shape, device=dev, generator=gen) for _ in range(n)]
@@ -279,7 +291,7 @@ def test_fold_kernel_matches_plain(stage, K):
     torch.cuda.synchronize()
     assert launches(fold_weights) == before + 1
     for g, x in zip(got, want):
-        _close(g, x)
+        grad_err(g, x)
 
 
 @pytest.mark.parametrize("K", [5, 20, 25, 40, 128])
@@ -305,10 +317,10 @@ def test_fine_bwd_kernel_matches_plain(stage, with_attrs, want_rays, K):
     torch.cuda.synchronize()
     assert launches(fine_bwd) == before + 2
     assert got[0].shape == (table.shape[0], 15 if with_attrs else 12)
-    _close(got[0], want[0])
+    grad_err(got[0], want[0])
     assert torch.equal(got[0], again[0])
     if want_rays:
-        _close(got[1], want[1])
+        grad_err(got[1], want[1])
         assert torch.equal(got[1], again[1])
     else:
         assert got[1] is None and want[1] is None
@@ -328,36 +340,8 @@ def test_attr_merge_bwd_kernel_matches_plain(stage):
     torch.cuda.synchronize()
     assert launches(attr_merge_bwd) == before + 2
     for x, y, z in zip(got, want, again):
-        _close(x, y)
+        grad_err(x, y)
         assert torch.equal(x, z)
-
-
-class _PlainPath:
-    """Route a render and its backward through the plain versions."""
-
-    def __enter__(self):
-        from voge_tpu_torch.ops import cuda_coarse, cuda_similarity
-
-        self.saved = [(cuda_similarity, "feature_similarity",
-                       cuda_similarity.feature_similarity_plain),
-                      (coarse, "emit_rows", cuda_coarse.emit_rows_plain),
-                      (coarse, "slot_runs", cuda_attr.slot_runs_plain),
-                      (coarse, "coarse_globals", cuda_coarse.coarse_globals_plain),
-                      (coarse, "coarse_rows", cuda_coarse.coarse_rows_plain),
-                      (fine, "fine_select", fine_select_plain),
-                      (fine, "fine_bwd", fine_bwd_plain),
-                      (fine, "fine_select_global", fine_select_global_plain),
-                      (fine, "fine_bwd_global", fine_bwd_global_plain),
-                      (fine, "fine_bwd_rays", fine_bwd_rays_plain),
-                      (cuda_attr, "attr_merge", attr_merge_plain),
-                      (cuda_attr, "attr_merge_bwd", attr_merge_bwd_plain)]
-        self.saved = [(m, n, getattr(m, n), f) for m, n, f in self.saved]
-        for m, n, _, f in self.saved:
-            setattr(m, n, f)
-
-    def __exit__(self, *exc):
-        for m, n, f, _ in self.saved:
-            setattr(m, n, f)
 
 
 def test_render_gradients_kernel_path_match_plain_path(dev):
@@ -382,13 +366,13 @@ def test_render_gradients_kernel_path_match_plain_path(dev):
     before = (launches(fine_bwd), launches(attr_merge_bwd))
     k1, k2 = step(), step()
     assert launches(fine_bwd) == before[0] + 2 and launches(attr_merge_bwd) == before[1] + 2
-    with _PlainPath():
+    with plain_path():
         p = step()
     torch.cuda.synchronize()
     for a, b, c in zip(k1, k2, p):
         assert torch.equal(a, b)
         assert torch.isfinite(a).all()
-        _close(a, c)
+        grad_err(a, c)
 
 
 def _global_select(stage, K, bits_kind):
@@ -437,10 +421,10 @@ def test_fine_bwd_global_kernel_matches_plain(stage, want_rays, g_w):
     torch.cuda.synchronize()
     assert launches(fine_bwd_global) == before + 2
     assert got[0].shape == (table.shape[0], 12)
-    _close(got[0], want[0])
+    grad_err(got[0], want[0])
     assert torch.equal(got[0], again[0])
     if want_rays:
-        _close(got[1], want[1])
+        grad_err(got[1], want[1])
         assert torch.equal(got[1], again[1])
     else:
         assert got[1] is None and want[1] is None
@@ -464,8 +448,8 @@ def test_fine_bwd_long_and_empty_runs(stage):
                            (fine_bwd_global, fine_bwd_global_plain, (True,))):
         got = fn(rays, table, *sel, *cots, 0.9, *extra)
         want = pfn(rays, table, *sel, *cots, 0.9, *extra)
-        _close(got[0], want[0])
-        _close(got[1], want[1])
+        grad_err(got[0], want[0])
+        grad_err(got[1], want[1])
         assert not got[0][held == 0].any() and got[0][held > 32].abs().sum(-1).min() > 0
         empty = torch.full_like(sel[0], -1)
         rows, g_rays = fn(rays, table, empty, *sel[1:], *cots, 0.9, *extra)
@@ -484,7 +468,7 @@ def test_fine_bwd_skipped_fold_equals_zero_weight_cotangent(stage, entry):
     skipped = fn(rays, table, *sel[:4], None, *cots, None, 0.9, want_rays=True)
     zero = fn(rays, table, *sel, *cots, torch.zeros_like(sel[4]), 0.9, want_rays=True)
     assert all(torch.equal(a, b) for a, b in zip(skipped, zero))
-    _close(skipped[0], fine_bwd_global_plain(rays, table, *sel[:4], None, *cots, None, 0.9)[0])
+    grad_err(skipped[0], fine_bwd_global_plain(rays, table, *sel[:4], None, *cots, None, 0.9)[0])
 
 
 def test_shape_fitter_kernel_path_matches_plain_path(dev):
@@ -513,7 +497,7 @@ def test_shape_fitter_kernel_path_matches_plain_path(dev):
     torch.cuda.synchronize()
     for fn, n in before.items():
         assert (launches(fn) > n) == (fn is not emit_rows), fn.__name__
-    with _PlainPath():
+    with plain_path():
         lp, pp = run()
     for a, b in zip(lk, lp):
         assert abs(a - b) <= 1e-5 * abs(b)
@@ -672,7 +656,7 @@ def test_sampler_kernel_path_matches_plain(dev):
     assert (launches(attr_scatter), launches(attr_dw), launches(attr_merge)) == tuple(
         b + 2 for b in before)
     assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
-    with _plain_sampler():
+    with plain_path():
         feat_p, sw_p, grads_p = run()
     for a, b in zip((feat, sw) + tuple(grads), (feat_p, sw_p) + tuple(grads_p)):
         assert (a - b).abs().max() <= 1e-4 * b.abs().max()
@@ -681,25 +665,6 @@ def test_sampler_kernel_path_matches_plain(dev):
     want = np.zeros(500, np.float32)
     np.maximum.at(want, flat[flat >= 0], wf[flat >= 0])
     np.testing.assert_array_equal(got.cpu().numpy(), want)
-
-
-def _plain_sampler():
-    from contextlib import contextmanager
-
-    from voge_tpu_torch import sampler
-
-    @contextmanager
-    def swap():
-        saved = sampler.attr_scatter, sampler.attr_dw, sampler.attr_merge
-        sampler.attr_scatter = cuda_attr.attr_scatter_plain
-        sampler.attr_dw = cuda_attr.attr_dw_plain
-        sampler.attr_merge = cuda_attr.attr_merge_plain
-        try:
-            yield
-        finally:
-            sampler.attr_scatter, sampler.attr_dw, sampler.attr_merge = saved
-
-    return swap()
 
 
 @pytest.mark.parametrize("K", [5, 20, 40, 80])
@@ -806,7 +771,7 @@ def test_texture_scale_coarse_stage_reemits(dev):
                                              row_align=256, return_dst=True)
     assert int(c.overflow_c.sum()) == 0 and again[5][0].shape[-1] == 9
     assert all(torch.equal(a, b) for a, b in zip(again[:5], c[:5]))
-    with _PlainPath():
+    with plain_path():
         p = fine.compact_candidates(*cams, points, isg, hw, 0.01, 80)
     for a, b in zip(c[:5], p[:5]):
         assert torch.equal(a, b)
@@ -832,23 +797,11 @@ def test_split_halves_match_plain(stage, K, cots_kind):
     assert (launches(fine_bwd_gauss), launches(fine_bwd_rays)) == (before[0] + 2, before[1] + 2)
     assert rows.shape == (table.shape[0], 12) and g_rays.shape == rays.shape
     assert torch.equal(rows, again) and torch.equal(g_rays, g_again)
-    _close(rows, fine_bwd_gauss_plain(*halves))
-    _close(g_rays, fine_bwd_rays_plain(*halves))
+    grad_err(rows, fine_bwd_gauss_plain(*halves))
+    grad_err(g_rays, fine_bwd_rays_plain(*halves))
     empty = torch.full_like(idx, -1)
     assert not fine_bwd_gauss(rays, table, empty, length, dsd, *cots).any()
     assert not fine_bwd_rays(rays, table, empty, length, dsd, *cots).any()
-
-
-def _fold_then_pair(rays, table, idx, length, act, dsd, w, g_len, g_act, g_dsd, g_w,
-                    agg_ow, want_rays=True):
-    """The global backward as the fold's entry and the two halves, with the
-    unified entry's arguments and results."""
-    g3 = [g_len, g_act, g_dsd]
-    if g_w is not None:
-        g3 = [d if g is None else g + d
-              for g, d in zip(g3, fold_weights(length, act, dsd, w, g_w, agg_ow))]
-    halves = (rays, table, idx, length, dsd, *g3)
-    return fine_bwd_gauss(*halves), fine_bwd_rays(*halves) if want_rays else None
 
 
 @pytest.mark.parametrize("g_w", ["set", "only", "absent"])
@@ -864,7 +817,7 @@ def test_fold_then_split_pair_matches_unified_entry(stage, g_w):
         cots[:3] = [None] * 3
     elif g_w == "absent":
         cots[3] = None
-    want_rows, want_rays = _fold_then_pair(rays, table, *sel, *cots, 0.9)
+    want_rows, want_rays = fold_then_pair(rays, table, *sel, *cots, 0.9)
     fns = (fold_weights, fine_bwd_gauss, fine_bwd_rays, fine_bwd_global)
     before = [launches(fn) for fn in fns]
     rows, g_rays = fine.global_backward(rays, table, *sel, *cots, 0.9, True, True)
@@ -906,8 +859,8 @@ def test_rays_only_launch_matches_unified_entry_and_plain(stage, K, fold):
                                return_mu=True)
     assert torch.equal(g_rays, u_rays) and torch.equal(g_mu, u_mu)
     want, want_mu = fine_bwd_rays_plain(*halves, **kw, return_mu=True)
-    _close(g_rays, want)
-    _close(g_mu, want_mu)
+    grad_err(g_rays, want)
+    grad_err(g_mu, want_mu)
 
 
 @pytest.mark.parametrize("group", [4, 8, 16, 32])
@@ -941,7 +894,7 @@ def test_per_gaussian_half_at_each_group_width(stage, group):
     gauss = (sel[1], None, sel[3], None, (*cots[:3], None), 1.0, None, None)
     rows = k3_at(*gauss)
     assert torch.equal(rows, k3_at(*gauss))
-    _close(rows, fine_bwd_gauss_plain(*halves))
+    grad_err(rows, fine_bwd_gauss_plain(*halves))
     assert not rows[held == 0].any() and rows[held > 32].abs().sum(-1).min() > 0
     if group == cuda_fine_bwd.group_width(idx.numel(), n_tab):
         assert torch.equal(rows, fine_bwd_gauss(*halves))
@@ -951,7 +904,7 @@ def test_per_gaussian_half_at_each_group_width(stage, group):
     full = (*sel[1:], tuple(cots), 0.9, attrs, g_img)
     got = k3_at(*full)
     assert torch.equal(got, k3_at(*full))
-    _close(got, fine_bwd_plain(rays, table, idx, *sel[1:], *cots, 0.9, attrs, g_img,
+    grad_err(got, fine_bwd_plain(rays, table, idx, *sel[1:], *cots, 0.9, attrs, g_img,
                                False)[0])
 
 
@@ -970,7 +923,7 @@ def test_halves_refuse_k_above_max_on_the_card(dev):
                       for _ in range(3))
     halves = (rays, table, idx, length, dsd, g, None, None)
     for fn in (fine_bwd_rays, fine_bwd_gauss):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        with pytest.raises(NotImplementedError, match="MAX_K = 128; larger K takes the dense route"):
             fn(*halves)
     assert torch.isfinite(fine_bwd_rays_plain(*halves)).all()
 
@@ -1002,7 +955,7 @@ def test_point_cloud_render_takes_the_split_path(dev, monkeypatch):
     frag, got = step()
     torch.cuda.synchronize()
     assert [launches(fn) - b for fn, b in zip(fns, before)] == [0, 0, 0, 1]
-    monkeypatch.setattr(fine, "fine_bwd_global", _fold_then_pair)
+    monkeypatch.setattr(fine, "fine_bwd_global", fold_then_pair)
     _, want = step()
     torch.cuda.synchronize()
     assert [launches(fn) - b for fn, b in zip(fns, before)] == [1, 1, 1, 1]
@@ -1038,7 +991,8 @@ def test_pose_kernel_path_matches_plain_path(dev):
     """Scores of six hypotheses (chunks of 4, the last padded) and three
     refinement steps on the 1K cuboid at 96x96 through the kernels and
     through the plain versions: scores within 1e-5, parameters within 1e-4
-    (``chip_smoke.py`` holds the same at the full batched shape)."""
+    (``tests/test_torch_cuda_paths.py`` holds the same at the full batched
+    shape)."""
     g = vt.converter.Cuboid.cuboid_gauss((-1, 1), (-1, 1), (-1, 1), 1000,
                                          percentage=0.6, as_obj=True, device=dev)
     feats = ((g.verts.detach() + 1) / 3).contiguous()
@@ -1064,7 +1018,7 @@ def test_pose_kernel_path_matches_plain_path(dev):
     # 2 chunks + 3 steps; the scene is frozen, so the backward is the per-ray
     # half alone: no K3, no grouping of its slots
     assert ran[0] >= 5 and ran[1:] == [5, 0, 5, 3, 0]
-    with _PlainPath():
+    with plain_path():
         sp, pp, simp = run()
     assert sk.shape == (6,) and int(sk.argmax()) == 2
     assert (sk - sp).abs().max().item() <= 1e-5 and abs(simk - simp) <= 1e-5
@@ -1109,24 +1063,15 @@ def test_slice_entry_points_default_to_the_card(dev, tmp_path):
 ALL_K = [5, 8, 16, 20, 25, 32, 64, 80, 128]
 
 
-def _equal_select(got, want):
-    """Selections and len / act / dsd equal to the bit; weights and image
-    within 1e-4."""
-    assert torch.equal(got[0], want[0])
-    for g, w in zip(got[1:4], want[1:4]):
-        assert torch.equal(g, w)
-    for g, w in zip(got[4:], want[4:]):
-        if w is None:
-            assert g is None
-        else:
-            torch.testing.assert_close(g, w, rtol=0, atol=1e-4)
-
-
 @pytest.mark.parametrize("K", ALL_K)
 @pytest.mark.parametrize("entry", ["compacted", "compacted_attrs", "global", "global_bits", "bins"])
-def test_select_entries_equal_plain_at_every_k(stage, entry, K):
+def test_select_entries_equal_plain_at_every_k(every_k_stage, entry, K):
+    """Each entry of K2 at every K on the two small scenes and on the 1K
+    cuboid at 128x128: equal to its plain version (``equal_select``), two
+    runs equal to the bit."""
     from voge_tpu_torch.ops.cuda_fine import fine_select_bins, fine_select_bins_plain
 
+    stage = every_k_stage
     cams, hw, rays, points, isig, colors = stage
     thr_act = -math.log(0.01 + 1e-10)
     if entry.startswith("compacted"):
@@ -1134,18 +1079,19 @@ def test_select_entries_equal_plain_at_every_k(stage, entry, K):
         table = fine.candidate_table(points, isig, c.pos_c)
         args = (rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K, c.bin_size, 0.9,
                 colors if entry.endswith("attrs") else None)
-        got, want = fine_select(*args), fine_select_plain(*args)
-        assert torch.equal(got[0], fine_select(*args)[0])
+        kfn, pfn = fine_select, fine_select_plain
     elif entry.startswith("global"):
         _, _, args = _global_select(stage, K, "random" if entry.endswith("bits") else "none")
-        got, want = fine_select_global(*args), fine_select_global_plain(*args)
+        kfn, pfn = fine_select_global, fine_select_global_plain
     else:
         bp = coarse.rasterize_coarse(*cams, points, isig, hw, 0.01, 10, 150)
         args = (rays, fine.feature_table(points, isig), bp, thr_act, K, 10)
-        got, want = fine_select_bins(*args), fine_select_bins_plain(*args)
+        kfn, pfn = fine_select_bins, fine_select_bins_plain
+    got, want = kfn(*args), pfn(*args)
+    assert all(torch.equal(a, b) for a, b in zip(got[:4], kfn(*args)[:4]))
     torch.cuda.synchronize()
     assert (got[0] >= 0).any()
-    _equal_select(got, want)
+    equal_select(got, want)
 
 
 def _edge_scene(dev, B, P, seed, behind=0, dup=1, needles=False):
@@ -1197,7 +1143,7 @@ def test_select_edge_cases_equal_plain(dev, case):
     if case != "short_rows":
         args = (rays, table, None, thr_act, K, 6, 1.0)
         got, want = fine_select_global(*args), fine_select_global_plain(*args)
-        _equal_select(got, want)
+        equal_select(got, want)
         valid = got[0] >= 0
         assert valid.any()
         if case == "needles":
@@ -1231,7 +1177,7 @@ def test_select_edge_cases_equal_plain(dev, case):
     table_c = table[(img * P + pos).reshape(-1)].reshape(nb, M, 16).contiguous()
     args = (rays, table_c, bits, ids, counts, thr_act, K, 6, 0.8, None)
     got, want = fine_select(*args), fine_select_plain(*args)
-    _equal_select(got, want)
+    equal_select(got, want)
     assert (got[0] >= 0).any()
 
 
@@ -1420,51 +1366,49 @@ def test_cull_glue_kernels_match_plain(stage, tile):
 
 
 def _hold_runs(idx, n_rows):
-    """``slot_runs`` against its plain version (torch.sort + searchsorted):
-    the run starts and the valid prefix of ``order`` equal to the bit, one
-    launch a call, two runs equal."""
-    from voge_tpu_torch.ops.cuda_attr import slot_runs, slot_runs_plain
+    """``hold_runs`` (against torch.sort + searchsorted), one launch a call."""
+    from voge_tpu_torch.ops.cuda_attr import slot_runs
 
     before = launches(slot_runs)
-    order, starts = slot_runs(idx, n_rows)
-    again = slot_runs(idx, n_rows)
-    p_order, p_starts = slot_runs_plain(idx, n_rows)
+    v = hold_runs(idx, n_rows)
     torch.cuda.synchronize()
     assert launches(slot_runs) == before + 2
-    assert order.dtype == torch.int32 and starts.dtype == torch.int64
-    v = int(p_starts[-1])
-    assert torch.equal(starts, p_starts) and torch.equal(order[:v], p_order[:v])
-    assert torch.equal(again[1], starts) and torch.equal(again[0][:v], order[:v])
     return v
 
 
+@pytest.mark.parametrize("slots", [300_000, 1 << 20])
 @pytest.mark.parametrize("K", [1, 20, 80, 128])
 @pytest.mark.parametrize("n_rows", [1, 255, 256, 257, 65535, 65536, 65537, 300000])
-def test_slot_runs_kernel_equals_plain(dev, n_rows, K):
+def test_slot_runs_kernel_equals_plain(dev, n_rows, K, slots):
     """Random ids (a third empty, some at or above ``n_rows``) at one, two
-    and three radix passes, more than one tile of 2,048 slots."""
+    and three radix passes, more than one tile of 2,048 slots, on about
+    300,000 slots and on a million."""
     gen = torch.Generator(dev).manual_seed(n_rows + K)
-    idx = torch.randint(-(n_rows // 2) - 1, n_rows + 4, (max(1, 300_000 // K), K),
+    idx = torch.randint(-(n_rows // 2) - 1, n_rows + 4, (max(1, slots // K), K),
                         dtype=torch.int32, device=dev, generator=gen).clamp(min=-1)
     assert _hold_runs(idx, n_rows) == int(((idx >= 0) & (idx < n_rows)).sum())
 
 
-@pytest.mark.parametrize("kind", ["all_empty", "one_id", "all_beyond", "one_slot", "texture"])
+@pytest.mark.parametrize("kind", ["all_empty", "one_id", "all_empty_2^20", "one_id_2^20",
+                                  "all_beyond", "one_slot", "texture"])
 def test_slot_runs_kernel_edge_cases(dev, kind):
-    """Every slot empty, one id in every slot, every id out of range, one
-    slot, and the texture shapes' 13.76 M slots on 10,242 ids."""
+    """Every slot empty and one id in every slot (on 81,980 slots and on
+    2^20), every id out of range, one slot, and the texture shapes' 13.76 M
+    slots on 10,242 ids."""
     gen = torch.Generator(dev).manual_seed(8)
-    full = lambda v: torch.full((4099, 20), v, dtype=torch.int32, device=dev)
+    full = lambda v, shape=(4099, 20): torch.full(shape, v, dtype=torch.int32, device=dev)
     idx, n_rows = {
         "all_empty": lambda: (full(-1), 1000), "one_id": lambda: (full(5), 10),
+        "all_empty_2^20": lambda: (full(-1, (1 << 20,)), 1000),
+        "one_id_2^20": lambda: (full(5, (1 << 20,)), 10),
         "all_beyond": lambda: (full(300), 300),
         "one_slot": lambda: (torch.full((1, 1), 7, dtype=torch.int32, device=dev), 8),
         "texture": lambda: (torch.randint(-4000, 10242, (1, 256, 672, 80), dtype=torch.int32,
                                           device=dev, generator=gen).clamp(min=-1), 10242),
     }[kind]()
     v = _hold_runs(idx, n_rows)
-    assert v == {"all_empty": 0, "one_id": idx.numel(), "all_beyond": 0,
-                 "one_slot": 1}.get(kind, v)
+    assert v == {"all_empty": 0, "one_id": idx.numel(), "all_empty_2^20": 0,
+                 "one_id_2^20": idx.numel(), "all_beyond": 0, "one_slot": 1}.get(kind, v)
 
 
 def test_run_kernels_keep_their_bits_with_the_plain_grouping(stage, monkeypatch):
@@ -1516,7 +1460,7 @@ def test_attr_scatter_warp_and_block_runs(dev):
     w = torch.rand((n_pix, K), device=dev, generator=gen)
     g = torch.randn((n_pix, d), device=dev, generator=gen)
     out = attr_scatter(idx, w, g, n_rows)
-    _close(out, attr_scatter_plain(idx, w, g, n_rows))
+    grad_err(out, attr_scatter_plain(idx, w, g, n_rows))
     assert torch.equal(out, attr_scatter(idx, w, g, n_rows))
     assert not out[0].any() and not out[7].any()
     for j in range(n_rows):   # row j alone: the other ids moved out of range

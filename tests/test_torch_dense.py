@@ -389,7 +389,8 @@ def test_float64_oracle_matches_voge_tpu_float64_above_k128(mode):
 
 
 def test_large_k_golden_file_is_voge_tpu_output(large_k):
-    """The file ``chip_smoke.py`` holds the card's K = 200 route against is
+    """The file ``tests/test_torch_cuda_paths.py`` holds the card's K = 200
+    route against is
     what ``voge_tpu`` computes now."""
     m, _, runs = large_k
     fresh = m.pack(runs)

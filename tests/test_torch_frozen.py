@@ -274,5 +274,5 @@ def test_halves_refuse_k_above_max_on_the_card(monkeypatch):
     assert want.shape == rays.shape and torch.isfinite(want).all()
     monkeypatch.setattr(cuda_fine_bwd, "on_cuda", lambda *t: True)
     for fn in (fine_bwd_rays, fine_bwd_gauss):
-        with pytest.raises(NotImplementedError, match="queue 1, item 6"):
+        with pytest.raises(NotImplementedError, match="MAX_K = 128; larger K takes the dense route"):
             fn(*args)

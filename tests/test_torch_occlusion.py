@@ -12,8 +12,8 @@ Checks: selections equal but for knife-edge pixels (< 0.1%), weights and
 the image within 1e-4 on agreeing pixels, the loss within 1e-5 and the
 gradients of verts, sigmas and colours within 1e-3 normwise of ``jax.grad``,
 two backward runs equal to the bit.  The golden file of the full step
-(``tests/data/voge_tpu_golden_occlusion_400.npz``, which ``chip_smoke.py``
-holds the card to) is regenerated and compared by a test marked ``slow``:
+(``tests/data/voge_tpu_golden_occlusion_400.npz``, which
+``tests/test_torch_cuda_paths.py`` holds the card to) is regenerated and compared by a test marked ``slow``:
 ``voge_tpu``'s CPU chain takes ~14 GB and ~20 s for it.
 """
 import importlib.util

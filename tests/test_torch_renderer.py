@@ -288,8 +288,8 @@ def test_paths_not_ported_raise():
 
 
 def test_golden_file_is_voge_tpu_output():
-    """The golden file that ``chip_smoke.py`` holds the GPU render against
-    is exactly what ``voge_tpu`` renders now."""
+    """The golden file that ``tests/test_torch_cuda_paths.py`` holds the GPU
+    render against is exactly what ``voge_tpu`` renders now."""
     spec = importlib.util.spec_from_file_location(
         "make_voge_tpu_golden", DATA / "make_voge_tpu_golden.py")
     mod = importlib.util.module_from_spec(spec)
@@ -305,8 +305,8 @@ def test_golden_file_is_voge_tpu_output():
 @pytest.mark.parametrize("name", ["voge_tpu_golden_grad_1k_128.npz",
                                   "voge_tpu_golden_grad_10k_256.npz"])
 def test_golden_grad_files_are_voge_tpu_output(name):
-    """The golden gradient files that ``chip_smoke.py`` holds the GPU
-    fitting step against are what ``voge_tpu`` computes now (same machine
+    """The golden gradient files that ``tests/test_torch_cuda_paths.py``
+    holds the GPU fitting step against are what ``voge_tpu`` computes now (same machine
     class: atol 1e-6 of each tensor's largest entry), and the port's CPU
     path meets them within the stated tolerances."""
     spec = importlib.util.spec_from_file_location(

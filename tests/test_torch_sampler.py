@@ -220,8 +220,8 @@ def test_texture_chain_matches_voge_tpu():
 
 
 def test_golden_texture_file_is_voge_tpu_output():
-    """The golden file of the full-width texture chain that ``chip_smoke.py``
-    holds the card's run against is what ``voge_tpu`` computes now (same
+    """The golden file of the full-width texture chain that
+    ``tests/test_torch_cuda_paths.py`` holds the card's run against is what ``voge_tpu`` computes now (same
     machine class: atol 1e-6 of each tensor's largest entry), drops nothing,
     and its scene is the one the port's converters build."""
     import importlib.util

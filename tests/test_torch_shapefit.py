@@ -10,7 +10,8 @@ against ``voge_tpu`` on the CPU, fed the same numpy scene:
   ``jax.grad``;
 - ``models.ShapeFitter`` against ``voge_tpu.models.ShapeFitter`` from the
   same state, carried over by ``interop.fitter_from_numpy``;
-- the golden file ``chip_smoke.py`` holds the card's run against.
+- the golden file ``tests/test_torch_cuda_paths.py`` holds the card's run
+  against.
 
 Tolerances (``tests/test_parity_full.py:22-49``): selections equal but for
 knife-edge pixels (< 0.1% flipped); weights, hit lengths and images atol 1e-4
@@ -273,7 +274,7 @@ def test_shape_fitter_on_a_mesh_follows_voge_tpu(shape, model_axis):
 
 def test_golden_shapefit_file_is_voge_tpu_output():
     """The golden file of the full-width ShapeFitting step that
-    ``chip_smoke.py`` holds the card's run against is what ``voge_tpu``
+    ``tests/test_torch_cuda_paths.py`` holds the card's run against is what ``voge_tpu``
     computes now (same machine class: atol 1e-6 of each tensor's largest
     entry)."""
     spec = importlib.util.spec_from_file_location(

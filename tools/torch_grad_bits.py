@@ -12,7 +12,8 @@ are ``chip_smoke.py``'s, and every case calls only entry points that both
 sides have:
 
 - ``frozen_300k_rays``: the 300,000-point cloud with no coarse stage, the
-  points constant (``chip_smoke.py``'s frozen-scene step): the ray gradient;
+  points constant (the frozen-scene step of ``tests/test_torch_cuda_paths.py``):
+  the ray gradient;
 - ``step_300k``: the 300,000-point step's gradients (verts, sigmas, R, T);
 - ``two_stage_rays`` / ``two_stage_scene``: the headline scene through
   ``rasterize_coarse`` -> ``ray_tracing_fine`` and a seeded linear loss:
@@ -20,7 +21,7 @@ sides have:
   rays' gradients with it free;
 - ``compacted_rays``: the 10K cuboid at 256x256, K = 20, colours
   composited, through ``ops.fine.ray_tracing`` (coarse stage) on constant
-  points, seen from ``chip_smoke.py``'s first pose-refinement camera: the
+  points, seen from the pose tests' first refinement camera: the
   ray gradient of ``bench.py``'s loss;
 - ``headline_step``: the headline fitting step's gradients (verts, sigmas,
   colours), cameras fixed;

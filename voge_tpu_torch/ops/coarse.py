@@ -112,8 +112,9 @@ def emit_supertile_candidates(R, T, focal, principal, points, isigmas,
         the slot ``row * M + rank`` each emitted key landed in (int32, -1
         when not emitted or dropped), for the local window keys and for the
         global members' per-supertile keys, with the globals' Gaussian
-        indices and validity.  The backward gathers every Gaussian's
-        gradient rows through it (``ops.fine.gather_back_rows``).
+        indices and validity.  ``ops.fine.gather_back_rows``, the
+        counterpart of ``voge_tpu``'s gather-back that the tests hold, takes
+        it; no backward of the port does (K3 writes one row a Gaussian).
     """
     win = emission_geometry(points.shape[1], image_size, bin_size)[-1]
     return _emit_candidates(R, T, focal, principal, points, isigmas, image_size,

@@ -110,9 +110,8 @@ def _check_args(rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs):
     nb, M = B * BH2 * BW2, table_c.shape[1]
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
-            f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
-            "takes the dense route (ops.dense_select; kernels past 128: ROADMAP "
-            "queue 2, item 8)")
+            f"K={K}: the select kernel takes 1 <= K <= MAX_K = {MAX_K}; larger K "
+            "takes the dense route (ops.dense_select)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     check(table_c, "table_c", torch.float32, (nb, M, FEAT))
     check(bits_c, "bits_c", torch.int32, (nb, M))
@@ -277,9 +276,8 @@ def _check_global(rays, table, bits, K, bin_size):
     nb = B * BH2 * BW2
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
-            f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
-            "takes the dense route (ops.dense_select; kernels past 128: ROADMAP "
-            "queue 2, item 8)")
+            f"K={K}: the select kernel takes 1 <= K <= MAX_K = {MAX_K}; larger K "
+            "takes the dense route (ops.dense_select)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     if table.ndim != 2 or table.shape[0] % B or table.shape[0] == 0:
         raise ValueError(f"table: expected (B * P, {FEAT}) with B={B}, got {tuple(table.shape)}")
@@ -705,9 +703,8 @@ def _check_bins(rays, table, bin_points, K, bin_size):
     BH, BW = (H - 1) // bsh + 1, (W - 1) // bsw + 1
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
-            f"K={K}: the select kernel takes 1 <= K <= {MAX_K}; larger K "
-            "takes the dense route (ops.dense_select; kernels past 128: ROADMAP "
-            "queue 2, item 8)")
+            f"K={K}: the select kernel takes 1 <= K <= MAX_K = {MAX_K}; larger K "
+            "takes the dense route (ops.dense_select)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
     if table.ndim != 2 or table.shape[0] == 0:
         raise ValueError(f"table: expected (rows, {FEAT}), got {tuple(table.shape)}")

@@ -234,7 +234,8 @@ def _check_fold(rays, table, idx, length, act, dsd, w, grads, attrs, g_img):
 def _check_k(K: int, what: str):
     if K > MAX_K:
         raise NotImplementedError(
-            f"K={K}: {what} takes 1 <= K <= {MAX_K} (ROADMAP queue 1, item 6: K > 128)")
+            f"K={K}: {what} takes 1 <= K <= MAX_K = {MAX_K}; larger K takes the "
+            "dense route (ops.dense_select)")
 
 
 def _check_bwd(rays, table, idx, length, act, dsd, w, grads, attrs, g_img):
