@@ -350,12 +350,13 @@ def build_report(details):
         at = next(i for i, line in enumerate(lines) if kname in line and "Compiling" in line)
         return " ".join(x.strip() for x in lines[at + 2:at + 4])
 
-    # K2's three instantiations (compacted 0, global 1, lists 2): one code path
-    # at every K, the top-K in K KB of dynamic shared memory beside 18.6 KB of
-    # staging, so the resident blocks an SM follow from K and the registers
+    # K2's four instantiations (compacted 0, global 1, lists 2, masked 3): one
+    # code path at every K, the top-K in K KB of dynamic shared memory beside
+    # 18.6 KB of staging, so the resident blocks an SM follow from K and the
+    # registers
     details["ptxas_k2"] = {}
     k2_regs = 0
-    for mode, tag in ((0, "compacted"), (1, "global"), (2, "lists")):
+    for mode, tag in ((0, "compacted"), (1, "global"), (2, "lists"), (3, "masked")):
         details["ptxas_k2"][tag] = rep = report("fine_select", f"fine_select_kernelILi{mode}E")
         print(f"ptxas K2 {tag}: {rep}")
         k2_regs = max(k2_regs, int(re.search(r"Used (\d+) registers", rep).group(1)))
@@ -391,7 +392,7 @@ def table_inputs(dev):
     g, cams, colors = scene(10000, (256, 256), 300.0, dev)
     rays, points, isig = stage_inputs(g, cams, (256, 256))
     c = fine.compact_candidates(*cams, points, isig, (256, 256), 0.01, 20)
-    k2 = (rays, fine.candidate_table(points, isig, c.pos_c), c.bits_c, c.ids_c, c.counts_c,
+    k2 = (rays, fine.feature_table(points, isig), c.bits_c, c.ids_c, c.counts_c,
           c.thr_act, 20, c.bin_size, 1.0, colors)
     sel = fine_select(*k2)
     g_cot = [seeded(sel[1].shape, dev, 10 + q) for q in range(4)]
@@ -439,7 +440,7 @@ def table_inputs(dev):
     s.update(tex=(verts_tx, isig_tx, cams_tx, image_tx, ctx_tx), frag_tx=frag_tx,
              tex_stage=(cams_tx, points_tx, isg_tx),
              scatter=(idx_tx, w_tx, aug_tx, N_tx), dw=(idx_tx, g_aug, aug_tx),
-             k2tx=(rays_tx, fine.candidate_table(points_tx, isg_tx, c_tx.pos_c), c_tx.bits_c,
+             k2tx=(rays_tx, fine.feature_table(points_tx, isg_tx), c_tx.bits_c,
                    c_tx.ids_c, c_tx.counts_c, c_tx.thr_act, TEX_K, c_tx.bin_size, 1.0, None))
     idx_h, w_h, colors_h = s["k3"]
     g_h = s["k4b"][3]
@@ -470,7 +471,7 @@ def table_inputs(dev):
     points_p = verts_p[None] - ctx_p.origins[:, None, :]
     isg_p = (2.0 * expend_sigma(isig_p))[None]
     c_p = fine.compact_candidates(*cams_p, points_p, isg_p, CLOUD_HW, 0.01, CLOUD_K)
-    s["k2p"] = (ctx_p.rays, fine.candidate_table(points_p, isg_p, c_p.pos_c), c_p.bits_c,
+    s["k2p"] = (ctx_p.rays, fine.feature_table(points_p, isg_p), c_p.bits_c,
                 c_p.ids_c, c_p.counts_c, c_p.thr_act, CLOUD_K, c_p.bin_size, 1.0, None)
     s["c100"] = (verts_p, isig_p, cams_p, ctx_p)
     torch.cuda.synchronize()

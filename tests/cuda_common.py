@@ -1,8 +1,9 @@
 """What the port's checks on the card and ``chip_smoke.py`` share: the
 kernels the port launches, the main paths' scenes at their own shapes, the
 routes (the plain path, no plain version, a main path with its launches
-counted) and the comparisons of a kernel with its plain version, with their
-tolerances.
+counted), the comparisons of a kernel with its plain version, with their
+tolerances, and memory that ends where its mapping ends (``AtTheEnd``), so a
+kernel's read past an input faults.
 
 It imports only torch, numpy and the port, so that it runs on a GPU machine
 without JAX.  The tests import it by name (``tests/`` is on their path);
@@ -20,6 +21,7 @@ against its plain version in float64: 1e-6 absolute.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from contextlib import contextmanager, nullcontext
 
@@ -425,3 +427,61 @@ def main_path(required=(), kernels_only=False, dense=False):
         f"K2's global entry ran without its cone cull: {counts}"
     if not dense:
         assert dense_select.calls == 0, "a render at K <= 128 took the dense route"
+
+
+# ---- memory that ends where the mapping ends ------------------------------------
+
+class _Prop(ctypes.Structure):      # CUmemAllocationProp
+    _fields_ = [("type", ctypes.c_int), ("handle_types", ctypes.c_int),
+                ("loc_type", ctypes.c_int), ("loc_id", ctypes.c_int),
+                ("win32_meta", ctypes.c_void_p), ("compression", ctypes.c_ubyte),
+                ("rdma", ctypes.c_ubyte), ("usage", ctypes.c_ushort),
+                ("reserved", ctypes.c_ubyte * 4)]
+
+
+class _Access(ctypes.Structure):    # CUmemAccessDesc
+    _fields_ = [("loc_type", ctypes.c_int), ("loc_id", ctypes.c_int), ("flags", ctypes.c_int)]
+
+
+class AtTheEnd:
+    """``n`` float32 (or int32, by ``dtype``) on the card whose last one
+    ends where mapped memory ends: CUDA's virtual memory API (the driver,
+    through ctypes) reserves a granule more than it maps, so a read past the
+    end faults with an illegal address instead of reading a neighbour's
+    bytes in the caching allocator's block.  ``tensor`` views it; ``free``
+    unmaps it."""
+
+    def __init__(self, n, device, dtype=torch.float32):
+        cu = self.cu = ctypes.CDLL("libcuda.so.1")
+        u64, size = ctypes.c_uint64, ctypes.c_size_t
+        prop = _Prop(type=1, loc_type=1, loc_id=device.index or 0)    # pinned, on the device
+        gran = size()
+        _ok(cu.cuMemGetAllocationGranularity(ctypes.byref(gran), ctypes.byref(prop), 0))
+        self.mapped = -(-n * 4 // gran.value) * gran.value
+        self.reserved = self.mapped + gran.value
+        self.base, self.handle = u64(), u64()
+        _ok(cu.cuMemAddressReserve(ctypes.byref(self.base), size(self.reserved), size(0),
+                                   u64(0), u64(0)))
+        _ok(cu.cuMemCreate(ctypes.byref(self.handle), size(self.mapped), ctypes.byref(prop),
+                           u64(0)))
+        _ok(cu.cuMemMap(self.base, size(self.mapped), size(0), self.handle, u64(0)))
+        access = _Access(loc_type=1, loc_id=prop.loc_id, flags=3)     # read and write
+        _ok(cu.cuMemSetAccess(self.base, size(self.mapped), ctypes.byref(access), size(1)))
+        ptr = self.base.value + self.mapped - n * 4
+        typestr = {torch.float32: "<f4", torch.int32: "<i4"}[dtype]
+        self.__cuda_array_interface__ = {"shape": (n,), "typestr": typestr,
+                                         "data": (ptr, False), "version": 3}
+        self.tensor = torch.as_tensor(self, device=device)
+        assert self.tensor.data_ptr() == ptr
+
+    def free(self):
+        torch.cuda.synchronize()
+        self.tensor = None
+        size = ctypes.c_size_t
+        _ok(self.cu.cuMemUnmap(self.base, size(self.mapped)))
+        _ok(self.cu.cuMemRelease(self.handle))
+        _ok(self.cu.cuMemAddressFree(self.base, size(self.reserved)))
+
+
+def _ok(err):
+    assert err == 0, f"CUDA driver error {err}"

@@ -216,7 +216,7 @@ def test_coarse_stage_kernels_equal_plain(dev, kind):
 def test_select_kernel_matches_plain(stage, K, with_attrs):
     cams, hw, rays, points, isig, colors = stage
     c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
-    table = fine.candidate_table(points, isig, c.pos_c)
+    table = fine.feature_table(points, isig)
     args = (rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K,
             c.bin_size, 0.9, colors if with_attrs else None)
     before = launches(fine_select)
@@ -239,7 +239,7 @@ def test_select_kernel_matches_plain(stage, K, with_attrs):
 def test_attr_kernel_matches_plain(stage):
     cams, hw, rays, points, isig, colors = stage
     c = fine.compact_candidates(*cams, points, isig, hw, 0.01, 20)
-    table = fine.candidate_table(points, isig, c.pos_c)
+    table = fine.feature_table(points, isig)
     idx, _, _, _, w, _ = fine_select_plain(rays, table, c.bits_c, c.ids_c,
                                            c.counts_c, c.thr_act, 20, c.bin_size, 1.0)
     before = launches(attr_merge)
@@ -251,7 +251,7 @@ def test_attr_kernel_matches_plain(stage):
 def test_wrappers_check_their_inputs(stage):
     cams, hw, rays, points, isig, colors = stage
     c = fine.compact_candidates(*cams, points, isig, hw, 0.01, 20)
-    table = fine.candidate_table(points, isig, c.pos_c)
+    table = fine.feature_table(points, isig)
     with pytest.raises(TypeError):
         fine_select(rays, table, c.bits_c.long(), c.ids_c, c.counts_c,
                     c.thr_act, 20, c.bin_size, 1.0)
@@ -259,7 +259,8 @@ def test_wrappers_check_their_inputs(stage):
         fine_select(rays.cpu(), table, c.bits_c, c.ids_c, c.counts_c,
                     c.thr_act, 20, c.bin_size, 1.0)
     with pytest.raises(ValueError):
-        attr_merge(c.ids_c[:, ::2], torch.ones_like(table[:, ::2, 0]), colors)
+        attr_merge(c.ids_c[:, ::2], torch.ones_like(c.ids_c[:, ::2], dtype=torch.float32),
+                   colors)
     sel = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, 20,
                       c.bin_size, 1.0)
     feats = fine.feature_table(points, isig)
@@ -281,7 +282,7 @@ def _cotangents(shape, dev, n, seed):
 def test_fold_kernel_matches_plain(stage, K):
     cams, hw, rays, points, isig, colors = stage
     c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
-    table = fine.candidate_table(points, isig, c.pos_c)
+    table = fine.feature_table(points, isig)
     _, l, a, d, w, _ = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c,
                                    c.thr_act, K, c.bin_size, 0.9)
     (gw,) = _cotangents(w.shape, rays.device, 1, K)
@@ -302,10 +303,9 @@ def test_fine_bwd_kernel_matches_plain(stage, with_attrs, want_rays, K):
     rows, two runs equal to the bit."""
     cams, hw, rays, points, isig, colors = stage
     c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
-    table_c = fine.candidate_table(points, isig, c.pos_c)
     table = fine.feature_table(points, isig)
     attrs = colors if with_attrs else None
-    sel = fine_select(rays, table_c, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K,
+    sel = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K,
                       c.bin_size, 0.9, attrs)
     cots = _cotangents(sel[1].shape, rays.device, 4, 3)
     g_img = _cotangents(rays.shape, rays.device, 1, 4)[0] if with_attrs else None
@@ -329,7 +329,7 @@ def test_fine_bwd_kernel_matches_plain(stage, with_attrs, want_rays, K):
 def test_attr_merge_bwd_kernel_matches_plain(stage):
     cams, hw, rays, points, isig, colors = stage
     c = fine.compact_candidates(*cams, points, isig, hw, 0.01, 20)
-    table = fine.candidate_table(points, isig, c.pos_c)
+    table = fine.feature_table(points, isig)
     idx, _, _, _, w, _ = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c,
                                      c.thr_act, 20, c.bin_size, 1.0)
     (g,) = _cotangents(rays.shape, rays.device, 1, 5)
@@ -1076,7 +1076,7 @@ def test_select_entries_equal_plain_at_every_k(every_k_stage, entry, K):
     thr_act = -math.log(0.01 + 1e-10)
     if entry.startswith("compacted"):
         c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
-        table = fine.candidate_table(points, isig, c.pos_c)
+        table = fine.feature_table(points, isig)
         args = (rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K, c.bin_size, 0.9,
                 colors if entry.endswith("attrs") else None)
         kfn, pfn = fine_select, fine_select_plain
@@ -1174,8 +1174,7 @@ def test_select_edge_cases_equal_plain(dev, case):
     img = torch.arange(nb, device=dev)[:, None] // (nb // B)
     occupied = torch.arange(M, device=dev)[None] < counts[:, None]
     ids = torch.where(occupied, img * P + pos, -1).to(torch.int32)
-    table_c = table[(img * P + pos).reshape(-1)].reshape(nb, M, 16).contiguous()
-    args = (rays, table_c, bits, ids, counts, thr_act, K, 6, 0.8, None)
+    args = (rays, table, bits, ids, counts, thr_act, K, 6, 0.8, None)
     got, want = fine_select(*args), fine_select_plain(*args)
     equal_select(got, want)
     assert (got[0] >= 0).any()

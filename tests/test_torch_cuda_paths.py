@@ -67,10 +67,10 @@ from voge_tpu_torch.rays import camera_rays
 from cuda_common import (
     B8, CLOUD_HW, CLOUD_K, COARSE, COARSE_KERNELS, FLIP_MAX, GRAD_TOL, LAD_TOL, MERGE_TOL,
     OCC_HW, OCC_K, OCC_MPPB, PATH_KERNELS, POSE_B, POSE_HW, SF_B, SF_HW, SF_K, TEX_HW, TEX_K,
-    THR_ACT, W_TOL, batch8_cams, bench_loss, cloud_scene, cloud_step, compare_select,
-    fitting_step, fold_then_pair, grad_err, hold_runs, launched, main_path, no_plain_version,
-    occlusion_scene, plain_path, scene, seeded, shapefit_loss, shapefit_scene, stage_inputs,
-    texture_chain, texture_scene,
+    THR_ACT, W_TOL, AtTheEnd, batch8_cams, bench_loss, cloud_scene, cloud_step,
+    compare_select, equal_select, fitting_step, fold_then_pair, grad_err, hold_runs, launched,
+    main_path, no_plain_version, occlusion_scene, plain_path, scene, seeded, shapefit_loss,
+    shapefit_scene, stage_inputs, texture_chain, texture_scene,
 )
 
 pytestmark = pytest.mark.cuda
@@ -327,7 +327,7 @@ def head(dev):
     g, cams, colors = scene(10000, (256, 256), 300.0, dev)
     rays, points, isig = stage_inputs(g, cams, (256, 256))
     c = fine.compact_candidates(*cams, points, isig, (256, 256), 0.01, 20)
-    table = fine.candidate_table(points, isig, c.pos_c)
+    table = fine.feature_table(points, isig)
     sel = fine_select(rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, 20, c.bin_size,
                       1.0, colors)
     return dict(g=g, cams=cams, colors=colors, rays=rays, points=points, isig=isig, sel=sel,
@@ -361,7 +361,7 @@ def pose8(dev, head):
     isig = 2.0 * expend_sigma(g.sigmas.detach())[None].expand(POSE_B, -1, 3, 3)
     c = fine.compact_candidates(*cams, points, isig, POSE_HW, 0.01, 20)
     attrs = colors.repeat(POSE_B, 1).contiguous()
-    sel = fine_select(rays, fine.candidate_table(points, isig, c.pos_c), c.bits_c, c.ids_c,
+    sel = fine_select(rays, fine.feature_table(points, isig), c.bits_c, c.ids_c,
                       c.counts_c, c.thr_act, 20, c.bin_size, 1.0, attrs)
     return dict(cams=cams, rays=rays, points=points, isig=isig, attrs=attrs, sel=sel,
                 table=fine.feature_table(points, isig))
@@ -469,7 +469,7 @@ def test_compacted_kernels_at_the_main_shapes(dev, tag):
     for K in (5, 20):
         c = fine.compact_candidates(*cams, points, isig, hw, 0.01, K)
         assert int(c.overflow_c.sum()) == 0, f"{tag} overflow"
-        table = fine.candidate_table(points, isig, c.pos_c)
+        table = fine.feature_table(points, isig)
         for attrs in (None, colors):
             args = (rays, table, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K, c.bin_size, 1.0,
                     attrs)
@@ -503,7 +503,7 @@ def test_k3_and_the_fold_at_every_k_on_the_1k_scene(dev, small, K):
     rays, points, isig, cams = small["rays"], small["points"], small["isig"], small["cams"]
     colors = small["colors"].contiguous()
     c = fine.compact_candidates(*cams, points, isig, (128, 128), 0.01, K)
-    tab = fine.candidate_table(points, isig, c.pos_c)
+    tab = fine.feature_table(points, isig)
     sel = fine_select(rays, tab, c.bits_c, c.ids_c, c.counts_c, c.thr_act, K, c.bin_size, 1.0,
                       colors)
     g_cot = [seeded(sel[1].shape, dev, 100 + q) for q in range(4)]
@@ -525,6 +525,88 @@ def test_k3_at_the_pose_batch(dev, pose8):
         hold_k3("fine_bwd", (pose8["rays"], pose8["table"], *sel[:5], *g_cot, 1.0,
                              attrs if with_attrs else None,
                              seeded(pose8["rays"].shape, dev, 114) if with_attrs else None, True))
+
+
+# ---- K2's compacted entry reads its candidates' rows by id -------------------------
+
+SCORE_B = 32    # the pose scorer's chunk (portbench's score32 cell)
+
+
+def test_compacted_select_at_the_score_batch(dev, head):
+    """K2's compacted entry on the headline scene seen by 32 poses at
+    256x256 (K = 20, no attributes: the pose scorer's render), reading its
+    rows from the (32 * P, 16) feature table by id: equal to its plain
+    version (``equal_select``), two runs equal to the bit, and the select
+    counts the per-slot copy it spares."""
+    g = head["g"]
+    R, T = vt.look_at_view_transform(
+        dist=[6.0] * SCORE_B, elev=list(np.linspace(5, 25, SCORE_B)),
+        azim=list(np.linspace(0, 360, SCORE_B, endpoint=False)), device=dev)
+    cams = (R, T, torch.tensor([[300.0, 300.0]] * SCORE_B, device=dev),
+            torch.tensor([[128.0, 128.0]] * SCORE_B, device=dev))
+    rays, origins = camera_rays(*cams, (256, 256))
+    points = g.verts.detach()[None] - origins[:, None, :]
+    isig = 2.0 * expend_sigma(g.sigmas.detach())[None].expand(SCORE_B, -1, 3, 3)
+    c = fine.compact_candidates(*cams, points, isig, (256, 256), 0.01, 20)
+    assert int(c.overflow_c.sum()) == 0 and (c.ids_c < 0).any()
+    args = (rays, fine.feature_table(points, isig), c.bits_c, c.ids_c, c.counts_c, c.thr_act,
+            20, c.bin_size, 1.0, None)
+    with trace.tracing():
+        got = fine_select(*args)
+        n = trace.counts()
+    assert n["select.copy_bytes_avoided"] == 64 * c.ids_c.numel()
+    assert all(torch.equal(a, b) for a, b in zip(got[:5], fine_select(*args)[:5]))
+    equal_select(got, fine_select_plain(*args))
+    assert (got[0] >= 0).any() and int(got[0].max()) >= (SCORE_B - 1) * head["P"]
+
+
+@pytest.mark.parametrize("attrs", [False, True])
+def test_compacted_select_reads_nothing_past_the_table_or_the_counts(dev, small, attrs):
+    """The feature table (the 1K scene's rows for two cameras at one pose)
+    and the slots' ids each end at the end of mapped memory, so a read one
+    row past the table or one id past the slots faults.  The last supertile
+    is full (its count is M) and its last slot names the table's last row,
+    in every sub-bin, so the kernel stages that row; the slots past every
+    other count hold valid ids and all four bits, so a kernel that read a
+    slot at or past its count would take it as a candidate and differ from
+    the plain version; two counted slots of the densest supertile name -1
+    and the row one past the table, which no ray may take."""
+    rays1, points1, isig1, cams1 = small["rays"], small["points"], small["isig"], small["cams"]
+    c = fine.compact_candidates(*cams1, points1, isig1, (128, 128), 0.01, 20)
+    B, P = 2, points1.shape[1]
+    rays = rays1.expand(B, -1, -1, -1).contiguous()
+    table = fine.feature_table(points1.expand(B, -1, -1), isig1.expand(B, -1, -1, -1))
+    nb1, M = c.ids_c.shape
+    gen = torch.Generator(dev).manual_seed(43)
+    img = torch.arange(2 * nb1, device=dev)[:, None] // nb1
+    counts = torch.cat([c.counts_c, c.counts_c])
+    counts[-1] = M
+    pos = torch.cat([c.pos_c, c.pos_c])
+    pos[-1] = torch.arange(M, device=dev) * (P - 1) // M
+    pos[-1, -1] = P - 1
+    occupied = torch.arange(M, device=dev)[None] < counts[:, None]
+    past = torch.randint(0, P, (2 * nb1, M), device=dev, generator=gen)
+    ids = (img * P + torch.where(occupied, pos, past)).to(torch.int32)
+    bits = torch.where(occupied, torch.cat([c.bits_c, c.bits_c]), 0xF).to(torch.int32)
+    bits[-1, -1] = 0xF
+    dense = int(counts[:-1].argmax())
+    ids[dense, :2] = torch.tensor([-1, B * P], dtype=torch.int32, device=dev)
+    assert int(ids[-1, -1]) == B * P - 1 and int(counts[-1]) == M and int(counts[dense]) > 2
+    colors = torch.rand((B * P, 3), device=dev, generator=gen) if attrs else None
+    args = (rays, table, bits, ids, counts, c.thr_act, 20, c.bin_size, 1.0, colors)
+    want = fine_select_plain(*args)
+    bufs = [AtTheEnd(table.numel(), dev), AtTheEnd(ids.numel(), dev, torch.int32)]
+    try:
+        t_end, i_end = bufs[0].tensor.view(table.shape), bufs[1].tensor.view(ids.shape)
+        t_end.copy_(table)
+        i_end.copy_(ids)
+        got = fine_select(rays, t_end, bits, i_end, counts, *args[5:])
+        torch.cuda.synchronize()
+    finally:
+        for b in bufs:
+            b.free()
+    equal_select(got, want)
+    assert (got[0] >= 0).any() and (got[0] >= P).any()
 
 
 def test_global_entries_at_the_shapefit_shapes(dev, sf):
@@ -574,7 +656,7 @@ def test_attr_halves_and_k2_at_the_texture_shapes(dev, tex):
     cams, points, isg = tex["cams"], tex["points"], tex["isg"]
     c = fine.compact_candidates(*cams, points, isg, TEX_HW, 0.01, TEX_K)
     assert int(c.overflow_c.sum()) == 0, "texture coarse stage overflow"
-    tab = fine.candidate_table(points, isg, c.pos_c)
+    tab = fine.feature_table(points, isg)
     colors = torch.rand((N, 3), device=dev, generator=torch.Generator(dev).manual_seed(65))
     for attrs in (None, colors):
         args = (tex["rays"], tab, c.bits_c, c.ids_c, c.counts_c, c.thr_act, TEX_K, c.bin_size,

@@ -129,7 +129,7 @@ def _pallas(c, K, attrs=True, raw=False):
 
 def _port(c, K):
     t = torch.as_tensor
-    out = fine_select_plain(t(c["rays"]), t(c["table"][..., :16].copy()), t(c["bits"]),
+    out = fine_select_plain(t(c["rays"]), t(c["feat"].copy()), t(c["bits"]),
              t(c["ids"]), t(c["counts"]), THR_ACT, K, BS, OW, t(c["attrs"]))
     return [x.numpy() for x in out]
 
@@ -237,10 +237,11 @@ def test_plain_fine_bwd_matches_pallas(case, with_attrs, mode):
         assert g_rays is None and rb_t is None
 
 
-def _per_row_sums(rays, table_c, ids_c, idx, coefs, w, g_img):
+def _per_row_sums(rays, table, ids_c, idx, coefs, w, g_img):
     """The slots' gradients summed per candidate row (nb, M, 12 + d), each
-    slot matched to its supertile's row by id: the contract of K3 before its
-    rows became the Gaussians (rows ascending by id, padding last)."""
+    slot matched to its supertile's row by id, its feature row ``table``'s
+    (B * P, 16) at that id: the contract of K3 before its rows became the
+    Gaussians (rows ascending by id, padding last)."""
     nb, M = ids_c.shape
     st = lambda x, fill=0: _supertile(x, BS, fill)
     idx_s = st(idx, -1)
@@ -251,7 +252,8 @@ def _per_row_sums(rays, table_c, ids_c, idx, coefs, w, g_img):
     found = (idx_s >= 0) & (key.gather(1, rank_c.reshape(nb, -1)).reshape(nb, R, K) == idx_s)
     row = torch.arange(nb)[:, None, None] * M + rank_c
     flat = torch.where(found, row, nb * M).reshape(-1)
-    feats = torch.cat([table_c.reshape(nb * M, 16), table_c.new_zeros((1, 16))])[flat]
+    feats = torch.cat([table, table.new_zeros((1, 16))])
+    feats = feats[torch.where(found, idx_s, table.shape[0]).long()]
     g_mu, g_L, _ = _slot_grads(feats.reshape(nb, R, K, 16), st(rays)[:, :, None, :],
                                *(st(c)[..., None] for c in coefs), False)
     cols = [g_mu, g_L, st(w)[..., None] * st(g_img)[:, :, None, :]]
@@ -283,16 +285,15 @@ def test_per_gaussian_rows_equal_per_row_sums_gathered_back():
         R, T, focal, principal, points, isg, (H, W), 0.01, BS, 0, row_align=8,
         return_dst=True)
     table = tfine.feature_table(points, isg)
-    table_c = tfine.candidate_table(points, isg, pos_c)
     attrs = torch.tensor(rng.normal(size=(B * P, CA)).astype(np.float32))
     K = 20
-    sel = fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, THR_ACT, K, BS, OW, attrs)
+    sel = fine_select_plain(rays, table, bits_c, ids_c, counts_c, THR_ACT, K, BS, OW, attrs)
     assert (sel[0] >= 0).any() and (sel[0] < 0).any()
     cot = [torch.tensor(rng.normal(size=(B, H, W, K)).astype(np.float32)) for _ in range(4)]
     g_img = torch.tensor(rng.normal(size=(B, H, W, CA)).astype(np.float32))
     rows, _ = fine_bwd_plain(rays, table, *sel[:5], *cot, OW, attrs, g_img, want_rays=False)
     coefs = _slot_coefs(sel[0], *sel[1:5], *cot, OW, attrs, g_img)
-    per_row = _per_row_sums(rays, table_c, ids_c, sel[0], coefs, sel[4], g_img)
+    per_row = _per_row_sums(rays, table, ids_c, sel[0], coefs, sel[4], g_img)
     want = tfine.gather_back_rows(per_row, dst).reshape(B * P, 12 + CA)
     assert rows.shape == want.shape and want.abs().max() > 0
     for lo, hi in ((0, 3), (3, 12), (12, 12 + CA)):

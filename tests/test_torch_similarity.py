@@ -19,8 +19,6 @@ loads; the general lane loop for C = 3, C = 130 or misaligned rows); two
 calls equal to the bit; one launch a call; no read past the end of either
 input (each placed at the very end of mapped memory, so such a read faults).
 """
-import ctypes
-
 import pytest
 import torch
 
@@ -28,6 +26,8 @@ from voge_tpu_torch import trace
 from voge_tpu_torch.models import pose
 from voge_tpu_torch.ops import cuda_similarity
 from voge_tpu_torch.ops.cuda_similarity import feature_similarity, feature_similarity_plain
+
+from cuda_common import AtTheEnd
 
 torch.set_num_threads(2)
 
@@ -193,60 +193,6 @@ def test_kernel_zero_rows_and_other_layouts(dev):
     held(pred.permute(0, 2, 1, 3), target.expand(pred.shape))  # H and W swapped: a copy
 
 
-class _Prop(ctypes.Structure):      # CUmemAllocationProp
-    _fields_ = [("type", ctypes.c_int), ("handle_types", ctypes.c_int),
-                ("loc_type", ctypes.c_int), ("loc_id", ctypes.c_int),
-                ("win32_meta", ctypes.c_void_p), ("compression", ctypes.c_ubyte),
-                ("rdma", ctypes.c_ubyte), ("usage", ctypes.c_ushort),
-                ("reserved", ctypes.c_ubyte * 4)]
-
-
-class _Access(ctypes.Structure):    # CUmemAccessDesc
-    _fields_ = [("loc_type", ctypes.c_int), ("loc_id", ctypes.c_int), ("flags", ctypes.c_int)]
-
-
-class _AtTheEnd:
-    """``n`` float32 on the card whose last one ends where mapped memory
-    ends: CUDA's virtual memory API (the driver, through ctypes) reserves a
-    granule more than it maps, so a read past the end faults with an illegal
-    address instead of reading a neighbour's bytes in the caching
-    allocator's block.  ``tensor`` views it; ``free`` unmaps it."""
-
-    def __init__(self, n, device):
-        cu = self.cu = ctypes.CDLL("libcuda.so.1")
-        u64, size = ctypes.c_uint64, ctypes.c_size_t
-        prop = _Prop(type=1, loc_type=1, loc_id=device.index or 0)    # pinned, on the device
-        gran = size()
-        _ok(cu.cuMemGetAllocationGranularity(ctypes.byref(gran), ctypes.byref(prop), 0))
-        self.mapped = -(-n * 4 // gran.value) * gran.value
-        self.reserved = self.mapped + gran.value
-        self.base, self.handle = u64(), u64()
-        _ok(cu.cuMemAddressReserve(ctypes.byref(self.base), size(self.reserved), size(0),
-                                   u64(0), u64(0)))
-        _ok(cu.cuMemCreate(ctypes.byref(self.handle), size(self.mapped), ctypes.byref(prop),
-                           u64(0)))
-        _ok(cu.cuMemMap(self.base, size(self.mapped), size(0), self.handle, u64(0)))
-        access = _Access(loc_type=1, loc_id=prop.loc_id, flags=3)     # read and write
-        _ok(cu.cuMemSetAccess(self.base, size(self.mapped), ctypes.byref(access), size(1)))
-        ptr = self.base.value + self.mapped - n * 4
-        self.__cuda_array_interface__ = {"shape": (n,), "typestr": "<f4",
-                                         "data": (ptr, False), "version": 3}
-        self.tensor = torch.as_tensor(self, device=device)
-        assert self.tensor.data_ptr() == ptr
-
-    def free(self):
-        torch.cuda.synchronize()
-        self.tensor = None
-        size = ctypes.c_size_t
-        _ok(self.cu.cuMemUnmap(self.base, size(self.mapped)))
-        _ok(self.cu.cuMemRelease(self.handle))
-        _ok(self.cu.cuMemAddressFree(self.base, size(self.reserved)))
-
-
-def _ok(err):
-    assert err == 0, f"CUDA driver error {err}"
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,tb", [
     ((31, 128, 128, 128), 31),    # a target per batch, odd B: the unrolled loop's last step
@@ -259,7 +205,7 @@ def test_kernel_reads_nothing_past_its_inputs(dev, shape, tb):
     """pred and target each end at the end of mapped memory, so the kernel
     reading one byte past either would fault."""
     pred, target = maps(shape, dev, 10, tb=tb)
-    bufs = [_AtTheEnd(t.numel(), dev) for t in (pred, target)]
+    bufs = [AtTheEnd(t.numel(), dev) for t in (pred, target)]
     try:
         p_end, t_end = (b.tensor.view(t.shape) for b, t in zip(bufs, (pred, target)))
         p_end.copy_(pred)

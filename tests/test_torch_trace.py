@@ -4,8 +4,9 @@ CPU ``torch.profiler`` and its counters hold what the code did (the coarse
 stage's host reads counted against a spy on every read of a tensor's values,
 its re-emissions, its slots and members).  On the card (marker ``cuda``):
 torch's sync debug mode counts exactly ``host_reads`` synchronising calls in
-one ``render_pipeline``, and the global entry's two-level cull counts its
-launches, its level-1 pairs and the rows it keeps.  No JAX here, so the card
+one ``render_pipeline`` (whose select counts the per-slot copy of rows it
+spares), and the global entry's two-level cull counts its launches, its
+level-1 pairs and the rows it keeps.  No JAX here, so the card
 runs this file too:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_trace.py
@@ -154,8 +155,9 @@ def test_a_compacted_render_nests_its_spans_by_layer():
     spans = _voge_events(prof)
     names = {n for n, _ in spans}
     assert {"voge.render", "voge.coarse", "voge.coarse.read", "voge.grouping", "voge.select",
-            "voge.select.table", "voge.select.gather", "voge.fine_bwd"} <= names
-    assert "voge.select.cull" not in names
+            "voge.select.table", "voge.fine_bwd"} <= names
+    # K2 reads the candidates' rows from the table by id: no gather, no cull
+    assert "voge.select.gather" not in names and "voge.select.cull" not in names
     within = {n: up for n, up in spans}
     assert within["voge.render"] == []
     assert within["voge.coarse"] == ["voge.render"]
@@ -163,7 +165,6 @@ def test_a_compacted_render_nests_its_spans_by_layer():
     assert within["voge.grouping"] == ["voge.coarse", "voge.render"]
     assert within["voge.select"] == ["voge.render"]
     assert within["voge.select.table"] == ["voge.select", "voge.render"]
-    assert within["voge.select.gather"] == ["voge.select", "voge.render"]
     assert within["voge.fine_bwd"] == []
 
 
@@ -197,8 +198,9 @@ def test_counters_of_a_compacted_render():
     assert n["coarse.slots"] == c.pos_c.numel()
     assert n["coarse.members"] == int(c.counts_c.sum()) <= n["coarse.slots"]
     assert n["coarse.overflow"] == int(frag.overflow_points) == 0
-    # the plain versions ran: no kernel launch is counted
+    # the plain versions ran: no kernel launch is counted, nor the copy K2 spares
     assert not [k for k in n if k.startswith("launch.")]
+    assert "select.copy_bytes_avoided" not in n
     # GaussianRenderer reads its four camera tensors besides, to key its context
     renderer, g, kw = _renderer(verts, sig, colors, *cams)
     with trace.tracing():
@@ -252,6 +254,8 @@ def test_sync_debug_mode_counts_host_reads_on_the_card(entry, reads):
     assert n["host_reads"] == len(syncs) == reads, [str(w.message) for w in syncs]
     assert n["launch.fine_select"] == 1 and n["launch.emit_rows"] == 1
     assert n["coarse.members"] <= n["coarse.slots"]
+    # K2 staged its rows by id: the copy of 64 bytes a slot was not made
+    assert n["select.copy_bytes_avoided"] == 64 * n["coarse.slots"]
 
 
 @pytest.mark.cuda

@@ -25,6 +25,10 @@ sides have:
   ray gradient of ``bench.py``'s loss;
 - ``headline_step``: the headline fitting step's gradients (verts, sigmas,
   colours), cameras fixed;
+- ``score32_forward``: the headline scene seen by 32 poses (the pose
+  scorer's chunk) through ``ops.fine.ray_tracing``, no gradient: the
+  selections, hit lengths, act, dsd and weights, and (``score32_image``) the
+  colours composited in the select;
 - ``attr_merge_headline``: the attribute merge (K3f) of the headline
   render's slots with the colours, and its backward (K4b: the d_w kernel and
   the scatter) under a seeded cotangent: the image and both gradients;
@@ -125,6 +129,22 @@ def main():
 
     frag, loss, leaves = smoke.fitting_step(g, cams, colors, (256, 256))
     out["headline_step"] = _digest(*torch.autograd.grad(loss, leaves))
+
+    nb = 32
+    R, T = vt.look_at_view_transform(dist=[6.0] * nb, elev=list(np.linspace(5, 25, nb)),
+                                     azim=list(np.linspace(0, 360, nb, endpoint=False)),
+                                     device=dev)
+    cams_s = (R, T, torch.tensor([[300.0, 300.0]] * nb, device=dev),
+              torch.tensor([[128.0, 128.0]] * nb, device=dev))
+    rays_s, origins_s = camera_rays(*cams_s, (256, 256))
+    points_s = (g.verts.detach()[None] - origins_s[:, None, :]).contiguous()
+    isig_s = isig_h.expand(nb, -1, 3, 3)
+    with torch.no_grad():
+        sel, _ = fine.ray_tracing(cams_s, points_s, isig_s, rays_s, (256, 256), 0.01, 20)
+        out["score32_forward"] = _digest(*sel[:5])
+        sel, _ = fine.ray_tracing(cams_s, points_s, isig_s, rays_s, (256, 256), 0.01, 20,
+                                  attrs=colors[None].expand(nb, -1, -1))
+        out["score32_image"] = _digest(sel[5])
 
     # the attribute merge and its backward; the sampler's backward
     from voge_tpu_torch.ops.cuda_attr import AttrMerge

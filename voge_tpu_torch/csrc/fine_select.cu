@@ -5,7 +5,11 @@
 // voge_tpu/ops/pallas_fine2.py::_kernel_tc through both of its entries:
 //  - compacted (voge_fine_select; fine_select_compact_pallas <-
 //    fine._rt_fine_compact_impl): the candidates of a supertile are its
-//    emission-compacted rows (nb, M, 16), with their ids and counts;
+//    emission-compacted slots (nb, M): their sub-bin bits, their flattened
+//    ids b * P + n and the count of occupied slots; each survivor's row is
+//    staged from the (B * P, 16) table by its id.  The table stays in the
+//    L2 (19.7 MB at 32 poses of the 10K headline), where a copy of one row
+//    a slot would write 354 MB, 89% of it padding;
 //  - global (voge_fine_select_global; fine_select_mask_pallas <-
 //    fine._rt_fine_kern, the no-coarse path): the candidates of a ray block
 //    are all P Gaussians of its image, read in place from one (B * P, 16)
@@ -65,9 +69,10 @@
 //      dsd of the K kept candidates are computed again at the flush from
 //      their feature rows (the same instructions on the same inputs: the
 //      same bits), which halves the shared memory.  On an H100 (ptxas,
-//      CUDA 12.8) each instantiation holds 128 registers a thread, so an SM
-//      keeps 4 blocks at K <= 32, 2 at K = 64 and 80, 1 at K = 128; capped
-//      at 96 registers (5 blocks) it measured within 3% either way.
+//      CUDA 12.8) the compacted, global and list instantiations hold at most
+//      128 registers a thread (the compacted 121), so an SM keeps 4 blocks
+//      at K <= 32, 2 at K = 64 and 80, 1 at K = 128; capped at 96 registers
+//      (5 blocks) it measured within 3% either way.
 //  (b) Candidates are compacted before they are tested.  Each step examines
 //      4 x 128 candidates, one a thread (its sub-bin bits, its list id, or
 //      its cull row), keeps those that can matter to some ray of the block,
@@ -227,8 +232,8 @@ constexpr int WARP_TH = 4, WARP_TW = 8;   // masked: a warp's rays, 4 x 8 of the
 
 struct Args {
   const float* rays;   // (B, H, W, 3)
-  const float* table;  // (nb, M, 16) feature rows; global: (B * M, 16);
-                       // lists: (n_tab, 16), read by id
+  const float* table;  // (n_tab, 16) feature rows read by id (compacted,
+                       // lists); global: (B * M, 16)
   const int* bits;     // (nb, M) sub-bin membership bits; null: all members
   const int* ids;      // (nb, M) global flattened ids; global: null
   const int* counts;   // (nb,) occupied rows; null: all M
@@ -322,10 +327,12 @@ __device__ __forceinline__ int nth_bit(unsigned w, int rank) {
 }
 
 // One candidate's words, loaded a step ahead: its sub-bin bits (compacted,
-// global) or its list id (lists), and its cull row (global with a cull).
+// global) or its list id (lists), its cull row (global with a cull), and on
+// the compacted entry its id, the table row it stages.
 struct Meta {
   float4 q;
   int m;
+  int id;
 };
 
 template <int MODE>
@@ -395,14 +402,18 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
     Meta m;
     m.q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     m.m = MODE == LISTS ? -1 : 0;
+    m.id = -1;
     if (c < cnt) {
       if (MODE == LISTS) m.m = lrow[c];
       else m.m = brow != nullptr ? brow[c] : 0xF;
       if (culling) m.q = a.cull[row0 + c];
+      if constexpr (MODE == COMPACT) m.id = a.ids[row0 + c];
     }
     return m;
   };
-  // can this candidate matter to a ray of this block?
+  // can this candidate matter to a ray of this block?  (lists: only an id
+  // that names a row of the table; compacted: that test is made at the
+  // packing, see there)
   auto keeps = [&](const Meta& m) {
     if (MODE == LISTS) return m.m >= 0 && m.m < a.n_tab;
     bool keep = (m.m & gmask) != 0;
@@ -569,8 +580,15 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
         const int o = fill + before + __popc(ballot[j] & ((1u << lane) - 1u));
         const int c = base + j * THREADS + tid;
         s_cpos[o] = c;
-        s_cbits[o] = MODE == LISTS ? 0xF : cur[j].m;
-        const size_t row = MODE == LISTS ? (size_t)cur[j].m : row0 + c;
+        // compacted: a slot whose id names no row of the table stages row 0
+        // with no sub-bin bits, so no ray takes it (tested here rather than
+        // in the vote, the instantiation holds 121 registers and spills
+        // nothing; in the vote it spilled 16 bytes at 128)
+        const bool named = MODE != COMPACT || (cur[j].id >= 0 && cur[j].id < a.n_tab);
+        s_cbits[o] = MODE == LISTS ? 0xF : named ? cur[j].m : 0;
+        const size_t row = MODE == LISTS     ? (size_t)cur[j].m
+                           : MODE == COMPACT ? (named ? (size_t)cur[j].id : 0)
+                                             : row0 + c;
         copy_row_async(s_tab + 4 * o, rows + 4 * row);
       }
       fill += total;
@@ -748,8 +766,9 @@ __global__ void __launch_bounds__(THREADS) fine_select_kernel(const Args a) {
   for (int k = 0; k < nfill; ++k) {
     const float2 e = my_ent[k * THREADS];
     const int c = __float_as_int(e.y);
-    const int id = MODE == GLOBAL || MODE == MASKED ? (int)(row0 + c) : __ldg(id_of + c);
-    const float4* src = rows + 4 * (MODE == LISTS ? (size_t)id : row0 + c);
+    const bool by_id = MODE == COMPACT || MODE == LISTS;
+    const int id = by_id ? __ldg(id_of + c) : (int)(row0 + c);
+    const float4* src = rows + 4 * (by_id ? (size_t)id : row0 + c);
     const Hit h = hit_test(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3),
                            r0, r1, r2, rr);
     o_idx[o + k] = id;
@@ -1072,13 +1091,17 @@ extern "C" int voge_cull_lists(const void* cull, const void* sup, void* mask, vo
   return (int)cudaGetLastError();
 }
 
+// The compacted entry: candidates of supertile s (nb = B * nst supertiles of
+// 2 bs x 2 bs pixels, BW2 a row) are its first ``counts[s]`` slots of
+// ``bits`` and ``ids`` (nb, M); a slot's row is ``table`` (n_tab, 16) at its
+// id, and an id outside [0, n_tab) is no candidate.
 extern "C" int voge_fine_select(
     const void* rays, const void* table, const void* bits, const void* ids,
     const void* counts, const void* attrs, void* o_idx,
     void* o_len, void* o_act, void* o_dsd, void* o_w, void* o_img, int nb, int H,
     int W, int bs, int BW2, int nst, int M, int K, int d, long long n_rows,
-    float thr_act, float ow, void* stream) {
-  if (nb <= 0 || bs <= 0 || K <= 0 || K > 128 || bits == nullptr ||
+    long long n_tab, float thr_act, float ow, void* stream) {
+  if (nb <= 0 || bs <= 0 || K <= 0 || K > 128 || n_tab <= 0 || bits == nullptr ||
       ids == nullptr || counts == nullptr)
     return (int)cudaErrorInvalidValue;
   Args a = {};
@@ -1096,7 +1119,7 @@ extern "C" int voge_fine_select(
   a.o_img = (float*)o_img;
   a.H = H; a.W = W; a.bs = bs; a.M = M; a.K = K;
   a.th = a.tw = 2 * bs; a.TW = BW2; a.ntile = nst;
-  a.d = d; a.n_rows = n_rows; a.thr_act = thr_act; a.ow = ow;
+  a.d = d; a.n_rows = n_rows; a.n_tab = n_tab; a.thr_act = thr_act; a.ow = ow;
   return launch<COMPACT>(a, nb, (cudaStream_t)stream);
 }
 

@@ -13,8 +13,9 @@ the K nearest candidates of its supertile that pass ``act < thr_act`` and
 whose sub-bin bit is set, by ascending hit length with earlier candidates
 winning ties, then composites their erf weights and, given attributes, the
 attribute image.  The candidates of a supertile are its emission-compacted
-rows (compacted entry) or every Gaussian of its image in ascending index
-(global entry).  Outputs are in image layout.
+slots, whose rows the kernel reads from the feature table by id (compacted
+entry), or every Gaussian of its image in ascending index (global entry).
+Outputs are in image layout.
 
 Bound on the H100: latency, not throughput (the work is small against the
 card's rates; a thread walks its candidates in order and each pair costs a
@@ -104,16 +105,27 @@ def _to_image(x, B: int, H: int, W: int, bin_size: int):
     return _untile(x, B, H, W, 2 * bin_size, 2 * bin_size)
 
 
-def _check_args(rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs):
+def _check_table(table, B: int) -> int:
+    """Raise unless ``table`` is (B * P, 16) float32 feature rows; return P."""
+    if table.ndim != 2 or table.shape[0] % B or table.shape[0] == 0:
+        raise ValueError(f"table: expected (B * P, {FEAT}) with B={B}, got {tuple(table.shape)}")
+    check(table, "table", torch.float32, (table.shape[0], FEAT))
+    return table.shape[0] // B
+
+
+def _check_args(rays, table, bits_c, ids_c, counts_c, K, bin_size, attrs):
     B, H, W, _ = rays.shape
     BH2, BW2 = supertile_grid(H, W, bin_size)
-    nb, M = B * BH2 * BW2, table_c.shape[1]
+    nb = B * BH2 * BW2
     if not 0 < K <= MAX_K:
         raise NotImplementedError(
             f"K={K}: the select kernel takes 1 <= K <= MAX_K = {MAX_K}; larger K "
             "takes the dense route (ops.dense_select)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
-    check(table_c, "table_c", torch.float32, (nb, M, FEAT))
+    _check_table(table, B)
+    if bits_c.ndim != 2:
+        raise ValueError(f"bits_c: expected (nb, M), got {tuple(bits_c.shape)}")
+    M = bits_c.shape[1]
     check(bits_c, "bits_c", torch.int32, (nb, M))
     check(ids_c, "ids_c", torch.int32, (nb, M))
     check(counts_c, "counts_c", torch.int32, (nb,))
@@ -197,27 +209,33 @@ def _weights_plain(sl, sa, sd, agg_ow: float):
     return torch.exp(-agg_ow * occ) * ea * _E_HALF
 
 
-def fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
+def fine_select_plain(rays, table, bits_c, ids_c, counts_c, thr_act: float,
                       K: int, bin_size: int, agg_ow: float,
                       attrs: Optional[torch.Tensor] = None):
-    """Plain version of K2: a dense (supertile, ray, candidate) evaluation,
-    a stable sort along the candidates and the K-step weight loop, in the
-    kernel's operation order.  Same contract as :func:`fine_select`."""
+    """Plain version of K2: the occupied slots' rows gathered from ``table``
+    by id (a zero row, never a member, elsewhere), a dense (supertile, ray,
+    candidate) evaluation, a stable sort along the candidates and the K-step
+    weight loop, in the kernel's operation order.  Same contract as
+    :func:`fine_select`."""
     B, H, W, BH2, BW2, nb, M = _check_args(
-        rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs)
+        rays, table, bits_c, ids_c, counts_c, K, bin_size, attrs)
     dev = rays.device
     st = 2 * bin_size
     R = st * st
     lr = torch.arange(R, device=dev) // st
     lc = torch.arange(R, device=dev) % st
     g = (2 * (lr // bin_size) + lc // bin_size)[None, :, None]  # sub-bin
-    slots = torch.arange(M, device=dev)
+    n_tab = table.shape[0]
+    occupied = ((torch.arange(M, device=dev)[None, :] < counts_c[:, None])
+                & (ids_c >= 0) & (ids_c < n_tab))
+    rows = torch.cat([table, table.new_zeros((1, FEAT))])[
+        torch.where(occupied, ids_c, n_tab).long()]             # (nb, M, 16)
 
     def member(s0, s1):
         bit = (bits_c[s0:s1, None, :].to(torch.int64) >> g) & 1
-        return (bit > 0) & (slots[None, None, :] < counts_c[s0:s1, None, None])
+        return (bit > 0) & occupied[s0:s1, None, :]
 
-    idx, sl, sa, sd = _select_tiles_plain(_supertile(rays, bin_size), table_c,
+    idx, sl, sa, sd = _select_tiles_plain(_supertile(rays, bin_size), rows,
                                           ids_c, member, thr_act, K)
     w = _weights_plain(sl, sa, sd, agg_ow)
     to_img = lambda x: _to_image(x, B, H, W, bin_size).contiguous()
@@ -228,30 +246,33 @@ def fine_select_plain(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
 
 def _kernel():
     return bind("fine_select", "voge_fine_select",
-                [VOIDP] * 12 + [INT] * 9 + [LONG, FLOAT, FLOAT, VOIDP])
+                [VOIDP] * 12 + [INT] * 9 + [LONG, LONG, FLOAT, FLOAT, VOIDP])
 
 
-def fine_select(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
+def fine_select(rays, table, bits_c, ids_c, counts_c, thr_act: float,
                 K: int, bin_size: int, agg_ow: float,
                 attrs: Optional[torch.Tensor] = None):
-    """Select the K nearest passing candidates of every pixel.
+    """Select the K nearest passing candidates of every pixel from the
+    coarse stage's compacted slots; the kernel stages each candidate's row
+    from ``table`` by its id, so no per-slot copy of the rows is made.
 
     :param rays: (B, H, W, 3) float32 unit world directions
-    :param table_c: (nb, M, 16) float32 candidate feature rows of each
-        supertile (``ops.dense_select._gauss_feature_cols`` gathered by
-        ``pos_c``), nb = B * BH2 * BW2
-    :param bits_c, ids_c: (nb, M) int32 sub-bin bits / flattened ids
-    :param counts_c: (nb,) int32 occupied rows
+    :param table: (B * P, 16) float32 feature rows (``ops.fine.feature_table``),
+        row ``b * P + n`` the n-th Gaussian of image b
+    :param bits_c, ids_c: (nb, M) int32 sub-bin bits / flattened ids (rows of
+        ``table``) of each supertile's slots, nb = B * BH2 * BW2
+    :param counts_c: (nb,) int32 occupied slots; a slot past its supertile's
+        count, or whose id names no row of ``table``, is no candidate
     :param attrs: optional (rows, d) float32 attributes indexed by id
     :return: (idx (B,H,W,K) int32, len, act, dsd, w (B,H,W,K) float32,
         img (B,H,W,d) float32 or None); empty slots hold idx -1,
         len / act 1e10, dsd 0, w 0
     """
-    if not on_cuda(rays, table_c, bits_c, ids_c, counts_c, attrs):
-        return fine_select_plain(rays, table_c, bits_c, ids_c, counts_c,
+    if not on_cuda(rays, table, bits_c, ids_c, counts_c, attrs):
+        return fine_select_plain(rays, table, bits_c, ids_c, counts_c,
                                  thr_act, K, bin_size, agg_ow, attrs)
     B, H, W, BH2, BW2, nb, M = _check_args(
-        rays, table_c, bits_c, ids_c, counts_c, K, bin_size, attrs)
+        rays, table, bits_c, ids_c, counts_c, K, bin_size, attrs)
     dev = rays.device
     f32 = dict(dtype=torch.float32, device=dev)
     idx = torch.empty((B, H, W, K), dtype=torch.int32, device=dev)
@@ -260,13 +281,14 @@ def fine_select(rays, table_c, bits_c, ids_c, counts_c, thr_act: float,
     img = None if attrs is None else torch.empty((B, H, W, d), **f32)
     n_rows = 0 if attrs is None else attrs.shape[0]
     err = _kernel()(
-        ptr(rays), ptr(table_c), ptr(bits_c), ptr(ids_c), ptr(counts_c),
+        ptr(rays), ptr(table), ptr(bits_c), ptr(ids_c), ptr(counts_c),
         ptr(attrs), ptr(idx), ptr(sl), ptr(sa), ptr(sd), ptr(w), ptr(img),
-        nb, H, W, bin_size, BW2, BH2 * BW2, M, K, d, n_rows, thr_act, agg_ow,
-        stream(dev),
+        nb, H, W, bin_size, BW2, BH2 * BW2, M, K, d, n_rows, table.shape[0],
+        thr_act, agg_ow, stream(dev),
     )
     raise_on_error(err, "fine_select")
     trace.count("launch.fine_select")
+    trace.count("select.copy_bytes_avoided", nb * M * FEAT * 4)
     return idx, sl, sa, sd, w, img
 
 
@@ -279,10 +301,7 @@ def _check_global(rays, table, bits, K, bin_size):
             f"K={K}: the select kernel takes 1 <= K <= MAX_K = {MAX_K}; larger K "
             "takes the dense route (ops.dense_select)")
     check(rays, "rays", torch.float32, (B, H, W, 3))
-    if table.ndim != 2 or table.shape[0] % B or table.shape[0] == 0:
-        raise ValueError(f"table: expected (B * P, {FEAT}) with B={B}, got {tuple(table.shape)}")
-    P = table.shape[0] // B
-    check(table, "table", torch.float32, (B * P, FEAT))
+    P = _check_table(table, B)
     if bits is not None:
         check(bits, "bits", torch.int32, (nb, P))
     return B, H, W, BH2, BW2, nb, P
@@ -299,12 +318,11 @@ def fine_select_global_plain(rays, table, bits, thr_act: float, K: int,
     B, H, W, BH2, BW2, nb, P = _check_global(rays, table, bits, K, bin_size)
     dev = rays.device
     img = torch.arange(nb, device=dev) // (BH2 * BW2)
-    table_c = table.reshape(B, P, FEAT)[img]
     ids_c = (img[:, None] * P + torch.arange(P, device=dev)).to(torch.int32)
     if bits is None:
         bits = torch.full((nb, P), 0xF, dtype=torch.int32, device=dev)
     counts = torch.full((nb,), P, dtype=torch.int32, device=dev)
-    return fine_select_plain(rays, table_c, bits, ids_c, counts, thr_act, K,
+    return fine_select_plain(rays, table, bits, ids_c, counts, thr_act, K,
                              bin_size, agg_ow)[:5]
 
 

@@ -5,12 +5,11 @@ two-stage tracer's second stage :func:`ray_tracing_fine`.
 - Emission-compacted (every ``max_points_per_bin`` but -1; the compacted
   branch, ``fine.py:1366-1455``, and the ``_rt_fine_kern_c`` custom VJP,
   ``fine.py:969-1151``): K1 emits the per-supertile candidate rows
-  (``ops.coarse.emit_supertile_candidates``), the
-  Gaussian feature rows are gathered into a per-supertile table, and K2
-  selects, weights and (given attributes) composites in one kernel.  The
-  backward runs K3, whose rows are the Gaussians (a slot's id is its row of
-  the feature table), so nothing is gathered back through the inverse
-  emission map.  Unlike ``voge_tpu`` on a TPU, the rows are sized from the
+  (``ops.coarse.emit_supertile_candidates``), and K2 selects, weights and
+  (given attributes) composites in one kernel, staging each candidate's row
+  from the (B * P, 16) feature table by its id.  The backward runs K3, whose
+  rows are the Gaussians (a slot's id is its row of the feature table), so
+  nothing is gathered back through the inverse emission map.  Unlike ``voge_tpu`` on a TPU, the rows are sized from the
   counts the sort produces, so no member is dropped for capacity.
 - Global, no coarse stage (``max_points_per_bin == -1``; the mask branch,
   ``fine.py:1303-1338``, and the ``_rt_fine_kern`` custom VJP,
@@ -70,7 +69,7 @@ from voge_tpu_torch.ops.coarse import (
 )
 from voge_tpu_torch.ops.cuda_attr import AttrMerge
 from voge_tpu_torch.ops.cuda_fine import (
-    FEAT, MAX_K, fine_select, fine_select_bins, fine_select_global,
+    MAX_K, fine_select, fine_select_bins, fine_select_global,
 )
 from voge_tpu_torch.ops.cuda_fine_bwd import fine_bwd, fine_bwd_global, fine_bwd_rays
 from voge_tpu_torch.ops.dense_select import (
@@ -182,25 +181,6 @@ def feature_table(points: torch.Tensor, isigmas: torch.Tensor) -> torch.Tensor:
         return _gauss_feature_cols(points.reshape(-1, 3), isigmas.reshape(-1, 3, 3)).contiguous()
 
 
-@torch.no_grad()
-def candidate_table(points: torch.Tensor, isigmas: torch.Tensor,
-                    pos_c: torch.Tensor) -> torch.Tensor:
-    """(nb, M, 16) feature rows of every supertile's candidates (``pos_c``
-    gathers them per image).  Built without autograd: the backward returns
-    the Gaussians' gradients directly, never through the gather (whose
-    backward would be a float atomic scatter on CUDA)."""
-    return _gather_candidates(feature_table(points, isigmas), pos_c, points.shape[0])
-
-
-def _gather_candidates(table: torch.Tensor, pos_c: torch.Tensor, B: int) -> torch.Tensor:
-    """(nb, M, 16) rows of the (B * P, 16) ``table`` that ``pos_c`` names."""
-    with trace.span("voge.select.gather"):
-        nb, M = pos_c.shape
-        P = table.shape[0] // B
-        img_row = torch.arange(nb, device=table.device)[:, None] // (nb // B)
-        return table[(img_row * P + pos_c).reshape(-1)].reshape(nb, M, FEAT).contiguous()
-
-
 def gather_back_rows(rows: torch.Tensor, dst) -> torch.Tensor:
     """Per-Gaussian sums of per-slot rows through the inverse emission map
     (counterpart of ``voge_tpu.ops.pallas_attr.gather_back_rows``).  No
@@ -240,8 +220,8 @@ class FineSelect(torch.autograd.Function):
     (B, P, d) or None, and ``origins`` (B, 3) or None: camera centres that
     ``points`` were centred on outside autograd, whose gradient is minus the
     sum of the points' gradient over each image; ``cand`` is the coarse
-    stage's output.  The forward builds the (B * P, 16) feature table and
-    gathers the candidate rows from it under no autograd, and runs K2.  The
+    stage's output.  The forward builds the (B * P, 16) feature table under
+    no autograd and runs K2, which reads the candidates' rows from it by id.  The
     backward runs K3 on the saved table, whose per-Gaussian rows are the
     gradients, when the points, the precisions or the attributes need one;
     else (a frozen scene) K3's per-ray half alone, one launch with the fold
@@ -254,11 +234,10 @@ class FineSelect(torch.autograd.Function):
     def forward(ctx, points, isigmas, rays, attrs, origins, cand, K, agg_ow, camera_grad):
         with trace.span("voge.select"):
             table = feature_table(points, isigmas)
-            table_c = _gather_candidates(table, cand.pos_c, points.shape[0])
             attr_rows = None
             if attrs is not None:
                 attr_rows = attrs.to(torch.float32).reshape(-1, attrs.shape[-1]).contiguous()
-            out = fine_select(rays, table_c, cand.bits_c, cand.ids_c, cand.counts_c,
+            out = fine_select(rays, table, cand.bits_c, cand.ids_c, cand.counts_c,
                               cand.thr_act, K, cand.bin_size, agg_ow, attr_rows)
             ctx.mark_non_differentiable(out[0])
             ctx.set_materialize_grads(False)

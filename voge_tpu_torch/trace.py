@@ -28,8 +28,8 @@ Spans, by layer:
 - ``voge.grouping``: ``ops.cuda_attr.slot_runs``, wherever it is called.
 - ``voge.select``: the select's forwards (``FineSelect``,
   ``FineSelectGlobal``, ``RayTraceFine``), with ``voge.select.table``
-  (``feature_table``), ``voge.select.gather`` (the candidate rows' gather)
-  and ``voge.select.cull`` (the global entry's cone cull).
+  (``feature_table``) and ``voge.select.cull`` (the global entry's cone
+  cull).
 - ``voge.fine_bwd``: the select's backward (``FineSelect.backward``,
   ``ops.fine.global_backward``).
 - ``voge.attr`` / ``voge.attr_bwd``: the attribute merge
@@ -53,6 +53,9 @@ Counters:
   counts the two-level cull's level 1, so it shows that the route engaged;
   ``launch.feature_similarity`` the similarity kernel's calls
   (``ops.cuda_similarity``), so it shows that pose scoring took it;
+- ``select.copy_bytes_avoided``: the bytes a per-slot copy of the candidates'
+  feature rows would write, 64 a compacted slot (host), which K2's compacted
+  entry spares by staging each row from the feature table by its id;
 - ``cull.level1_pairs``: (super-tile, Gaussian) pairs level 1 tests (host);
   ``cull.kept_rows``: the Gaussians its masks keep, over every super-tile
   (device): their ratio is the keep rate, and ``kept_rows`` the rows that
