@@ -98,6 +98,9 @@ PATH_KERNELS = {
     "frozen_300k_step": ("fine_select_global", "fine_bwd_rays"),
     "pose_score_and_refine": (*COARSE, "fine_select", "fine_bwd_rays", "attr_merge", "attr_dw",
                               "feature_similarity"),
+    # refine_pose over a batch: the frozen scene's per-ray half, the merge's
+    # weight gradient, the similarity's plain expression under the gradient
+    "pose_refine_batch": (*COARSE, "fine_select", "fine_bwd_rays", "attr_merge", "attr_dw"),
     "occlusion_step": (*COARSE, "fine_select", "fine_bwd", "attr_merge", "attr_merge_bwd"),
     "batch8_step": (*COARSE, "fine_select", "fine_bwd"),
 }

@@ -1349,6 +1349,54 @@ def test_pose_refinement_camera_gradients(dev, pose):
         grad_err(a, b, f"pose refinement camera gradient {n}")
 
 
+def test_batched_pose_refinement_at_b8(dev, pose):
+    """``refine_pose`` of the pose batch's 8 cameras at once, 3 Adam steps,
+    each pose offset from its camera and refined against its own target
+    (the headline scene with 128 seeded features, as the benchmark's
+    ``cuboid10k.refine_b32``): per step one launch of K3's per-ray half, no
+    per-Gaussian K3, ``attr_dw`` launched and no similarity kernel under the
+    gradient; two runs equal to the bit; kernel path against plain path."""
+    steps = 3
+    scorer = pose["scorer"]
+    feats = seeded((scorer.verts.shape[0], 128), dev, 115)
+    feats = feats / torch.linalg.norm(feats, dim=-1, keepdim=True)
+    s128 = vt.PoseHypothesisScorer(scorer.verts, scorer.sigmas, feats, focal=300.0,
+                                   principal=(128.0, 128.0), image_size=POSE_HW, max_assign=20,
+                                   chunk=POSE_B, device=dev)
+    with torch.no_grad():
+        targets = s128.render_features(pose["R"], pose["T"])[0]
+    true = torch.tensor([[6.0, math.radians(e), math.radians(a), 0.0] for e, a in
+                         zip(np.linspace(5, 25, POSE_B), np.linspace(50, 90, POSE_B))], device=dev)
+    offset = torch.tensor([0.2, math.radians(3.0), math.radians(-6.0), math.radians(4.0)],
+                          device=dev)
+    init = true + offset * torch.linspace(-1, 1, POSE_B, device=dev)[:, None]
+
+    def run():
+        p, sims = vt.refine_pose(s128, targets, init, steps=steps, lr=0.02)
+        return torch.stack([p[k] for k in ("dist", "elev", "azim", "theta")], -1), sims
+
+    with main_path(PATH_KERNELS["pose_refine_batch"], kernels_only=True) as counts:
+        pose_k, sim_k = run()
+    assert counts["fine_bwd_rays"] == steps and counts["fine_bwd"] == 0 \
+        and counts["fine_bwd_gauss"] == 0, f"batched refinement: K3's routes {counts}"
+    assert counts["attr_dw"] == steps and counts["attr_merge_bwd"] == 0, \
+        f"batched refinement: the merge's backward {counts}"
+    assert counts["feature_similarity"] == 0, \
+        "batched refinement: the similarity kernel ran under the gradient"
+    assert counts["slot_runs"] == counts["emit_rows"], \
+        "batched refinement: a grouping ran outside the coarse stage"
+    again = run()
+    assert torch.equal(pose_k, again[0]) and torch.equal(sim_k, again[1]), \
+        "batched refinement: two runs differ"
+    assert (pose_k - init).abs().max().item() > 0.02, "batched refinement: the poses did not move"
+    with plain_path():
+        pose_p, sim_p = run()
+    e_po = (pose_k - pose_p).abs().max().item()
+    e_sim = (sim_k - sim_p).abs().max().item()
+    assert e_po <= POSE_TOL and e_sim <= SCORE_TOL, \
+        f"batched refinement kernel vs plain path: poses {e_po:.3e}, similarities {e_sim:.3e}"
+
+
 def test_occlusion_step_against_its_golden_file(dev, monkeypatch):
     """``bench.py:140-186``'s occlusion step at full width (6,778 Gaussians,
     400x400, K = 60, ``max_point_per_bin=1500``; K1, K2, K3, K3f, K4b): the

@@ -17,7 +17,7 @@ camera pose.  Here:
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -118,30 +118,47 @@ class PoseHypothesisScorer(nn.Module):
 
 
 def refine_pose(scorer: PoseHypothesisScorer, target_feature_map: torch.Tensor,
-                init_pose: Tuple[float, float, float, float], steps: int = 100,
-                lr: float = 0.02) -> Tuple[Dict[str, torch.Tensor], float]:
-    """Refine a pose (dist, elev, azim, theta; radians) by gradient ascent on
+                init_pose, steps: int = 100, lr: float = 0.02):
+    """Refine poses (dist, elev, azim, theta; radians) by gradient ascent on
     the feature similarity with ``torch.optim.Adam(lr)`` (``voge_tpu``:
     ``optax.adam(lr)``; both divide by ``sqrt(v_hat) + 1e-8``): the NeMo
     render-and-compare inner loop.
 
+    One pose: ``init_pose`` four floats, ``target_feature_map`` (H, W, C) or
+    (1, H, W, C).  A batch of B poses: ``init_pose`` a (B, 4) tensor or four
+    (B,) tensors, ``target_feature_map`` (B, H, W, C), one map a pose (or
+    one map for all).  Each step renders the B poses at once and minimises
+    ``-feature_similarity(pred, target).sum()``, so each pose gets its own
+    gradient; Adam is elementwise, so the batch is B independent
+    refinements.  A batch's results stay on the device: no read a call.
+
     :return: (refined pose as a dict of scalar tensors, the similarity at the
-        last step's start)
+        last step's start as a float); for a batch, the dict's tensors and
+        the similarities are (B,)
     """
     device = scorer.verts.device
-    params = {k: torch.tensor(float(v), dtype=torch.float32, device=device,
-                              requires_grad=True)
-              for k, v in zip(("dist", "elev", "azim", "theta"), init_pose)}
+    names = ("dist", "elev", "azim", "theta")
+    cols = (init_pose.unbind(-1) if torch.is_tensor(init_pose) and init_pose.ndim == 2
+            else init_pose)
+    params = {k: torch.as_tensor(v, dtype=torch.float32, device=device).detach().clone()
+              .requires_grad_(True) for k, v in zip(names, cols)}
+    scalar, n = params["dist"].ndim == 0, params["dist"].numel()
     target = target_feature_map
     if target.ndim == 3:
         target = target[None]
     opt = torch.optim.Adam(list(params.values()), lr=lr)
-    loss = torch.tensor(float("inf"))
-    for _ in range(steps):
-        opt.zero_grad(set_to_none=True)
-        R, T = pose_matrices(*(params[k][None] for k in ("dist", "elev", "azim", "theta")))
-        pred, _ = scorer.render_features(R, T)
-        loss = -feature_similarity(pred, target)[0]
-        loss.backward()
-        opt.step()
-    return {k: v.detach() for k, v in params.items()}, -loss.item()
+    sim = torch.full((n,), float("-inf"))
+    with trace.span("voge.refine"):
+        trace.count("refine.poses", n)
+        for _ in range(steps):
+            opt.zero_grad(set_to_none=True)
+            with trace.span("voge.refine.pose"):
+                R, T = pose_matrices(*(params[k].reshape(-1) for k in names))
+            pred, _ = scorer.render_features(R, T)
+            sim = feature_similarity(pred, target)
+            (-sim.sum()).backward()
+            with trace.span("voge.refine.adam"):
+                opt.step()
+            trace.count("refine.steps")
+    poses = {k: v.detach() for k, v in params.items()}
+    return (poses, sim[0].item()) if scalar else (poses, sim.detach())

@@ -39,6 +39,9 @@ Spans, by layer:
   its grouping inside as ``voge.grouping``) and its backward.
 - ``voge.similarity``: ``models.pose.feature_similarity`` (on its
   no-gradient route the two kernels of ``ops.cuda_similarity``).
+- ``voge.refine``: a ``models.pose.refine_pose`` call, with
+  ``voge.refine.pose`` (a step's poses to (R, T), ``pose_matrices``) and
+  ``voge.refine.adam`` (the optimizer's step).
 
 Counters:
 
@@ -56,6 +59,8 @@ Counters:
 - ``select.copy_bytes_avoided``: the bytes a per-slot copy of the candidates'
   feature rows would write, 64 a compacted slot (host), which K2's compacted
   entry spares by staging each row from the feature table by its id;
+- ``refine.steps``: ``refine_pose``'s steps run; ``refine.poses``: the
+  poses it refines, once a call (both host);
 - ``cull.level1_pairs``: (super-tile, Gaussian) pairs level 1 tests (host);
   ``cull.kept_rows``: the Gaussians its masks keep, over every super-tile
   (device): their ratio is the keep rate, and ``kept_rows`` the rows that
