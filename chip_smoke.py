@@ -19,8 +19,9 @@ their functions.  Phases:
      step; the texture chain and a backward through the sampler; the
      two-stage tracer forward + backward; the 100,000-point forward; the
      300,000-point step; its frozen-scene step; pose scoring of 8 hypotheses
-     and one refinement step; the occlusion step; the headline step at
-     B = 8) with every plain version made to raise, each kernel the path
+     and one refinement step; one step refining 8 images at 128 features;
+     the occlusion step; the headline step at B = 8) with every plain
+     version made to raise, each kernel the path
      needs (``cuda_common.PATH_KERNELS``) launched, and the launches of each
      kernel wrapper counted by the port's tracing;
   3. the kernel table (PERF.md section 6): each kernel on a main path's
@@ -35,7 +36,9 @@ their functions.  Phases:
      the plain cone cull); rows 3, 12 and 10 (K3f, ``attr_dw``, K4b) at the
      headline and the texture shapes, device ms also with the inputs rotated
      past the L2 (``past_l2``); the similarity kernel at pose scoring's
-     (32, 256, 256, 128) (``similarity_row``); the coarse stage against its
+     (32, 256, 256, 128) (``similarity_row``) and its gradient's kernels at
+     pose refinement's (``similarity_grad_row``) and at the pose path's
+     scalar refinement (``similarity_scalar_row``); the coarse stage against its
      int64 route (``ops.coarse._emit_candidates_sorted``), equal to the bit
      and timed in turns, at the headline and texture shapes, with device ms,
      kernels, memsets and host reads a call; K2's compacted entry at the
@@ -77,8 +80,8 @@ from cuda_common import (  # noqa: E402
     CLOUD_HW, CLOUD_K, COARSE_KERNELS, KERNELS, MERGE_TOL, OCC_HW, OCC_K, OCC_MPPB,
     PATH_KERNELS, POSE_B, POSE_HW, SF_B, SF_HW, SF_K, SIM_TOL, TEX_HW, TEX_K, THR_ACT,
     batch8_cams, bench_loss, cloud_scene, cloud_step, equal_select, fitting_step, grad_err,
-    main_path, occlusion_scene, scene, seeded, shapefit_scene, stage_inputs, texture_chain,
-    texture_scene,
+    main_path, occlusion_scene, scene, seeded, shapefit_scene, sim_grad_err, stage_inputs,
+    texture_chain, texture_scene,
 )
 from portbench import roofline  # noqa: E402
 
@@ -563,6 +566,22 @@ def path_launches(dev, s, details):
         vt.refine_pose(scorer, target, (6.0, math.radians(12.0), math.radians(64.0), 0.0),
                        steps=1, lr=0.01)
 
+    def pose_refine_batch():
+        R, T = vt.look_at_view_transform(dist=[6.0] * POSE_B, elev=list(np.linspace(5, 25, POSE_B)),
+                                         azim=list(np.linspace(50, 90, POSE_B)), device=dev)
+        feats = seeded((g.verts.shape[0], 128), dev, 115)
+        scorer = vt.PoseHypothesisScorer(g.verts.detach(), g.sigmas.detach(),
+                                         feats / torch.linalg.norm(feats, dim=-1, keepdim=True),
+                                         focal=300.0, principal=(128.0, 128.0),
+                                         image_size=POSE_HW, max_assign=20, chunk=POSE_B,
+                                         device=dev)
+        with torch.no_grad():
+            targets = scorer.render_features(R, T)[0]
+        init = torch.tensor([[6.2, math.radians(e + 3.0), math.radians(a - 6.0), 0.05]
+                             for e, a in zip(np.linspace(5, 25, POSE_B),
+                                             np.linspace(50, 90, POSE_B))], device=dev)
+        vt.refine_pose(scorer, targets, init, steps=1, lr=0.02)
+
     def occlusion_step():
         verts, sig, col, cams_o = occlusion_scene(dev)
         leaves = [x.detach().requires_grad_(True) for x in (verts, sig, col)]
@@ -583,7 +602,8 @@ def path_launches(dev, s, details):
              "sampler_backward": sampler_backward, "two_stage_step": two_stage_step,
              "cloud_100k_forward": cloud_100k_forward, "cloud_300k_step": cloud_300k_step,
              "frozen_300k_step": frozen_300k_step, "pose_score_and_refine": pose_score_and_refine,
-             "occlusion_step": occlusion_step, "batch8_step": batch8_step}
+             "pose_refine_batch": pose_refine_batch, "occlusion_step": occlusion_step,
+             "batch8_step": batch8_step}
     if paths.keys() != PATH_KERNELS.keys():
         raise RuntimeError("chip_smoke: the paths are not cuda_common.PATH_KERNELS'")
     by_path, total = {}, dict.fromkeys(KERNELS, 0)
@@ -716,6 +736,119 @@ def similarity_row(dev, failures):
           f"{r['plain_ms']:.4f} ms, bound {b_ms:.5f} ms by {b_by} (share {b_ms / r['ms']:.4f} "
           f"event, {b_ms / r['device_ms']:.4f} device, {b_ms / r['device_ms_past_l2']:.4f} "
           f"device past the L2), library {r['library_ms']:.4f} ms (vs the kernel {e_lib:.3e})")
+    return r
+
+
+def similarity_grad_row(dev, failures):
+    """Row 14b: the similarity gradient's kernel at pose refinement's shape
+    (``cuboid10k.refine_b32``: a stack of 32 images against a target each),
+    against the gradient of ``-sim.sum()`` (one value expanded): held to
+    autograd of the plain version in float64 (``sim_grad_err``), two calls
+    equal to the bit; its CUDA-event and device ms (its 3.2 GB pass the L2
+    on every call), host µs a call, its bound (the stack and the targets
+    read once, the cotangent written once; 9 operations a (batch, pixel,
+    channel)), the plain version's ms (autograd's backward of the
+    expression, its graph kept), and autograd's backward of
+    ``cosine_similarity(...).mean((1, 2))`` as the library yardstick (the
+    port never calls it); then row 14c (``similarity_scalar_row``)."""
+    from voge_tpu_torch.ops.cuda_similarity import (
+        feature_similarity_grad, feature_similarity_grad_plain, feature_similarity_plain,
+    )
+
+    B, H, W, C = SIM_SHAPE
+    g = torch.Generator(dev).manual_seed(23)
+    target = torch.randn(SIM_SHAPE, generator=g, device=dev)
+    pred = 0.8 * target + torch.randn(SIM_SHAPE, generator=g, device=dev)
+    grad = torch.tensor(-1.0, device=dev).expand(B)
+    e = None
+    with recorded(failures, "kernel feature_similarity_grad against autograd of its plain version"):
+        got = feature_similarity_grad(pred, target, grad)
+        assert torch.equal(got, feature_similarity_grad(pred, target, grad)), "two runs differ"
+        want = feature_similarity_grad_plain(pred.double(), target.double(), grad.double())
+        e = sim_grad_err(got, want, pred, grad, "feature_similarity_grad")
+        del got, want
+
+    def backward_of(fn):
+        p = pred.detach().requires_grad_(True)
+        out = fn(p)
+        return lambda: torch.autograd.grad(out, p, grad, retain_graph=True)
+
+    call = lambda: feature_similarity_grad(pred, target, grad)
+    b_ms, b_by = bound(3 * nbytes(pred) + 4, B * H * W * C * 9)
+    r = dict(ms=cuda_ms(call, 20), device_ms=device_ms(call, 10), host_us=host_us(call, 50),
+             bound_ms=b_ms, bound_by=b_by, err=e)
+    r["plain_ms"] = cuda_ms(backward_of(lambda p: feature_similarity_plain(p, target)), 5)
+    r["library_ms"] = cuda_ms(backward_of(lambda p: torch.nn.functional.cosine_similarity(
+        p, target, dim=-1).mean((1, 2))), 5)
+    print(f"kernel feature_similarity_grad at refine_b32's shape {SIM_SHAPE} (a target an "
+          f"image): {r['ms']:.5f} ms (device {r['device_ms']:.5f}, host {r['host_us']:.2f} us a "
+          f"call), plain {r['plain_ms']:.4f} ms (autograd's backward), bound {b_ms:.5f} ms by "
+          f"{b_by} (share {b_ms / r['ms']:.4f} event, {b_ms / r['device_ms']:.4f} device), "
+          f"library {r['library_ms']:.4f} ms (autograd of cosine_similarity), against float64 "
+          + ("not held" if e is None else f"{e:.3e} of a row's scale"))
+    r["scalar"] = similarity_scalar_row(dev, failures)
+    return r
+
+
+SIM_SCALAR_SHAPE = (1, *POSE_HW, 3)     # the pose path's scalar refine_pose: 3 colour channels
+
+
+def similarity_scalar_row(dev, failures):
+    """Row 14c: the similarity's forward and its gradient's lane-loop kernel
+    (C = 3 takes ``cos_grad_lanes_kernel``) at the pose path's scalar
+    ``refine_pose``: one image of 3 channels against its target, rendered
+    features' range with background rows (all zero) in each, the gradient
+    of ``-sim.sum()`` through the public function as the refinement takes
+    it.  Each held to its plain version in float64 (``SIM_TOL``,
+    ``sim_grad_err``), two calls equal to the bit, one launch each; the
+    gradient's CUDA-event and device ms against its bound (launch-bound at
+    this size)."""
+    from voge_tpu_torch import trace
+    from voge_tpu_torch.ops.cuda_similarity import (
+        feature_similarity, feature_similarity_grad, feature_similarity_grad_plain,
+        feature_similarity_plain,
+    )
+
+    B, H, W, C = SIM_SCALAR_SHAPE
+    g = torch.Generator(dev).manual_seed(29)
+    target = torch.rand(SIM_SCALAR_SHAPE, generator=g, device=dev)
+    pred = (target + 0.05 * torch.randn(SIM_SCALAR_SHAPE, generator=g, device=dev)).clamp(min=0)
+    target[:, : H // 4] = 0                # background of the target alone
+    pred[:, H // 4: H // 2] = 0            # of the render alone
+    pred[:, -H // 8:] = 0                  # of both
+    target[:, -H // 8:] = 0
+    grad = torch.tensor(-1.0, device=dev).expand(B)
+
+    def refine_grad():
+        p = pred.detach().requires_grad_(True)
+        return torch.autograd.grad(-feature_similarity(p, target).sum(), p)[0]
+
+    e = e_fwd = None
+    with recorded(failures, "kernels feature_similarity and feature_similarity_grad at the "
+                            "scalar refine's shape against their plain versions"):
+        with trace.tracing():
+            sim, got = feature_similarity(pred, target), refine_grad()
+            torch.cuda.synchronize()
+            counts = trace.counts()
+        assert counts.get("launch.feature_similarity") == 2 \
+            and counts.get("launch.feature_similarity_grad") == 1, counts
+        assert torch.equal(sim, feature_similarity(pred, target)), "two forward runs differ"
+        assert torch.equal(got, refine_grad()), "two gradient runs differ"
+        e_fwd = (sim.double() - feature_similarity_plain(pred.double(), target.double())) \
+            .abs().max().item()
+        assert e_fwd <= SIM_TOL, f"forward vs plain in float64 {e_fwd:.3e}"
+        want = feature_similarity_grad_plain(pred.double(), target.double(), grad.double())
+        e = sim_grad_err(got, want, pred, grad, "feature_similarity_grad (scalar refine)")
+
+    call = lambda: feature_similarity_grad(pred, target, grad)
+    b_ms, b_by = bound(3 * nbytes(pred) + 4, B * H * W * C * 9)
+    r = dict(ms=cuda_ms(call, 50), device_ms=device_ms(call, 20), host_us=host_us(call, 50),
+             bound_ms=b_ms, bound_by=b_by, err=e, fwd_err=e_fwd)
+    print(f"kernel feature_similarity_grad at the scalar refine's shape {SIM_SCALAR_SHAPE} "
+          f"(the lane loop): {r['ms']:.5f} ms (device {r['device_ms']:.5f}, host "
+          f"{r['host_us']:.2f} us a call), bound {b_ms:.5f} ms by {b_by} (share "
+          f"{b_ms / r['device_ms']:.4f} device), against float64 "
+          + ("not held" if e is None else f"{e:.3e} of a row's scale, the forward {e_fwd:.3e}"))
     return r
 
 
@@ -982,6 +1115,14 @@ def kernel_table(dev, s, launches, details):
                      launches=launches["feature_similarity"],
                      **{k: sim[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                             "device_ms", "device_ms_past_l2", "host_us")}))
+    sim_g = details["similarity_grad"] = similarity_grad_row(dev, details["failures"])
+    _, src, rep = KERNELS["feature_similarity_grad"]
+    print("kernel feature_similarity_grad: launches on the main paths "
+          f"{launches['feature_similarity_grad']}")
+    kern.append(dict(name="feature_similarity_grad", route="cuda", source=src, replaces=rep,
+                     launches=launches["feature_similarity_grad"],
+                     **{k: sim_g[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                              "library_ms", "device_ms", "host_us")}))
     if len(kern) != len(KERNELS):
         raise RuntimeError("chip_smoke: the kernels line does not list every entry")
 

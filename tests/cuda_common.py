@@ -17,7 +17,9 @@ knife-edge pixels (< 0.1% flipped); len / act / dsd rtol 1e-5 atol 1e-5;
 weights and images atol 1e-4 on agreeing pixels.  Backward kernels against
 their plain versions: max |kernel - plain| <= 1e-4 max |plain| per tensor.
 K3f against its plain version: 1e-5 absolute.  The similarity kernel
-against its plain version in float64: 1e-6 absolute.
+against its plain version in float64: 1e-6 absolute; its gradient's kernel
+against autograd of the plain version in float64: 2e-6 of each row's scale
+(``sim_grad_err``).
 """
 from __future__ import annotations
 
@@ -71,9 +73,12 @@ KERNELS = {  # PERF.md section 6's kernels -> (library, source, replaced TPU ker
     # port of the scatter kernel, whose one-hot match it replaces
     "slot_runs": ("slot_runs", "voge_tpu_torch/csrc/slot_runs.cu",
                   "voge_tpu/ops/pallas_attr.py:168"),
-    # pose scoring's similarity, which voge_tpu leaves to XLA
+    # pose scoring's similarity and its gradient in the stack, which
+    # voge_tpu leaves to XLA
     "feature_similarity": ("similarity", "voge_tpu_torch/csrc/similarity.cu",
                            "none: XLA (voge_tpu/models/pose.py)"),
+    "feature_similarity_grad": ("similarity", "voge_tpu_torch/csrc/similarity.cu",
+                                "none: XLA's VJP (voge_tpu/models/pose.py)"),
 }
 LAUNCHERS = tuple(KERNELS)   # their wrappers, each counted as ``launch.<name>``
 # the coarse stage's kernels, which no other path launches, and with the
@@ -97,10 +102,11 @@ PATH_KERNELS = {
                         "slot_runs"),
     "frozen_300k_step": ("fine_select_global", "fine_bwd_rays"),
     "pose_score_and_refine": (*COARSE, "fine_select", "fine_bwd_rays", "attr_merge", "attr_dw",
-                              "feature_similarity"),
+                              "feature_similarity", "feature_similarity_grad"),
     # refine_pose over a batch: the frozen scene's per-ray half, the merge's
-    # weight gradient, the similarity's plain expression under the gradient
-    "pose_refine_batch": (*COARSE, "fine_select", "fine_bwd_rays", "attr_merge", "attr_dw"),
+    # weight gradient, the similarity and its gradient
+    "pose_refine_batch": (*COARSE, "fine_select", "fine_bwd_rays", "attr_merge", "attr_dw",
+                          "feature_similarity", "feature_similarity_grad"),
     "occlusion_step": (*COARSE, "fine_select", "fine_bwd", "attr_merge", "attr_merge_bwd"),
     "batch8_step": (*COARSE, "fine_select", "fine_bwd"),
 }
@@ -119,6 +125,7 @@ FLIP_MAX, LAD_TOL, W_TOL = 1e-3, 1e-5, 1e-4
 GRAD_TOL = 1e-4      # backward kernels against their plain versions, of the largest entry
 MERGE_TOL = 1e-5     # K3f against its plain version, absolute
 SIM_TOL = 1e-6       # the similarity kernel against its plain version in float64, absolute
+SIM_GRAD_TOL = 2e-6  # its gradient's kernel against autograd in float64, of a row's scale
 
 
 # ---- scenes ------------------------------------------------------------------
@@ -306,6 +313,23 @@ def grad_err(got, want, what=""):
     return e
 
 
+def sim_grad_err(got, want, pred, grad, what=""):
+    """The similarity gradient's kernel (``got``) against autograd of the
+    plain version in float64 (``want``) on float32 ``pred`` (B, H, W, C) and
+    ``grad`` (B,): the largest gap, each row's scaled by n_pix / |grad[b]| x
+    (|p| + 1e-8), within SIM_GRAD_TOL.  A row's gradient is that scale's
+    inverse times a sum of two terms each at most 1 (a unit vector's entries;
+    a background pixel, p = 0, only the first, 1e8 times a foreground
+    pixel's), so the measure is float32's rounding of each row alone (float32
+    autograd of the expression reads ~1e-7)."""
+    n_pix = pred.shape[1] * pred.shape[2]
+    scale = (n_pix / grad.double().abs())[:, None, None, None] \
+        * (torch.linalg.norm(pred.double(), dim=-1, keepdim=True) + 1e-8)
+    e = ((got.double() - want) * scale).abs().max().item()
+    assert e <= SIM_GRAD_TOL, f"{what}: kernel vs autograd in float64 {e:.3e} of a row's scale"
+    return e
+
+
 def hold_runs(idx, n_rows):
     """``slot_runs`` against its plain version (torch.sort + searchsorted):
     the run starts and the valid prefix of ``order`` equal to the bit, two
@@ -350,6 +374,7 @@ def plain_path():
         coarse, cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd, cuda_similarity, fine,
     )
 
+    # the similarity's wrapper takes its gradient's kernel too
     swaps = [(cuda_similarity, "feature_similarity", cuda_similarity.feature_similarity_plain),
              (coarse, "emit_rows", cuda_coarse.emit_rows_plain),
              (coarse, "slot_runs", cuda_attr.slot_runs_plain),
@@ -380,14 +405,17 @@ def plain_path():
 def no_plain_version():
     """Make every kernel's plain version, and the coarse stage's int64 route,
     raise: a main path inside it ran on the kernels alone."""
-    from voge_tpu_torch.ops import coarse, cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd
+    from voge_tpu_torch.ops import (
+        coarse, cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd, cuda_similarity,
+    )
 
     def refuse(name):
         def fn(*_a, **_k):
             raise RuntimeError(f"the plain version {name} ran on the main path")
         return fn
 
-    saved = [(m, n, getattr(m, n)) for m in (cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd)
+    saved = [(m, n, getattr(m, n))
+             for m in (cuda_attr, cuda_coarse, cuda_fine, cuda_fine_bwd, cuda_similarity)
              for n in dir(m) if n.endswith("_plain")]
     saved.append((coarse, "_emit_candidates_sorted", coarse._emit_candidates_sorted))
     try:

@@ -1275,9 +1275,10 @@ def pose(dev, head):
 def test_pose_scoring_and_refinement_at_b8(pose):
     """``PoseHypothesisScorer.score`` of 8 hypotheses in one chunk and three
     ``refine_pose`` steps (K1, K2, K3f, K4b's d_w half, the similarity
-    kernel once, K3's per-ray half alone, no grouping outside the coarse
-    stage): the steps equal to the bit to the same steps with K3 whole;
-    kernel path against plain path."""
+    kernel once for the score and once a step, its gradient's kernel once a
+    step, K3's per-ray half alone, no grouping outside the coarse stage):
+    the steps equal to the bit to the same steps with K3 whole; kernel path
+    against plain path."""
     scorer, Rh, Th, target = pose["scorer"], pose["R"], pose["T"], pose["target"]
     with torch.no_grad():
         frag = vt.render_pipeline(scorer.verts, scorer.sigmas, Rh, Th,
@@ -1297,8 +1298,8 @@ def test_pose_scoring_and_refinement_at_b8(pose):
         and counts["fine_bwd_rays"] == 3, "pose refinement: K3's per-Gaussian pass ran"
     assert counts["slot_runs"] == counts["emit_rows"], \
         "pose refinement: a grouping ran outside the coarse stage"
-    assert counts["feature_similarity"] == 1, \
-        "pose: score's chunk did not take the similarity kernel once, or refinement took it"
+    assert counts["feature_similarity"] == 1 + 3 and counts["feature_similarity_grad"] == 3, \
+        "pose: score's chunk and each refinement step did not take the similarity kernels"
     scorer.verts.requires_grad_(True)
     try:
         with trace.tracing():
@@ -1354,8 +1355,9 @@ def test_batched_pose_refinement_at_b8(dev, pose):
     each pose offset from its camera and refined against its own target
     (the headline scene with 128 seeded features, as the benchmark's
     ``cuboid10k.refine_b32``): per step one launch of K3's per-ray half, no
-    per-Gaussian K3, ``attr_dw`` launched and no similarity kernel under the
-    gradient; two runs equal to the bit; kernel path against plain path."""
+    per-Gaussian K3, ``attr_dw``, the similarity kernel and its gradient's
+    kernel launched; two runs equal to the bit; kernel path against plain
+    path."""
     steps = 3
     scorer = pose["scorer"]
     feats = seeded((scorer.verts.shape[0], 128), dev, 115)
@@ -1381,8 +1383,8 @@ def test_batched_pose_refinement_at_b8(dev, pose):
         and counts["fine_bwd_gauss"] == 0, f"batched refinement: K3's routes {counts}"
     assert counts["attr_dw"] == steps and counts["attr_merge_bwd"] == 0, \
         f"batched refinement: the merge's backward {counts}"
-    assert counts["feature_similarity"] == 0, \
-        "batched refinement: the similarity kernel ran under the gradient"
+    assert counts["feature_similarity"] == steps and counts["feature_similarity_grad"] == steps, \
+        f"batched refinement: the similarity's kernels {counts}"
     assert counts["slot_runs"] == counts["emit_rows"], \
         "batched refinement: a grouping ran outside the coarse stage"
     again = run()

@@ -1,29 +1,37 @@
 // The mean cosine similarity over pixels of a feature stack against a target
 // feature map: out[b] = mean_pix dot(p, t) / ((|p| + 1e-8) (|t| + 1e-8)),
-// pred (B, H, W, C), target (B or 1, H, W, C), the no-gradient forward of
-// models/pose.py::feature_similarity (pose scoring).
+// pred (B, H, W, C), target (B or 1, H, W, C), the forward of
+// models/pose.py::feature_similarity (pose scoring, pose refinement), and
+// its gradient in pred (pose refinement's backward).
 //
-// Replaces no TPU kernel: voge_tpu/models/pose.py leaves the similarity to
-// XLA, which fuses it.  In PyTorch it was nine passes (the two norms, the two
-// divides, the product, the sum over channels, the mean), each streaming the
-// (B, H, W, C) stack or a stack-sized temporary through DRAM, the target
-// expanded to the stack's shape.
+// Replaces no TPU kernel: voge_tpu/models/pose.py leaves the similarity and
+// its VJP to XLA, which fuses each.  In PyTorch the forward was nine passes
+// (the two norms, the two divides, the product, the sum over channels, the
+// mean), each streaming the (B, H, W, C) stack or a stack-sized temporary
+// through DRAM, the target expanded to the stack's shape; autograd's
+// backward of that chain about a dozen more.
 //
-// What bounds it on the H100: DRAM bytes.  The work reads the stack once and
-// the target once and writes B floats: at pose scoring's (32, 256, 256, 128)
-// that is 1.074 GB + 33.5 MB, 0.330 ms at 3.35 TB/s; a pixel's 128 channels
-// take 3 x 128 FMAs, far under the card's rate.  So the design reads each
+// What bounds both on the H100: DRAM bytes.  The forward reads the stack
+// once and the target once and writes B floats: at pose scoring's
+// (32, 256, 256, 128) that is 1.074 GB + 33.5 MB, 0.330 ms at 3.35 TB/s.
+// The backward reads the stack and the target once more and writes the
+// cotangent once: at pose refinement's (32, 256, 256, 128) with a target a
+// pose, 3.22 GB, 0.96 ms.  A pixel's 128 channels take 3 x 128 FMAs (the
+// backward 5 x 128), far under the card's rate.  So the design reads each
 // byte once and keeps enough loads in flight:
 // - a block owns a tile of pixels and loops over (up to kBatch of) the batch
 //   inside; eight lanes take one pixel row, a lane 16-byte loads of 4
 //   channels (C = 128: four loads a lane, 128 contiguous bytes an eight-lane
 //   group a load, so every sector is used);
-// - a target shared by the batch (batch stride 0, as score's expand gives) is
-//   read once a pixel into registers and held across the batch loop, so the
-//   target crosses DRAM once, not B times;
+// - in the forward, a target shared by the batch (batch stride 0, as score's
+//   expand gives) is read once a pixel into registers and held across the
+//   batch loop, so the target crosses DRAM once, not B times (the backward,
+//   whose callers send a target an image or B = 1, reads it beside each
+//   stack row);
 // - the batch loop is unrolled by kUnroll, so a lane has 4 x kUnroll
 //   independent 16-byte loads of the stack in flight; they are streaming
-//   loads (evict-first), since each byte is read exactly once;
+//   loads (evict-first), since each byte is read exactly once; the
+//   backward's cotangent rows are streaming stores;
 // - C that is not a multiple of 4, over 128, or rows not 16-byte aligned,
 //   take a general lane loop of 4-byte loads.
 // Per (b, pixel) the dot product and |p|^2 (|t|^2 once a pixel) are reduced
@@ -31,7 +39,17 @@
 // no float atomics: each group's cosines land in shared memory, the block
 // sums them in pixel order (float64) into one partial a (b, tile), and
 // cos_finish_kernel each b's partials in one fixed order (float64), divided
-// by the pixel count: the same inputs give the same bits on every call.
+// by the pixel count: the same inputs give the same bits on every call.  The
+// backward has no sum across pixels, so no atomics either.
+//
+// The gradient (cos_grad_kernel) is the exact VJP of the expression
+// models/pose.py's plain version evaluates,
+//   pn = p / (|p| + 1e-8), tn = t / (|t| + 1e-8), out[b] = mean_pix pn . tn:
+// with s = g[b] / n_pix, r = s / (|t| + 1e-8), q = |p| + 1e-8,
+//   d p = (r / q) t - [|p| > 0] (r dot(p, t) / q^2 / |p|) p,
+// staged as autograd stages it (the divide's two gradients, then the norm's,
+// which is 0 at a zero row, as PyTorch's norm backward gives); a background
+// pixel (p = 0) keeps the first term.  g is read from the device.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -167,6 +185,121 @@ __global__ void __launch_bounds__(kFinishThreads)
   if (threadIdx.x == 0) out[blockIdx.x] = (float)(s[0] / (double)n_pix);
 }
 
+struct GradArgs {
+  const float* pred;      // batch stride pred_bs, dense (H, W, C) rows
+  const float* target;    // batch stride target_bs (0: one map for the batch)
+  const float* grad;      // (B,) at stride grad_stride (0: one value for the batch)
+  float* out;             // (B, H, W, C), dense
+  long long pred_bs, target_bs, grad_stride, n_pix;
+  int B, C;
+};
+
+// The two coefficients of a (b, pixel)'s cotangent row, a t + c p, from the
+// gradient of its mean (s = g[b] / n_pix) and the row's reductions.
+__device__ __forceinline__ void grad_coefs(float s, float dot, float pp, float tt,
+                                           float& a, float& c) {
+  const float np = sqrtf(pp), q = np + 1e-8f;
+  const float r = s / (sqrtf(tt) + 1e-8f);
+  a = r / q;
+  c = np > 0.f ? -(r * dot) / (q * q) / np : 0.f;
+}
+
+__device__ __forceinline__ float4 axpy4(float a, float4 t, float c, float4 p) {
+  return make_float4(fmaf(c, p.x, a * t.x), fmaf(c, p.y, a * t.y), fmaf(c, p.z, a * t.z),
+                     fmaf(c, p.w, a * t.w));
+}
+
+// The vectorised rows (C a multiple of 4 up to 128, 16-byte aligned): the
+// stack's and the target's rows are loaded side by side, streaming, a
+// target for the batch (batch stride 0) as one a batch.  Every thread of the
+// block runs every iteration, so the shuffles see whole warps; a pixel past
+// the end, or a step past the block's last batch, loads and stores nothing.
+__global__ void __launch_bounds__(kThreads) cos_grad_kernel(const GradArgs p) {
+  const int g = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int b0 = blockIdx.y * kBatch, nb = min(kBatch, p.B - b0);
+  const long long pix = (long long)blockIdx.x * kTile + g;
+  const bool live = pix < p.n_pix;
+  const size_t row = live ? (size_t)pix * p.C : 0;
+  const long long out_bs = p.n_pix * p.C;
+  const float* prow = p.pred + (size_t)b0 * p.pred_bs + row;
+  const float* trow = p.target + (size_t)b0 * p.target_bs + row;
+  float* orow = p.out + (size_t)b0 * out_bs + row;
+  const float n = (float)p.n_pix;
+  const int n4 = p.C / 4;
+  bool has[kChunks];
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) has[j] = live && lane + j * kLanes < n4;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int b = 0; b < nb; b += kUnroll) {
+    float4 x[kUnroll][kChunks], y[kUnroll][kChunks];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const bool in = b + u < nb;
+      const float4* src = reinterpret_cast<const float4*>(prow + (size_t)(b + u) * p.pred_bs);
+      const float4* tsrc =
+          reinterpret_cast<const float4*>(trow + (size_t)(b + u) * p.target_bs);
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        x[u][j] = has[j] && in ? __ldcs(src + lane + j * kLanes) : zero;
+        y[u][j] = has[j] && in ? __ldcs(tsrc + lane + j * kLanes) : zero;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float dot = 0.f, pp = 0.f, tt = 0.f;
+#pragma unroll
+      for (int j = 0; j < kChunks; ++j) {
+        dot = dot4(x[u][j], y[u][j], dot);
+        pp = dot4(x[u][j], x[u][j], pp);
+        tt = dot4(y[u][j], y[u][j], tt);
+      }
+      dot = group_sum(dot);
+      pp = group_sum(pp);
+      tt = group_sum(tt);
+      if (b + u < nb) {
+        float a, c;
+        grad_coefs(__ldg(p.grad + (size_t)(b0 + b + u) * p.grad_stride) / n, dot, pp, tt, a, c);
+        float4* dst = reinterpret_cast<float4*>(orow + (size_t)(b + u) * out_bs);
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j)
+          if (has[j]) __stcs(dst + lane + j * kLanes, axpy4(a, y[u][j], c, x[u][j]));
+      }
+    }
+  }
+}
+
+// Any C and alignment: a lane loop of 4-byte loads reduces the row, a second
+// pass over the same (cached) row writes it.
+__global__ void __launch_bounds__(kThreads) cos_grad_lanes_kernel(const GradArgs p) {
+  const int g = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int b0 = blockIdx.y * kBatch, nb = min(kBatch, p.B - b0);
+  const long long pix = (long long)blockIdx.x * kTile + g;
+  const bool live = pix < p.n_pix;
+  const size_t row = live ? (size_t)pix * p.C : 0;
+  const long long out_bs = p.n_pix * p.C;
+  const float n = (float)p.n_pix;
+  for (int b = 0; b < nb; ++b) {
+    const float* pr = p.pred + (size_t)(b0 + b) * p.pred_bs + row;
+    const float* tr = p.target + (size_t)(b0 + b) * p.target_bs + row;
+    float dot = 0.f, pp = 0.f, tt = 0.f;
+    for (int c = lane; live && c < p.C; c += kLanes) {
+      const float x = __ldg(pr + c), y = __ldg(tr + c);
+      dot = fmaf(x, y, dot);
+      pp = fmaf(x, x, pp);
+      tt = fmaf(y, y, tt);
+    }
+    dot = group_sum(dot);
+    pp = group_sum(pp);
+    tt = group_sum(tt);
+    if (!live) continue;
+    float a, cf;
+    grad_coefs(__ldg(p.grad + (size_t)(b0 + b) * p.grad_stride) / n, dot, pp, tt, a, cf);
+    float* dst = p.out + (size_t)(b0 + b) * out_bs + row;
+    for (int c = lane; c < p.C; c += kLanes)
+      __stcs(dst + c, fmaf(cf, __ldg(pr + c), a * __ldg(tr + c)));
+  }
+}
+
 long long tiles(long long n_pix) { return (n_pix + kTile - 1) / kTile; }
 
 }  // namespace
@@ -213,5 +346,41 @@ extern "C" int voge_feature_similarity(const void* pred, const void* target,
   if (err != cudaSuccess) return (int)err;
   cos_finish_kernel<<<B, kFinishThreads, 0, s>>>((const double*)partial, a.n_tiles, n_pix,
                                                  (float*)out);
+  return (int)cudaGetLastError();
+}
+
+// out (B, H, W, C) float32, dense: the gradient in pred of
+// voge_feature_similarity's out against grad (B,) float32 at grad_stride
+// floats (0: one value for the batch).  pred and target as there.
+extern "C" int voge_feature_similarity_grad(const void* pred, const void* target,
+                                            const void* grad, long long pred_bs,
+                                            long long target_bs, long long grad_stride,
+                                            void* out, int B, long long n_pix, int C,
+                                            void* stream) {
+  if (B <= 0 || n_pix <= 0 || C <= 0 || pred_bs < 0 || target_bs < 0 || grad_stride < 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n_tiles = tiles(n_pix);
+  const long long n_batch_blocks = (B + kBatch - 1) / kBatch;
+  if (n_tiles > 0x7fffffffLL || n_batch_blocks > 65535) return (int)cudaErrorInvalidValue;
+  GradArgs a;
+  a.pred = (const float*)pred;
+  a.target = (const float*)target;
+  a.grad = (const float*)grad;
+  a.out = (float*)out;
+  a.pred_bs = pred_bs;
+  a.target_bs = target_bs;
+  a.grad_stride = grad_stride;
+  a.n_pix = n_pix;
+  a.B = B;
+  a.C = C;
+  const bool vec = C % 4 == 0 && C <= 4 * kChunks * kLanes && pred_bs % 4 == 0 &&
+                   target_bs % 4 == 0 && ((uintptr_t)pred & 15) == 0 &&
+                   ((uintptr_t)target & 15) == 0 && ((uintptr_t)out & 15) == 0;
+  const dim3 grid((unsigned)n_tiles, (unsigned)n_batch_blocks);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    cos_grad_kernel<<<grid, kThreads, 0, s>>>(a);
+  else
+    cos_grad_lanes_kernel<<<grid, kThreads, 0, s>>>(a);
   return (int)cudaGetLastError();
 }

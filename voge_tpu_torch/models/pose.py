@@ -45,13 +45,15 @@ def pose_matrices(dist, elev, azim, theta=None, degrees: bool = False, device=No
 def feature_similarity(pred: torch.Tensor, target: torch.Tensor, mask=None) -> torch.Tensor:
     """Mean cosine similarity over pixels, (B,); pred / target (B, H, W, C).
 
-    Float32 inputs with no mask and no gradient wanted (``score``, under
-    ``no_grad``) take ``ops.cuda_similarity.feature_similarity``: one pass
-    over the stack on the card.  Everything else (``refine_pose``'s pose
-    gradient, a mask, other dtypes) takes the differentiable expression."""
+    Float32 inputs with no mask and no gradient wanted in the target take
+    ``ops.cuda_similarity.feature_similarity``: on the card one pass over
+    the stack (``score``, under ``no_grad``) and, where pred needs a
+    gradient (``refine_pose``), one more pass in the backward.  Everything
+    else (a mask, a target that needs a gradient, other dtypes) takes the
+    differentiable expression, as CPU tensors do inside the wrapper."""
     with trace.span("voge.similarity"):
-        needs_grad = torch.is_grad_enabled() and (pred.requires_grad or target.requires_grad)
-        if mask is None and not needs_grad and pred.dtype == target.dtype == torch.float32:
+        target_grad = torch.is_grad_enabled() and target.requires_grad
+        if mask is None and not target_grad and pred.dtype == target.dtype == torch.float32:
             return cuda_similarity.feature_similarity(pred, target)
         return cuda_similarity.feature_similarity_plain(pred, target, mask)
 

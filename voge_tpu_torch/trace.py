@@ -37,8 +37,9 @@ Spans, by layer:
 - ``voge.sample`` / ``voge.sample_bwd``: the texture sampler
   (``sampler.SampleFeatures``: the scatter of image rows onto the Gaussians,
   its grouping inside as ``voge.grouping``) and its backward.
-- ``voge.similarity``: ``models.pose.feature_similarity`` (on its
-  no-gradient route the two kernels of ``ops.cuda_similarity``).
+- ``voge.similarity``: ``models.pose.feature_similarity`` (on the card the
+  two forward kernels of ``ops.cuda_similarity``; the gradient's kernel runs
+  in the backward, on autograd's thread, outside the span).
 - ``voge.refine``: a ``models.pose.refine_pose`` call, with
   ``voge.refine.pose`` (a step's poses to (R, T), ``pose_matrices``) and
   ``voge.refine.adam`` (the optimizer's step).
@@ -55,7 +56,9 @@ Counters:
   (their CUDA branch; the plain versions count nothing); ``launch.cull_lists``
   counts the two-level cull's level 1, so it shows that the route engaged;
   ``launch.feature_similarity`` the similarity kernel's calls
-  (``ops.cuda_similarity``), so it shows that pose scoring took it;
+  (``ops.cuda_similarity``), so it shows that pose scoring took it, and
+  ``launch.feature_similarity_grad`` its gradient's, so it shows that pose
+  refinement's backward took it (one a step);
 - ``select.copy_bytes_avoided``: the bytes a per-slot copy of the candidates'
   feature rows would write, 64 a compacted slot (host), which K2's compacted
   entry spares by staging each row from the feature table by its id;
